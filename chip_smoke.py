@@ -9,25 +9,35 @@ Phases (each prints its own lines; any failed check raises):
 
 1. environment: card name and power limit, torch / CUDA / nvcc / triton
    versions;
-2. build: ``nvcc`` compiles the GLS element kernel from
-   ``softx_2020_200_tpu_torch/csrc/gls_element.cu``;
-3. kernel parity and timing: the CUDA kernel against its plain PyTorch
-   version (primal, frozen-tau tangent, node-block probes) for Q1/Q2 in
-   2D/3D on non-affine geometry, without and with LSIC; then, at each of
-   the main path's shapes, the same comparison and kernel and plain
-   times;
-4. main path, 2D steady: Taylor-Couette (Q2 on a curved shell) at
-   refinements 3 and 5 (12,288 cells) through the
-   ``gls_navier_stokes_2d`` app on ``cuda``;
-5. main path, 3D transient: the Taylor-Green vortex on a periodic 32^3
-   Q1 box, BDF2, 3 steps, through ``gls_navier_stokes_3d``.
+2. build: ``nvcc`` compiles the GLS element kernel (B1,
+   ``csrc/gls_element.cu``) and the GLS lattice kernel (B2,
+   ``csrc/gls_lattice.cu``) of ``softx_2020_200_tpu_torch``, one process
+   each, in parallel, and prints ptxas's registers and spills;
+3. B1 against its plain PyTorch version (primal, frozen-tau tangent,
+   node-block probes) for Q1/Q2 in 2D/3D on non-affine geometry, without
+   and with LSIC; 3b: the same at B1's main-path shapes, then kernel and
+   plain times; 3c: B2 against its plain version on parity lattices with
+   a ragged tail, without and with LSIC, then at B2's main-path shapes
+   (every multigrid level of phases 6 and 7 included) with times;
+4. main path, 2D steady, B1: Taylor-Couette (Q2 on a curved shell) at
+   refinements 3 and 5 (12,288 cells) through ``gls_navier_stokes_2d``;
+5. main path, 3D transient, B2: the Taylor-Green vortex on a periodic
+   32^3 Q1 box, BDF2, 3 steps, block-Jacobi, through
+   ``gls_navier_stokes_3d``;
+6. the same TGV deck with its own ``auto`` preconditioner: geometric
+   multigrid on three lattice levels, every level on B2, with as many
+   FGMRES iterations as the JAX package and no host reads beyond the
+   solver loop's; one V-cycle is also applied alone with CUDA
+   synchronisation made an error;
+7. a Q2 lattice deck with multigrid (p-coarsening, then lattice halving):
+   the golden MMS deck at refinement 8 (256^2 Q2 cells).
 
-Phases 4 and 5 hold their physics numbers against the JAX package run
-on the CPU in float64 on the same decks (``JAX_REFERENCE`` below).  The
-line before the last lists the kernels with their launch counts in the
-main-path runs, errors and times; the last line of standard output is
-the JSON contract line ``{"ok": true, "device": {...}}``.
-Exits non-zero without CUDA.
+Phases 4-7 hold their physics numbers against the JAX package run on the
+CPU in float64 on the same decks (``JAX_REFERENCE`` below) and check
+which kernel each deck launched.  The line before the last lists the
+kernels with their launch counts in the main-path runs, errors, times
+and bounds; the last line of standard output is the JSON contract line
+``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -51,6 +61,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # package holds its TPU kernel to (tests/test_pallas_kernel.py)
 KERNEL_RTOL = 5e-6
 
+# The H100 SXM's published peaks (NVIDIA data sheet): HBM bytes/s and
+# float32 operations/s outside the tensor cores.  A kernel's bound is the
+# larger of its bytes (each input read once, each output written once)
+# over the first and its operations over the second.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_PER_S = 67e12
+
 # The main-path decks: the repo's examples, cut to size.
 #
 # Taylor-Couette runs twice.  At refinement 3 (768 Q2 cells) GMRES(100)
@@ -58,10 +75,11 @@ KERNEL_RTOL = 5e-6
 # against the JAX package.  At refinement 5 (12,288 cells, 149,760 DoF)
 # it does not: in the JAX package on the CPU in f64, block-Jacobi stalls
 # Newton at residual 4.0e-2 (L2 error 1.05e-1), and its default GMG falls
-# back to block-Jacobi on this mesh with the same result, so there is no
-# JAX value to hold the card against.  The card runs refinement 5 with
-# GMRES(1000) and 4 Newton iterations, and its L2 errors are held to
-# the decay the discretisation promises from the refinement-3 reference.
+# back to block-Jacobi on this mesh (a shell has no lattice hierarchy)
+# with the same result, so there is no JAX value to hold the card
+# against.  The card runs refinement 5 with GMRES(1000) and 4 Newton
+# iterations, and its L2 errors are held to the decay the discretisation
+# promises from the refinement-3 reference.
 def _tc(refinement: int):
     return [("initial refinement", str(refinement)),
             ("number mesh adapt", "0"),
@@ -81,22 +99,43 @@ DECKS = {
         ("time end", "0.15"),
         ("subsection linear solver", "set preconditioner = block_jacobi"),
     ]),
+    # the same three steps with the deck's own `auto` preconditioner:
+    # geometric multigrid on the lattices 32^3 -> 16^3 -> 8^3
+    "tgv32_gmg.prm": ("examples/tgv3d_re1600.prm", [("time end", "0.15")]),
+    # the golden Q2 MMS deck at refinement 8 (256^2 Q2 cells, 789,507
+    # DoF), the largest whose JAX CPU f64 run takes minutes (6 minutes on
+    # 8 cores; refinement 7 took 2): p-coarsening to Q1, then lattice
+    # halving (256^2 -> 128^2 -> 64^2 -> 32^2 -> 16^2)
+    "mms_q2_r8.prm": ("tests/golden/mms_bdf2.prm", [
+        ("initial refinement", "8"),
+        ("log precision", "8"),
+        ("subsection analytical solution", "set verbosity = verbose"),
+        ("text", ("subsection test\n  set enable = true",
+                  "subsection test\n  set enable = false")),
+    ]),
 }
 
-# The JAX package on the CPU in float64 on taylor_couette_r3.prm and
-# tgv32_3steps.prm, written by
+# The JAX package on the CPU in float64 on these decks, written by
 #   python3 chip_smoke.py --write-decks DIR && cd DIR &&
 #   SOFTX_NO_COMPILE_CACHE=1 JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 \
 #     PYTHONPATH=<repo> python -m softx_2020_200_tpu.apps.gls_navier_stokes_2d \
 #     taylor_couette_r3.prm
-#   (and python -m softx_2020_200_tpu.apps.gls_navier_stokes_3d
-#   tgv32_3steps.prm)
+#   (gls_navier_stokes_3d for the tgv32 decks; gls_navier_stokes_2d for
+#   mms_q2_r8.prm)
 JAX_REFERENCE = {
     "taylor_couette_r3.prm": {"l2_velocity": 1.16973573e-04,
                               "l2_pressure": 2.28645617e-05},
     "tgv32_3steps.prm": {
         "kinetic_energy": [1.225846e-01, 1.225584e-01, 1.225327e-01],
         "enstrophy": [3.686351e-01, 3.688408e-01, 3.692374e-01]},
+    "tgv32_gmg.prm": {
+        "kinetic_energy": [1.225846e-01, 1.225584e-01, 1.225327e-01],
+        "enstrophy": [3.686351e-01, 3.688408e-01, 3.692374e-01],
+        # 4 solves, 8 Newton and 32 FGMRES iterations, from
+        # scripts/jax_newton_counts.py tgv32_gmg.prm 3
+        "fgmres_per_newton": 4.0},
+    "mms_q2_r8.prm": {
+        "l2_velocity": [1.16326916e-04, 7.90071789e-05, 3.32107022e-05]},
 }
 
 # Tolerances of the card's float32 runs against the float64 reference.
@@ -105,7 +144,7 @@ JAX_REFERENCE = {
 # 0.048% pressure; on the CPU: 0.148% and 0.082%), and the same deck
 # with one stabilization term dropped (gls viscous adjoint = false, f64)
 # moves them by 17.6% and 1.72%.  0.5% passes the first and fails the
-# second.
+# second.  The MMS deck is held to the same bound.
 L2_RTOL = 5e-3
 # Refinement 5 against refinement 3 (h / 4): Q2 velocity errors fall as
 # h^3 (64x) and pressure as h^2 (16x); the card's run must show at least
@@ -120,12 +159,16 @@ ENERGY_RTOL = 1e-5
 def deck_text(name: str) -> str:
     """The deck ``name`` of DECKS: its example with the edits applied.
     An edit ``(key, value)`` replaces ``set key = ...``; an edit
-    ``("subsection S", line)`` adds ``line`` at the top of subsection S."""
+    ``("subsection S", line)`` adds ``line`` at the top of subsection S;
+    ``("text", (old, new))`` replaces the text ``old``."""
     src, edits = DECKS[name]
     with open(os.path.join(ROOT, src)) as fh:
         text = fh.read()
     for key, value in edits:
-        if key.startswith("subsection "):
+        if key == "text":
+            n = text.count(value[0])
+            text = text.replace(*value)
+        elif key.startswith("subsection "):
             pat = re.compile(rf"^([ \t]*){re.escape(key)}[ \t]*$", re.M)
             text, n = pat.subn(lambda m: f"{m.group(0)}\n{m.group(1)}  "
                                f"{value}", text, count=1)
@@ -174,7 +217,7 @@ def phase_environment(torch) -> str:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"device {torch.cuda.get_device_name(0)}, "
           f"count {torch.cuda.device_count()}")
-    from softx_2020_200_tpu_torch.ops.gls_kernel import find_nvcc
+    from softx_2020_200_tpu_torch.ops.cuda_build import find_nvcc
     nvcc = run([find_nvcc(), "--version"]).splitlines()
     print(f"nvcc: {nvcc[-1] if nvcc else 'unavailable'}")
     try:
@@ -188,27 +231,34 @@ def phase_environment(torch) -> str:
 # ----------------------------------------------------------------------
 # phase 2
 # ----------------------------------------------------------------------
-def phase_build():
-    print("== phase 2: build")
-    from softx_2020_200_tpu_torch.ops import gls_kernel
-    build = gls_kernel.get_build()
-    print(f"built {os.path.relpath(build.path, ROOT)} in "
-          f"{build.seconds:.2f} s")
-    # ptxas reports each template instance <dim, degree, mode> by its
-    # mangled name, then its registers and spills
+def phase_build() -> None:
+    print("== phase 2: build (one nvcc per source, in parallel)")
+    from softx_2020_200_tpu_torch.ops import (cuda_build, gls_kernel,
+                                              lattice_kernel)
+    t0 = time.perf_counter()
+    builds = cuda_build.compile_sources([gls_kernel.SOURCE,
+                                         lattice_kernel.SOURCE])
+    print(f"both built in {time.perf_counter() - t0:.2f} s")
     modes = {"0": "primal", "1": "tangent", "2": "probe"}
-    for line in build.log.splitlines():
-        inst = re.search(r"gls_element_kernelILi(\d)ELi(\d)ELi(\d)E", line)
-        if inst and "Compiling entry" in line:
-            d, k, mode = inst.groups()
-            print(f"  ptxas d={d} k={k} {modes[mode]}:")
-        elif "registers" in line or "spill" in line or "error" in line:
-            print(f"    {line.replace('ptxas info    :', '').strip()}")
-    return build
+    for source, build in builds.items():
+        name = os.path.splitext(os.path.basename(source))[0]
+        print(f" {os.path.relpath(build.path, ROOT)} ({build.seconds:.2f} s)")
+        # ptxas reports each template instance <dim, degree, [points per
+        # axis,] mode> by its mangled name, then its registers and spills
+        for line in build.log.splitlines():
+            inst = re.search(rf"{name}_kernelI((?:Li\d+E)+)E", line)
+            if inst and "Compiling entry" in line:
+                *shape, mode = re.findall(r"Li(\d+)E", inst.group(1))
+                dims = " ".join(f"{a}={v}" for a, v in zip("dkq", shape))
+                print(f"  ptxas {name} {dims} {modes[mode]}:")
+            elif "registers" in line or "spill" in line or "error" in line:
+                print(f"    {line.replace('ptxas info    :', '').strip()}")
+    gls_kernel.get_build()
+    lattice_kernel.get_build()
 
 
 # ----------------------------------------------------------------------
-# phase 3
+# phase 3: B1
 # ----------------------------------------------------------------------
 def _space(dim: int, degree: int, cells: int, seed: int):
     """A non-affine FE space: a curved shell in 2D, a box with randomly
@@ -226,6 +276,7 @@ def _space(dim: int, degree: int, cells: int, seed: int):
         inner = np.all((v > 1e-9) & (v < 1 - 1e-9), axis=1)
         rng = np.random.default_rng(seed)
         v[inner] += rng.uniform(-0.2, 0.2, (int(inner.sum()), 3)) / cells
+        m.structured_shape = None      # no longer a lattice of translates
     return FESpace(m, degree)
 
 
@@ -248,8 +299,9 @@ def _rel(torch, a, b) -> tuple[float, float]:
 
 
 def _median_ms(torch, fn, reps: int = 20) -> float:
-    """Median device time of ``fn`` over ``reps`` runs (CUDA events
-    around each run, after one warm-up)."""
+    """Median time of one call of ``fn`` over ``reps`` calls: CUDA events
+    around each call, after one warm-up.  A call that launches little
+    work measures the host's launch cost as much as the device's."""
     fn()
     torch.cuda.synchronize()
     times = []
@@ -264,30 +316,43 @@ def _median_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def _variants(torch, space, device, seed: int, lsic: bool = False):
-    """(kernel calls, plain calls) on one space with seeded float32
-    inputs: the primal residual, the tangent and the node blocks.  The
-    plain tangent and node blocks differentiate with tau (and the LSIC
-    coefficient) frozen, as the kernel does."""
-    from softx_2020_200_tpu_torch.ops.batched_kernel import (
-        node_blocks_batched, tangent_batched)
+def _variants(torch, space, device, seed: int, lsic: bool = False,
+              n_q1d: int | None = None):
+    """(operator, kernel calls, plain calls) on one space with seeded
+    float32 inputs: the primal residual, the tangent and the node blocks.
+    The plain tangent and node blocks differentiate with tau (and the
+    LSIC coefficient) frozen, as the kernels do.  The operator picks B2
+    on a lattice of translates and B1 otherwise."""
+    from softx_2020_200_tpu_torch.ops import batched_kernel as bk
+    from softx_2020_200_tpu_torch.ops import lattice_kernel as lk
     from softx_2020_200_tpu_torch.solvers.gls import GLSOperator, StabFlags
     frozen_flags = StabFlags(lsic=lsic, frozen_tau=True)
-    op = GLSOperator(space, nu=0.01, stab=frozen_flags, dtype=torch.float32,
-                     device=device)
+    op = GLSOperator(space, nu=0.01, n_q1d=n_q1d, stab=frozen_flags,
+                     dtype=torch.float32, device=device)
     x = _inputs(torch, op, seed=seed)
     k = op.kernel
-    ue, due = op._soa(x["u"]), op._soa(x["v"])
-    args = (op.xe_soa, op._soa(x["prev"]), op._fq_soa(x["fq"]), op.h,
-            1.5, 20.0)
     full, frozen = k.plain(StabFlags(lsic=lsic)), k.plain(frozen_flags)
+    if op.layout is None:
+        ue, due = op._soa(x["u"]), op._soa(x["v"])
+        args = (op.xe_soa, op._soa(x["prev"]), op._fq_soa(x["fq"]), op.h,
+                1.5, 20.0)
+        plain = {"primal": lambda: full(ue, *args),
+                 "tangent": lambda: bk.tangent_batched(frozen, ue, due,
+                                                       *args),
+                 "node blocks": lambda: bk.node_blocks_batched(frozen, ue,
+                                                               *args)}
+    else:
+        ue, due = op._rows(x["u"]), op._rows(x["v"])
+        args = (op._rows(x["prev"]), op._fq_rows(x["fq"]), 1.5, 20.0)
+        plain = {"primal": lambda: full(ue, *args),
+                 "tangent": lambda: lk.lattice_tangent(frozen, ue, due,
+                                                       *args),
+                 "node blocks": lambda: lk.lattice_node_blocks(
+                     frozen, ue, *args, op.nn)}
     kernel = {"primal": lambda: k.residual(ue, *args),
               "tangent": lambda: k.tangent(ue, due, *args),
               "node blocks": lambda: k.node_blocks(ue, *args)}
-    plain = {"primal": lambda: full(ue, *args),
-             "tangent": lambda: tangent_batched(frozen, ue, due, *args),
-             "node blocks": lambda: node_blocks_batched(frozen, ue, *args)}
-    return kernel, plain
+    return op, kernel, plain
 
 
 def _compare(torch, label: str, E: int, kernel, plain) -> float:
@@ -299,7 +364,7 @@ def _compare(torch, label: str, E: int, kernel, plain) -> float:
         torch.cuda.synchronize()
         err, rel = _rel(torch, got, want)
         worst = max(worst, err)
-        print(f"  {label:28s} E={E:7d} {what:11s} max_abs_err {err:.3e}  "
+        print(f"  {label:30s} E={E:7d} {what:11s} max_abs_err {err:.3e}  "
               f"rel {rel:.3e}")
         check(rel < KERNEL_RTOL and bool(torch.isfinite(got).all()),
               f"kernel {what} {label} E={E}: rel error {rel:.3e}")
@@ -313,61 +378,217 @@ PARITY_SHAPES = ((2, 1, 2), (2, 2, 2), (3, 1, 6), (3, 2, 6))
 
 
 def phase_kernel_parity(torch, device) -> float:
-    print("== phase 3: kernel parity (CUDA kernel vs plain PyTorch, "
-          f"float32, tolerance {KERNEL_RTOL:g} of the max-abs scale)")
+    print("== phase 3: B1 parity (CUDA kernel vs plain PyTorch, float32, "
+          f"tolerance {KERNEL_RTOL:g} of the max-abs scale)")
     worst = 0.0
     for dim, degree, cells in PARITY_SHAPES:
         space = _space(dim, degree, cells, seed=dim * 10 + degree)
         for lsic in (False, True):
-            kernel, plain = _variants(torch, space, device,
-                                      seed=dim * 10 + degree, lsic=lsic)
+            op, kernel, plain = _variants(torch, space, device,
+                                          seed=dim * 10 + degree, lsic=lsic)
+            check(op.layout is None, "B1 parity mesh took the lattice path")
             label = f"d={dim} k={degree}{' lsic' if lsic else ''}"
             worst = max(worst, _compare(torch, label, space.n_elements,
                                         kernel, plain))
     return worst
 
 
-# the main path's shapes: (label, dim, degree, refinement or cells/axis)
-TIMING_SHAPES = (("2D Q2 Taylor-Couette r3", 2, 2, 3),
-                 ("2D Q2 Taylor-Couette r5", 2, 2, 5),
-                 ("3D Q1 TGV 32^3", 3, 1, 32),
-                 ("3D Q1 box 64^3", 3, 1, 64))
+def _graph_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph, whose replay is timed with CUDA events (median of 5), so
+    the host's launch cost is left out."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                       # warm-up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    ms = _median_ms(torch, graph.replay, reps=5) / reps
+    del graph
+    return ms
+
+
+def _time_variants(torch, label, E, kernel, plain, times):
+    """Kernel and plain times of each variant: the kernel's device time
+    (a CUDA graph of 20 calls) and, beside it, one event-timed call,
+    which adds the host's launch cost; the plain version's event-timed
+    call (median of 5, of 2 for the plain node blocks, whose nn*c
+    forward-mode passes take up to seconds)."""
+    times[label] = row = {"E": E}
+    for what in kernel:
+        reps = 2 if what == "node blocks" else 5
+        row[what] = (_graph_ms(torch, kernel[what]),
+                     _median_ms(torch, plain[what], reps=reps))
+        call = _median_ms(torch, kernel[what])
+        print(f"  {label:30s} E={E:7d} {what:11s} kernel {row[what][0]:9.4f}"
+              f" ms (one call {call:9.4f} ms)  plain {row[what][1]:10.4f} ms")
+        torch.cuda.empty_cache()
+
+
+# B1's main-path shapes: (label, dim, degree, refinement or cells/axis)
+B1_SHAPES = (("2D Q2 Taylor-Couette r3", 2, 2, 3),
+             ("2D Q2 Taylor-Couette r5", 2, 2, 5),
+             ("3D Q1 32^3 (moved)", 3, 1, 32),
+             ("3D Q1 64^3 (moved)", 3, 1, 64))
 
 
 def phase_kernel_times(torch, device) -> tuple[dict, float]:
-    """Kernel against plain at the main path's shapes: compared first,
+    """B1 against plain at its main path's shapes (and, for comparison
+    with B2, at the 3D Q1 sizes on a non-affine box): compared first,
     then timed.  Returns the times and the worst max-abs error."""
-    print("== phase 3b: parity and times at the main path's shapes "
-          "(median of 20, ms)")
+    print("== phase 3b: B1 parity and times at the main path's shapes "
+          "(ms)")
     times, worst = {}, 0.0
-    for label, dim, degree, cells in TIMING_SHAPES:
+    for label, dim, degree, cells in B1_SHAPES:
         space = _space(dim, degree, cells, seed=7)
-        kernel, plain = _variants(torch, space, device, seed=3)
+        _, kernel, plain = _variants(torch, space, device, seed=3)
         worst = max(worst, _compare(torch, label, space.n_elements,
                                     kernel, plain))
-        times[label] = row = {}
-        for what in kernel:
-            row[what] = (_median_ms(torch, kernel[what]),
-                         _median_ms(torch, plain[what]))
-            print(f"  {label:28s} E={space.n_elements:7d} {what:11s} "
-                  f"kernel {row[what][0]:10.4f} ms  plain "
-                  f"{row[what][1]:10.4f} ms")
+        _time_variants(torch, label, space.n_elements, kernel, plain, times)
         del kernel, plain
         torch.cuda.empty_cache()
     return times, worst
 
 
 # ----------------------------------------------------------------------
-# phases 4 and 5
+# phase 3c: B2
+# ----------------------------------------------------------------------
+def _lattice(dim: int, degree: int, cells, periodic: bool = False):
+    """An FE space on a box lattice with unequal spacings per axis."""
+    from softx_2020_200_tpu_torch.fem import mesh as M
+    from softx_2020_200_tpu_torch.fem.dof import FESpace
+    hi = [1.0, 0.7, 1.3][:dim]
+    m = M.subdivided_hyper_rectangle([0.0] * dim, hi, list(cells), True,
+                                     dim=dim)
+    if periodic:
+        m.periodic += [(2 * a, 2 * a + 1, a) for a in range(dim)]
+    return FESpace(m, degree)
+
+
+# B2 parity lattices (dim, degree, Gauss points per axis, cells): 195 and
+# 210 cells, so each launch spans several blocks (32 elements; 16 when
+# there are 27 nodes or points) and ends in a ragged one.  Q1 with 3
+# points is what the Q1 multigrid levels of a Q2 deck run.
+B2_PARITY = ((2, 1, 2, (15, 13)), (2, 2, 3, (15, 13)), (3, 1, 2, (7, 6, 5)),
+             (3, 2, 3, (7, 6, 5)), (2, 1, 3, (15, 13)), (3, 1, 3, (7, 6, 5)))
+# B2's main-path shapes (label, dim, degree, Gauss points per axis,
+# cells), compared with the plain version and then timed: the TGV
+# lattice, the 64^3 box of bench.py, Q2 lattices in 2D (128^2, and the
+# MMS deck's 256^2) and 3D, and the two kinds of Q1 level under the MMS
+# deck: its p-coarsened level (256^2, 2 points) and the first halved
+# level (128^2, which keeps the Q2 deck's 3 points)
+B2_SHAPES = (("3D Q1 TGV 32^3", 3, 1, 2, (32,) * 3),
+             ("3D Q1 box 64^3", 3, 1, 2, (64,) * 3),
+             ("2D Q2 128^2", 2, 2, 3, (128,) * 2),
+             ("2D Q2 256^2 (MMS)", 2, 2, 3, (256,) * 2),
+             ("3D Q2 32^3", 3, 2, 3, (32,) * 3),
+             ("2D Q1 256^2 q=2 (MMS level 1)", 2, 1, 2, (256,) * 2),
+             ("2D Q1 128^2 q=3 (MMS level 2)", 2, 1, 3, (128,) * 2))
+# the coarser multigrid levels of phases 6 and 7, compared only
+B2_LEVELS = (("3D Q1 16^3 (TGV level 1)", 3, 1, 2, (16,) * 3),
+             ("3D Q1 8^3 (TGV level 2)", 3, 1, 2, (8,) * 3),
+             ("2D Q1 64^2 q=3 (MMS level 3)", 2, 1, 3, (64,) * 2),
+             ("2D Q1 32^2 q=3 (MMS level 4)", 2, 1, 3, (32,) * 2),
+             ("2D Q1 16^2 q=3 (MMS level 5)", 2, 1, 3, (16,) * 2))
+
+
+def phase_lattice_kernel(torch, device) -> tuple[dict, float]:
+    print("== phase 3c: B2 parity (CUDA kernel vs plain PyTorch, float32, "
+          f"tolerance {KERNEL_RTOL:g} of the max-abs scale), then parity "
+          "and times at the main path's shapes (ms)")
+    worst = 0.0
+    for dim, degree, q1d, cells in B2_PARITY:
+        space = _lattice(dim, degree, cells)
+        for lsic in (False, True):
+            op, kernel, plain = _variants(torch, space, device,
+                                          seed=dim * 10 + degree, lsic=lsic,
+                                          n_q1d=q1d)
+            check(op.layout is not None, "B2 parity lattice took B1")
+            label = f"d={dim} k={degree} q={q1d}{' lsic' if lsic else ''}"
+            worst = max(worst, _compare(torch, label, space.n_elements,
+                                        kernel, plain))
+    times = {}
+    for label, dim, degree, q1d, cells in B2_SHAPES + B2_LEVELS:
+        space = _lattice(dim, degree, cells, periodic=True)
+        op, kernel, plain = _variants(torch, space, device, seed=5,
+                                      n_q1d=q1d)
+        check(op.layout is not None, f"{label} took B1")
+        worst = max(worst, _compare(torch, label, space.n_elements,
+                                    kernel, plain))
+        if (label, dim, degree, q1d, cells) in B2_SHAPES:
+            _time_variants(torch, label, space.n_elements, kernel, plain,
+                           times)
+        del op, kernel, plain
+        torch.cuda.empty_cache()
+    return times, worst
+
+
+def _bound(dim: int, degree: int, variant: str, E: int, lattice: bool,
+           n_q1d: int | None = None):
+    """(bound_ms, bound_by) for one call of a variant on E elements (with
+    ``n_q1d`` Gauss points per axis, k + 1 by default): the
+    bytes that call must move (each input row read once, each output
+    written once; f32) over the card's memory rate, against its
+    operations over the f32 rate.  Operations count 2 per multiply-add
+    of the contractions, and the pointwise physics as written in the
+    kernels (about 5d^2 + 14d + 12 a point, 4d^2 + 8d more for a
+    tangent)."""
+    d, n1 = dim, degree + 1
+    nn, nq = n1 ** d, (n_q1d or n1) ** d
+    c = d + 1
+    pw = 5 * d * d + 14 * d + 12
+    dpw = 4 * d * d + 8 * d
+    if lattice:
+        M, Mnl = (d + 2) * nq, (d + 1) * nq
+        interp = 2 * nn * (d * M + Mnl + d * nq)       # u, p, u^{n-i}
+        proj = 2 * nn * (d * M + Mnl)
+        dinterp = 2 * nn * (d * M + Mnl)
+        primal_ops = interp + proj + nq * pw
+        inputs = c * nn + d * nn + d * nq
+    else:
+        per_q = (2 * d * d * nn + (45 if d == 3 else 10) + 2 * d ** 3
+                 + 2 * nn * d * d + 2 * c * nn * (1 + d) + 2 * c * d * d
+                 + 4 * d * nn + pw + 2 * d ** 3 + 2 * d * d
+                 + nn * (d * (4 + 2 * d) + 2 + 2 * d))
+        dinterp = nq * (2 * c * nn * (1 + d) + 2 * c * d * d + 2 * d * nn)
+        primal_ops = nq * per_q
+        inputs = c * nn + 2 * d * nn + d * nq + 1     # ue, xe, up, fq, h
+    if variant == "primal":
+        ops, words = primal_ops, inputs + c * nn
+    elif variant == "tangent":
+        ops, words = primal_ops + dinterp + nq * dpw, inputs + 2 * c * nn
+    else:   # node blocks: nn*c probes, each without a direction stream
+        ops = nn * c * (primal_ops + nq * dpw)
+        words = inputs + nn * c * c
+    t_bytes = 4.0 * words * E / PEAK_BYTES_PER_S
+    t_ops = float(ops) * E / PEAK_F32_PER_S
+    return (1e3 * max(t_bytes, t_ops),
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ----------------------------------------------------------------------
+# phases 4-7
 # ----------------------------------------------------------------------
 _NUM = r"([-+]?\d+\.?\d*(?:[eE][-+]?\d+)?)"
+KERNELS = ("gls_element", "gls_lattice")
 
 
-def drive_app(torch, dim: int, deck: str) -> dict:
-    """Run the deck through the port's CLI entry point on the card; its
-    output is echoed and returned with the launch count and memory."""
-    from softx_2020_200_tpu_torch.apps.common import run_app
+def _launch_counters():
     from softx_2020_200_tpu_torch.ops.gls_kernel import GLSElementKernel
+    from softx_2020_200_tpu_torch.ops.lattice_kernel import LatticeGLSKernel
+    return {"gls_element": GLSElementKernel,
+            "gls_lattice": LatticeGLSKernel}
+
+
+def drive_app(torch, dim: int, deck: str, kernel: str) -> dict:
+    """Run the deck through the port's CLI entry point on the card; its
+    output is echoed and returned with the launch counts and memory.
+    Checks that it launched ``kernel`` and no other."""
+    from softx_2020_200_tpu_torch.apps.common import run_app
+    counters = _launch_counters()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, deck)
         with open(path, "w") as fh:
@@ -377,7 +598,8 @@ def drive_app(torch, dim: int, deck: str) -> dict:
         buf = io.StringIO()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        GLSElementKernel.launches = 0
+        for cls in counters.values():
+            cls.launches = 0
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(buf):
@@ -387,29 +609,38 @@ def drive_app(torch, dim: int, deck: str) -> dict:
         finally:
             os.chdir(cwd)
         seconds = time.perf_counter() - t0
-        launches = GLSElementKernel.launches
+        launches = {name: cls.launches for name, cls in counters.items()}
     out = buf.getvalue()
     for line in out.splitlines():
         print(f"  | {line}")
     check(rc == 0, f"{deck}: app returned {rc}")
+    check("GMG stagnated" not in out,
+          f"{deck}: multigrid stagnated and fell back to block-Jacobi")
     stats = re.search(
         rf"Newton summary: {_NUM} solves, {_NUM} iterations, {_NUM} "
         rf"linear iterations, {_NUM} s per Newton iteration, {_NUM} host "
-        rf"syncs per Newton iteration", out)
+        rf"syncs per Newton iteration, {_NUM} line-search evaluations", out)
     check(stats is not None, f"{deck}: no Newton summary line")
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     res = dict(out=out, seconds=seconds, launches=launches, peak_mib=peak,
+               newton_solves=int(stats.group(1)),
                newton_iterations=int(stats.group(2)),
                linear_iterations=int(stats.group(3)),
                s_per_newton=float(stats.group(4)),
-               syncs_per_newton=float(stats.group(5)))
+               syncs_per_newton=float(stats.group(5)),
+               line_search_evaluations=int(stats.group(6)))
     print(f"  wall {seconds:.2f} s, Newton iterations "
-          f"{res['newton_iterations']}, GMRES iterations "
+          f"{res['newton_iterations']}, linear iterations "
           f"{res['linear_iterations']}, {res['s_per_newton']:.4f} s per "
           f"Newton iteration, {res['syncs_per_newton']:.1f} host syncs per "
-          f"Newton iteration, peak device memory {peak:.1f} MiB, GLS "
-          f"kernel launches {launches}")
-    check(launches > 0, f"{deck}: the GLS kernel was never launched")
+          f"Newton iteration, peak device memory {peak:.1f} MiB, launches "
+          f"{launches}")
+    for name in KERNELS:
+        if name == kernel:
+            check(launches[name] > 0, f"{deck}: {name} was never launched")
+        else:
+            check(launches[name] == 0, f"{deck}: {name} was launched "
+                  f"{launches[name]} times")
     return res
 
 
@@ -425,10 +656,10 @@ def _l2_errors(deck: str, out: str) -> tuple[float, float]:
 
 
 def phase_couette(torch) -> list[dict]:
-    print("== phase 4: main path, 2D steady Taylor-Couette (Q2, curved "
-          "shell), refinement 3 against JAX, then refinement 5")
+    print("== phase 4: main path on B1, 2D steady Taylor-Couette (Q2, "
+          "curved shell), refinement 3 against JAX, then refinement 5")
     deck = "taylor_couette_r3.prm"
-    r3 = drive_app(torch, 2, deck)
+    r3 = drive_app(torch, 2, deck, "gls_element")
     ref = JAX_REFERENCE[deck]
     errors = dict(zip(("velocity", "pressure"), _l2_errors(deck, r3["out"])))
     for what, got in errors.items():
@@ -440,7 +671,7 @@ def phase_couette(torch) -> list[dict]:
               f"L2 error {what} {got} vs reference {want}")
 
     deck = "taylor_couette_r5.prm"
-    r5 = drive_app(torch, 2, deck)
+    r5 = drive_app(torch, 2, deck, "gls_element")
     for (what, decay), got in zip(
             (("velocity", L2_DECAY_VELOCITY), ("pressure", L2_DECAY_PRESSURE)),
             _l2_errors(deck, r5["out"])):
@@ -452,11 +683,8 @@ def phase_couette(torch) -> list[dict]:
     return [r3, r5]
 
 
-def phase_tgv(torch) -> dict:
-    print("== phase 5: main path, 3D transient TGV (Q1, periodic 32^3, "
-          "BDF2, 3 steps)")
-    deck = "tgv32_3steps.prm"
-    res = drive_app(torch, 3, deck)
+def _tgv(torch, deck: str) -> dict:
+    res = drive_app(torch, 3, deck, "gls_lattice")
     m = re.findall(rf"kinetic-energy: {_NUM}  enstrophy: {_NUM}", res["out"])
     ref = JAX_REFERENCE[deck]
     check(len(m) == len(ref["kinetic_energy"]),
@@ -473,7 +701,134 @@ def phase_tgv(torch) -> dict:
     return res
 
 
+def phase_tgv(torch) -> dict:
+    print("== phase 5: main path on B2, 3D transient TGV (Q1, periodic "
+          "32^3, BDF2, 3 steps, block-Jacobi)")
+    return _tgv(torch, "tgv32_3steps.prm")
+
+
+def _gmg_levels(deck: str, out: str) -> int:
+    m = re.search(r"preconditioner 'auto' resolves to gmg \((\d+) levels\)",
+                  out)
+    check(m is not None, f"{deck}: 'auto' did not resolve to gmg")
+    return int(m.group(1))
+
+
+def _vcycle_alone(torch, deck: str) -> float:
+    """Build the deck's solver on the card, apply one multigrid cycle
+    with every CUDA synchronisation made an error, and time it.  Returns
+    the median ms of one application."""
+    from softx_2020_200_tpu_torch.core.parameters import SimulationParameters
+    from softx_2020_200_tpu_torch.solvers.base import GLSNavierStokesSolver
+    with tempfile.TemporaryDirectory() as tmp:
+        text = deck_text(deck).replace(
+            "subsection simulation control\n",
+            f"subsection simulation control\n  set output path = {tmp}/\n",
+            1)
+        with contextlib.redirect_stdout(io.StringIO()):
+            solver = GLSNavierStokesSolver(
+                SimulationParameters.from_text(text, dim=3),
+                device="cuda", dtype=torch.float32)
+            u0 = solver.initial_condition()
+        dt = solver.control.dt
+        problem = solver._make_problem(solver._zero_prev, dt, 1.0 / dt,
+                                       1.0 / dt)
+        apply = problem[4](u0)          # the cycle's state, built once
+        v = torch.randn(u0.shape, device="cuda", dtype=torch.float32,
+                        generator=torch.Generator("cuda").manual_seed(1))
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            z = apply(v)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        check(bool(torch.isfinite(z).all()), f"{deck}: V-cycle not finite")
+        ms = _median_ms(torch, lambda: apply(v), reps=10)
+    print(f"  one V-cycle applied with CUDA synchronisation an error: no "
+          f"sync; {ms:.3f} ms per application")
+    return ms
+
+
+def phase_tgv_gmg(torch) -> dict:
+    print("== phase 6: main path on B2, TGV 32^3 with 'auto': geometric "
+          "multigrid, FGMRES")
+    deck = "tgv32_gmg.prm"
+    res = _tgv(torch, deck)
+    levels = _gmg_levels(deck, res["out"])
+    print(f"  multigrid levels: {levels}")
+    check(levels == 3, f"{deck}: {levels} multigrid levels, not 3")
+    # a cycle that works takes as many FGMRES steps as the JAX package's
+    # (block-Jacobi GMRES takes 14.1 per Newton iteration on this deck)
+    its = res["newton_iterations"]
+    lin = res["linear_iterations"] / its
+    want = JAX_REFERENCE[deck]["fgmres_per_newton"]
+    print(f"  FGMRES iterations per Newton iteration {lin:.2f} (JAX CPU f64 "
+          f"{want:.2f}, bound +-1)")
+    check(abs(lin - want) <= 1.0, f"{deck}: {lin:.2f} FGMRES iterations "
+          f"per Newton iteration against {want:.2f}")
+    # the solver loop's own host reads: the first residual of each solve,
+    # the first residual of each FGMRES solve, one per FGMRES step and
+    # one per line-search evaluation; the cycle adds none
+    reads = (res["newton_solves"] + its + res["linear_iterations"]
+             + res["line_search_evaluations"])
+    syncs = res["syncs_per_newton"] * its
+    print(f"  host syncs {syncs:.0f} against the solver loop's {reads} "
+          f"reads ({res['newton_solves']} solves, {its} Newton iterations, "
+          f"{res['linear_iterations']} FGMRES steps, "
+          f"{res['line_search_evaluations']} line-search evaluations)")
+    check(round(syncs) == reads, f"{deck}: {syncs:.0f} host syncs, not "
+          f"{reads}: the cycle syncs")
+    res["vcycle_ms"] = _vcycle_alone(torch, deck)
+    return res
+
+
+def phase_mms_gmg(torch) -> dict:
+    print("== phase 7: main path on B2, Q2 lattice MMS (256^2, BDF2, 3 "
+          "steps) with 'auto': p- then h-multigrid")
+    deck = "mms_q2_r8.prm"
+    res = drive_app(torch, 2, deck, "gls_lattice")
+    levels = _gmg_levels(deck, res["out"])
+    print(f"  multigrid levels: {levels}")
+    check(levels == 6, f"{deck}: {levels} multigrid levels, not 6")
+    got = [float(x) for x in re.findall(rf"L2 error velocity : {_NUM}\n",
+                                        res["out"])]
+    want = JAX_REFERENCE[deck]["l2_velocity"]
+    check(len(got) == len(want), f"{deck}: {len(got)} L2 lines")
+    for step, (g, w) in enumerate(zip(got, want), start=1):
+        print(f"  step {step}: L2 error velocity card f32 {g:.8e}, JAX CPU "
+              f"f64 {w:.8e}, rel diff {abs(g - w) / w:.3e} (bound "
+              f"{L2_RTOL:g})")
+        check(_close(g, w, L2_RTOL), f"{deck} step {step}: L2 {g} vs {w}")
+    return res
+
+
 # ----------------------------------------------------------------------
+def _entry(name, source, replaces, launches, worst, shape, times, dim,
+           degree, lattice):
+    """One kernel's line: its tangent (the Krylov matvec, most of its
+    launches) at its main-path shape."""
+    t_kernel, t_plain = times[shape]["tangent"]
+    bound_ms, bound_by = _bound(dim, degree, "tangent", times[shape]["E"],
+                                lattice)
+    return {"name": name, "route": "cuda",
+            "source": os.path.relpath(source, ROOT), "replaces": replaces,
+            "launches": launches, "max_abs_err": worst, "ms": t_kernel,
+            "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def _print_bounds(times: dict, lattice: bool) -> None:
+    shapes = ({s[0]: s[1:4] for s in B2_SHAPES} if lattice else
+              {s[0]: s[1:3] + (None,) for s in B1_SHAPES})
+    for label, row in times.items():
+        dim, degree, q1d = shapes[label]
+        for what in ("primal", "tangent", "node blocks"):
+            b, by = _bound(dim, degree, what, row["E"], lattice, q1d)
+            print(f"  bound {'B2' if lattice else 'B1'} {label:30s} "
+                  f"{what:11s} {b:9.4f} ms ({by}); kernel "
+                  f"{row[what][0]:9.4f} ms")
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--write-decks", metavar="DIR",
@@ -490,28 +845,33 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, ROOT)
     device = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
     smi = phase_environment(torch)
     phase_build()
-    worst = phase_kernel_parity(torch, device)
-    times, worst_at_scale = phase_kernel_times(torch, device)
-    worst = max(worst, worst_at_scale)
-    runs = phase_couette(torch) + [phase_tgv(torch)]
+    worst_b1 = phase_kernel_parity(torch, device)
+    times_b1, worst_at_scale = phase_kernel_times(torch, device)
+    worst_b1 = max(worst_b1, worst_at_scale)
+    times_b2, worst_b2 = phase_lattice_kernel(torch, device)
+    _print_bounds(times_b1, lattice=False)
+    _print_bounds(times_b2, lattice=True)
+    b1_runs = phase_couette(torch)
+    b2_runs = [phase_tgv(torch), phase_tgv_gmg(torch), phase_mms_gmg(torch)]
 
-    from softx_2020_200_tpu_torch.ops.gls_kernel import SOURCE
-    t_kernel, t_plain = times["3D Q1 TGV 32^3"]["tangent"]
-    entry = {
-        "name": "gls_element",
-        "route": "cuda",
-        "source": os.path.relpath(SOURCE, ROOT),
-        "replaces": "softx_2020_200_tpu/ops/pallas_gls.py:218",
-        "launches": sum(r["launches"] for r in runs),
-        "max_abs_err": worst,
-        "ms": t_kernel,
-        "plain_ms": t_plain,
-    }
+    from softx_2020_200_tpu_torch.ops import gls_kernel, lattice_kernel
+    entries = [
+        _entry("gls_element", gls_kernel.SOURCE,
+               "softx_2020_200_tpu/ops/pallas_gls.py:218",
+               sum(r["launches"]["gls_element"] for r in b1_runs), worst_b1,
+               "2D Q2 Taylor-Couette r5", times_b1, 2, 2, lattice=False),
+        _entry("gls_lattice", lattice_kernel.SOURCE,
+               "softx_2020_200_tpu/ops/pallas_lattice.py:103",
+               sum(r["launches"]["gls_lattice"] for r in b2_runs), worst_b2,
+               "3D Q1 TGV 32^3", times_b2, 3, 1, lattice=True),
+    ]
     print(smi)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

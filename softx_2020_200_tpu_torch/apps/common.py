@@ -53,5 +53,6 @@ def run_app(dim: int, argv: list[str] | None = None, *,
               f"{st['newton_iterations']} iterations, "
               f"{st['linear_iterations']} linear iterations, "
               f"{st['newton_seconds'] / n:.6f} s per Newton iteration, "
-              f"{st['host_syncs'] / n:.2f} host syncs per Newton iteration")
+              f"{st['host_syncs'] / n:.2f} host syncs per Newton iteration, "
+              f"{st['line_search_evaluations']} line-search evaluations")
     return 0

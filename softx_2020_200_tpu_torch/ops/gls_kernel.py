@@ -17,94 +17,40 @@ Dispatch is on the device of the tensors it is given:
   version.
 
 The kernel is compiled by ``nvcc`` from ``csrc/gls_element.cu`` at first
-use into ``build/`` next to this package, and loaded with ``ctypes``.
+use into ``build/`` next to this package, and loaded with ``ctypes``
+(``ops/cuda_build.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import time
 
 import numpy as np
 import torch
 from torch import nn
 
+from . import cuda_build
 from .batched_kernel import (make_batched_kernel, node_blocks_batched,
                              tangent_batched)
 
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "gls_element.cu")
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+SOURCE = os.path.join(cuda_build.CSRC, "gls_element.cu")
 
 _PRIMAL, _TANGENT, _PROBE = 0, 1, 2
 SUPPORTED = {(2, 1), (2, 2), (3, 1), (3, 2)}
 
-
-class KernelBuild:
-    """The compiled library: path, compiler log and build seconds."""
-
-    def __init__(self, lib, path: str, log: str, seconds: float):
-        self.lib = lib
-        self.path = path
-        self.log = log
-        self.seconds = seconds
+_BUILD: cuda_build.KernelBuild | None = None
 
 
-def find_nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
-    if os.path.exists(path):
-        return path
-    raise RuntimeError("nvcc not found: the CUDA element kernel is built "
-                       "from csrc/gls_element.cu with the CUDA toolkit")
-
-
-def build_library() -> KernelBuild:
-    """Compile ``csrc/gls_element.cu`` (once per source content) and load
-    it.  The library name carries a hash of the source and flags, so a
-    changed source is rebuilt."""
-    with open(SOURCE, "rb") as fh:
-        src = fh.read()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    so = os.path.join(BUILD_DIR, f"libgls_element_{tag}.so")
-    log = ""
-    t0 = time.perf_counter()
-    if not os.path.exists(so):
-        tmp = f"{so}.{os.getpid()}.tmp"
-        proc = subprocess.run([find_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{log}")
-        os.replace(tmp, so)
-    seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(so)
-    lib.gls_element_launch.restype = ctypes.c_int
-    lib.gls_element_launch.argtypes = (
-        [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
-        + [ctypes.c_int64] + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
-        + [ctypes.c_void_p])
-    return KernelBuild(lib, so, log, seconds)
-
-
-_BUILD: KernelBuild | None = None
-
-
-def get_build() -> KernelBuild:
+def get_build() -> cuda_build.KernelBuild:
     """The process's compiled kernel library, built at first call."""
     global _BUILD
     if _BUILD is None:
-        _BUILD = build_library()
+        _BUILD = cuda_build.load(
+            SOURCE, "gls_element_launch",
+            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
+            + [ctypes.c_int64] + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
+            + [ctypes.c_void_p])
     return _BUILD
 
 
@@ -120,8 +66,8 @@ class GLSElementKernel(nn.Module):
     launches = 0
 
     def __init__(self, *, dim: int, degree: int, B, G, H, w, nu: float,
-                 stab, dtype: torch.dtype = torch.float64,
-                 device: torch.device | str = "cpu"):
+                 stab, dtype: torch.dtype = torch.float32,
+                 device: torch.device | str = "cuda"):
         super().__init__()
         self.dim, self.degree = dim, degree
         self.nc = dim + 1

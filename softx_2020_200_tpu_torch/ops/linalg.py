@@ -10,7 +10,9 @@ check waits for the device once.  ``HostSync`` counts those reads.
 GMRES keeps the small Hessenberg algebra (Givens rotations, the
 triangular solve) on the host in float64: the one read per Arnoldi
 step brings the new Hessenberg column, and the residual estimate comes
-with it.
+with it.  ``gmres_fixed``, the multigrid cycle's inner solve, runs a
+fixed number of steps with that algebra on the device and reads nothing
+back.
 """
 
 from __future__ import annotations
@@ -131,6 +133,74 @@ def gmres(matvec, b, x0=None, *, precond=None, m: int = 30,
         restarts += 1
         rnorm = rn
     return x, rnorm, iters
+
+
+def gmres_fixed(matvec, b, x0=None, *, precond=None, m: int = 4,
+                flexible: bool = False):
+    """One cycle of ``m`` right-preconditioned (F)GMRES steps that reads
+    nothing back from the device: the multigrid smoother, bottom solve
+    and K-cycle, where the JAX package calls its GMRES with
+    ``max_restarts=1, atol=1e-30`` and so runs all ``m`` steps unless
+    the residual is exactly zero.
+
+    The Hessenberg matrix stays on the device; its Givens rotations run
+    once after the Arnoldi loop, and a step counts only while the
+    residual before it is above 1e-30 (as the JAX loop stops), so a
+    zero right-hand side or a breakdown yields no update instead of a
+    division by zero.  Returns x.
+    """
+    atol = 1e-30
+    precond = precond or _identity
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b if x0 is None else b - matvec(x0)
+    tiny = 1e-300 if b.dtype == torch.float64 else 1e-30
+    beta = _norm(r)
+    V = b.new_zeros((m + 1, b.shape[0]))
+    V[0] = r / torch.clamp_min(beta, tiny)
+    Z = b.new_empty((m, b.shape[0])) if flexible else None
+    H = b.new_zeros((m + 1, m))
+    for j in range(m):
+        z = precond(V[j])
+        if flexible:
+            Z[j] = z
+        w = matvec(z)
+        Vj = V[:j + 1]
+        # CGS2: two passes of projection against V[0..j]
+        h1 = Vj @ w
+        w = w - h1 @ Vj
+        h2 = Vj @ w
+        w = w - h2 @ Vj
+        hnext = _norm(w)
+        V[j + 1] = w / torch.clamp_min(hnext, tiny)
+        H[:j + 1, j] = h1 + h2
+        H[j + 1, j] = hnext
+    # Givens rotations, in the order the JAX loop applies them
+    g = b.new_zeros(m + 1)
+    g[0] = beta
+    before = [beta]                  # residual before each step
+    for j in range(m):
+        a, c_ = H[j, j], H[j + 1, j]
+        denom = torch.sqrt(a * a + c_ * c_)
+        pos = denom > 0
+        cs = torch.where(pos, a / torch.clamp_min(denom, tiny),
+                         torch.ones_like(a))
+        sn = torch.where(pos, c_ / torch.clamp_min(denom, tiny),
+                         torch.zeros_like(a))
+        rot = torch.stack([torch.stack([cs, sn]), torch.stack([-sn, cs])])
+        H[j:j + 2, j:] = rot @ H[j:j + 2, j:]
+        g[j:j + 2] = rot @ g[j:j + 2]
+        before.append(torch.abs(g[j + 1]))
+    active = torch.cumprod((torch.stack(before[:m]) > atol).to(b.dtype),
+                           dim=0) > 0
+    both = active[:, None] & active[None, :]
+    zero, one = torch.zeros_like(g[:m]), torch.ones_like(g[:m])
+    R = (torch.where(both, H[:m].triu(), torch.zeros_like(H[:m]))
+         + torch.diag(torch.where(active, zero, one)))
+    rhs = torch.where(active, g[:m], zero)
+    y = torch.linalg.solve_triangular(R, rhs[:, None], upper=True)[:, 0]
+    if flexible:
+        return x + y @ Z
+    return x + precond(y @ V[:m])
 
 
 def bicgstab(matvec, b, x0=None, *, precond=None, max_iters: int = 1000,

@@ -1,0 +1,261 @@
+"""Geometric multigrid preconditioner on structured lattices
+(counterpart of the lattice branch of ``softx_2020_200_tpu.ops.multigrid``).
+
+A cycle over a nested hierarchy of lattices:
+
+    smoother   : damped node-block Jacobi, or a few node-block-
+                 preconditioned GMRES steps
+    transfers  : FE interpolation (fine nodes evaluated in coarse cells,
+                 host-precomputed masters/weights); restriction is its
+                 transpose; the Newton state is injected
+    coarse ops : each level is a ``GLSOperator`` linearized at the
+                 injected state, so on a lattice every level runs the
+                 lattice kernel
+    bottom     : GMRES(coarse_iters) preconditioned by block-Jacobi
+                 (the outer Krylov is then FGMRES)
+
+Applying a cycle reads nothing back from the device: its inner GMRES
+runs a fixed number of steps (``ops/linalg.py::gmres_fixed``).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..fem.dof import FESpace
+from ..fem.mesh import subdivided_hyper_rectangle
+from .linalg import gmres_fixed
+from .preconditioners import apply_node_block_state, node_blocks_to_state
+
+# the JAX package's cycle defaults, which every deck uses: one damped
+# Jacobi sweep per smooth (weight 0.7), a K-cycle of 2 FGMRES steps, the
+# w/k wrap on the first coarse level only, at most 10 levels
+N_SMOOTH, OMEGA, CYCLE_M, CYCLE_LEVELS, MAX_LEVELS = 1, 0.7, 2, 1, 10
+
+
+def _transfer_maps(fine_space, coarse_space):
+    """Host precompute: interpolation masters/weights + injection."""
+    cs, fs = coarse_space, fine_space
+    ne = cs.mesh.structured_shape
+    # domain bounds from the MESH vertices: on periodic axes the fused
+    # node array stops one layer short of the domain end
+    lo = cs.mesh.vertices.min(axis=0)
+    hi = cs.mesh.vertices.max(axis=0)
+    span = hi - lo
+    pos = (fs.nodes - lo) / span
+    e_idx = np.minimum((pos * np.asarray(ne)).astype(np.int64),
+                       np.asarray(ne) - 1)
+    cent = cs.element_coords().mean(axis=1)
+    cent_idx = ((cent - lo) / span * np.asarray(ne)).astype(np.int64)
+    lookup = {tuple(ci): e for e, ci in enumerate(cent_idx)}
+    elem = np.array([lookup[tuple(ix)] for ix in e_idx], dtype=np.int64)
+    corner0 = cs.element_coords()[elem][:, 0, :]
+    h_elem = span / np.asarray(ne)
+    ref = np.clip((fs.nodes - corner0) / h_elem, 0.0, 1.0)
+    B = cs.basis.tabulate_values(ref)                  # [Nf, nn_c]
+    masters = cs.elem_nodes[elem]
+    scale = np.maximum(np.abs(fs.nodes).max(axis=0), 1.0)
+    q_f = np.round(fs.nodes / scale * 1e10).astype(np.int64)
+    q_c = np.round(cs.nodes / scale * 1e10).astype(np.int64)
+    fmap = {tuple(r): i for i, r in enumerate(q_f)}
+    inject = np.array([fmap[tuple(r)] for r in q_c], dtype=np.int64)
+    return masters.astype(np.int32), B, inject.astype(np.int32)
+
+
+@dataclass
+class Level:
+    """One level: its operator and Dirichlet mask, and (below the finest)
+    the transfers from the level above: ``masters``/``weights``
+    [N_above, nn] interpolate this level's nodes to the level above,
+    ``inject`` [N] picks this level's nodes out of the level above."""
+    op: object
+    mask: torch.Tensor
+    masters: torch.Tensor | None = None
+    weights: torch.Tensor | None = None
+    inject: torch.Tensor | None = None
+
+
+def build_hierarchy(solver, min_elems: int = 256) -> list[Level]:
+    """The level list for a GLS solver, finest first.
+
+    A structured lattice coarsens in degree first (a Q1 level on the
+    same lattice for degree > 1), then by halving the lattice while
+    every axis is even and the coarse lattice keeps ``min_elems`` cells.
+    Any other mesh gets only its own level (the forest hierarchy is not
+    ported), and the solver then uses block-Jacobi."""
+    from ..solvers.boundary import BoundaryHandler
+    from ..solvers.gls import GLSOperator
+    space = solver.space
+    kw = dict(dtype=solver.dtype, device=solver.device)
+    levels = [Level(op=solver.op, mask=solver.bh.mask)]
+    mesh = space.mesh
+    if mesh.structured_shape is None:
+        return levels
+    ne = tuple(mesh.structured_shape)
+    lo = mesh.vertices.min(axis=0)
+    hi = mesh.vertices.max(axis=0)
+    prev_space = space
+
+    def add_level(cspace, n_q1d):
+        cop = GLSOperator(cspace, solver.op.nu, n_q1d=n_q1d,
+                          stab=solver.op.stab, **kw)
+        cbh = BoundaryHandler(cspace, solver.prm.boundary_conditions, **kw)
+        masters, weights, inject = _transfer_maps(prev_space, cspace)
+        levels.append(Level(
+            op=cop, mask=cbh.mask,
+            masters=torch.as_tensor(masters.astype(np.int64),
+                                    device=solver.device),
+            weights=torch.as_tensor(weights, **kw),
+            inject=torch.as_tensor(inject.astype(np.int64),
+                                   device=solver.device)))
+
+    cur_degree = space.degree
+    if space.degree > 1:
+        # p-coarsening first: a Q1 level on the SAME lattice, then
+        # h-halving at degree 1
+        cspace = FESpace(mesh, 1)
+        add_level(cspace, 2)
+        prev_space = cspace
+        cur_degree = 1
+    while (len(levels) < MAX_LEVELS
+           and all(n % 2 == 0 for n in ne)
+           and int(np.prod(ne)) // (2 ** space.dim) >= min_elems):
+        ne = tuple(n // 2 for n in ne)
+        cmesh = subdivided_hyper_rectangle(lo, hi, list(ne),
+                                           colorize=True, dim=space.dim)
+        # propagate the FINE mesh's boundary-id convention (generator
+        # meshes key the id off the local face index)
+        side_bid = {}
+        for (_, lf, b) in space.mesh.boundary_faces:
+            side_bid.setdefault(int(lf), set()).add(int(b))
+        if all(len(v) == 1 for v in side_bid.values()):
+            for row in cmesh.boundary_faces:
+                ids = side_bid.get(int(row[1]))
+                if ids:
+                    row[2] = next(iter(ids))
+        cmesh.periodic = list(mesh.periodic)
+        cspace = FESpace(cmesh, cur_degree)
+        add_level(cspace, int(round(solver.op.n_q ** (1 / space.dim))))
+        prev_space = cspace
+        mesh = cmesh
+    return levels
+
+
+def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
+                smoother: str = "jacobi", krylov_m: int = 4,
+                cycle: str = "v"):
+    """Return builder(u, uprev, fq, alpha0, sdt, fine_mask, pstate=None)
+    -> apply(v): one multigrid cycle of the hierarchy, linearized at u.
+
+    smoother: 'jacobi' (``N_SMOOTH`` node-block-Jacobi sweeps damped by
+    ``OMEGA``) or 'krylov' (``krylov_m`` GMRES steps preconditioned by
+    node-block Jacobi per pre/post smooth).  cycle: 'v'; 'w' (two
+    corrections with a residual update between); 'k' (the coarse
+    correction is ``CYCLE_M`` FGMRES steps preconditioned by the
+    recursive cycle).  The w/k wrap applies to the first
+    ``CYCLE_LEVELS`` coarse levels.  The bottom solve is
+    GMRES(``coarse_iters``) preconditioned by block-Jacobi.
+
+    ``builder.state(u, uprev, fq, alpha0, sdt, fine_mask)`` returns the
+    once-per-linearization state (per level: the operator's
+    linearization at the injected state, the Dirichlet mask and the
+    node-block inverses); pass it as ``pstate`` to reuse it.
+    """
+    n_levels = len(levels)
+
+    def build_state(u, uprev, fq, alpha0, sdt, fine_mask):
+        states = []
+        ul, upl, fql, mask = u, uprev, fq, fine_mask
+        for li, lvl in enumerate(levels):
+            op = lvl.op
+            if li > 0:
+                ul, upl = ul[lvl.inject], upl[lvl.inject]
+                fql = u.new_zeros((op.space.n_elements, op.n_q, op.dim))
+                mask = lvl.mask
+            blocks = op.node_blocks(ul, mask, upl, fql, alpha0, sdt)
+            states.append((op.linearize(ul, upl, fql, alpha0, sdt), mask,
+                           node_blocks_to_state("block_jacobi", blocks,
+                                                mask)))
+        return states
+
+    def builder(u, uprev, fq, alpha0, sdt, fine_mask, pstate=None):
+        if pstate is None:
+            pstate = build_state(u, uprev, fq, alpha0, sdt, fine_mask)
+        mats = []
+        for lvl, (lin, mask, bst) in zip(levels, pstate):
+            def matvec(v, op=lvl.op, lin=lin, mask=mask):
+                zero = torch.zeros_like(v)
+                return (torch.where(mask, zero,
+                                    op.jvp(lin, torch.where(mask, zero, v)))
+                        + torch.where(mask, v, zero))
+
+            mats.append((matvec, lambda v, bst=bst:
+                         apply_node_block_state(bst, v), mask))
+
+        def solve(level, r, m, precond, x0=None, flexible=False):
+            """``m`` (F)GMRES steps on level ``level`` from ``x0``."""
+            mv = mats[level][0]
+            shape = r.shape
+            x = gmres_fixed(
+                lambda x: mv(x.reshape(shape)).reshape(-1), r.reshape(-1),
+                x0=None if x0 is None else x0.reshape(-1),
+                precond=lambda x: precond(x.reshape(shape)).reshape(-1),
+                m=m, flexible=flexible)
+            return x.reshape(shape)
+
+        def prolong(li, vc):
+            lvl = levels[li]
+            return torch.einsum("fm,fmc->fc", lvl.weights, vc[lvl.masters])
+
+        def restrict(li, rf):
+            lvl = levels[li]
+            c = rf.shape[-1]
+            out = rf.new_zeros((lvl.op.n_nodes, c))
+            return out.index_add_(
+                0, lvl.masters.reshape(-1),
+                (lvl.weights[:, :, None] * rf[:, None, :]).reshape(-1, c))
+
+        def smooth(level, r, z=None):
+            """One pre/post smoothing application: z ~ A_level^{-1} r."""
+            matvec, sm, _ = mats[level]
+            if smoother == "krylov":
+                return solve(level, r, krylov_m, sm, x0=z)
+            z0 = OMEGA * sm(r) if z is None else z + OMEGA * sm(
+                r - matvec(z))
+            for _ in range(N_SMOOTH - 1):
+                z0 = z0 + OMEGA * sm(r - matvec(z0))
+            return z0
+
+        def vcycle(level, r):
+            matvec, sm, mask = mats[level]
+            if level + 1 == n_levels:
+                return solve(level, r, coarse_iters, sm)
+            z = smooth(level, r)
+            res = r - matvec(z)
+            rc = restrict(level + 1, res)
+            rc = torch.where(mats[level + 1][2], torch.zeros_like(rc), rc)
+            zc = coarse_correct(level + 1, rc)
+            zf = prolong(level + 1, zc)
+            z = z + torch.where(mask, torch.zeros_like(zf), zf)
+            return smooth(level, r, z=z)
+
+        def coarse_correct(level, rc):
+            """The level-``level`` correction inside the parent cycle:
+            plain recursion (v), doubled (w), or FGMRES-wrapped (k)."""
+            wrapped = (cycle in ("w", "k") and level <= CYCLE_LEVELS
+                       and level + 1 < n_levels)
+            if not wrapped:
+                return vcycle(level, rc)
+            if cycle == "w":
+                zc = vcycle(level, rc)
+                return zc + vcycle(level, rc - mats[level][0](zc))
+            return solve(level, rc, CYCLE_M, lambda x: vcycle(level, x),
+                         flexible=True)
+
+        return lambda v: vcycle(0, v)
+
+    builder.state = build_state
+    return builder

@@ -4,14 +4,22 @@
 mesh -> DoFs -> constraints -> initial condition -> { steady cycles |
 BDF time loop } with post-processing, tables and VTU output.
 
-Everything runs on one device given at construction (``device``,
-``dtype``).  A Newton solve is a host loop over device work: each
-convergence check reads one number back (see ``solvers/newton.py``), and
-the engine keeps the counts in ``self.stats``.
+Everything runs on one device given at construction (``device``, CUDA
+by default, and ``dtype``, float32 by default, as the CLI).  A Newton
+solve is a host loop over device work: each convergence check reads one
+number back (see ``solvers/newton.py``), and the engine keeps the counts
+in ``self.stats``.
+
+``preconditioner = auto`` resolves to geometric multigrid
+(``ops/multigrid.py``) on a lattice with a hierarchy, with FGMRES
+outside; a GMG that stalls a linear solve is swapped for block-Jacobi
+for the rest of that solve and restored once for the next (see
+``_gmg_fallback``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import time as _time
 
@@ -30,6 +38,7 @@ from ..fem.dof import FESpace
 from ..fem.geometry import det_and_inv
 from ..fem.mesh import Manifold, Mesh, generate_mesh
 from ..ops.linalg import gmres
+from ..ops.multigrid import build_hierarchy, make_vcycle
 from ..ops.operators import assemble
 from ..ops.preconditioners import (apply_node_block_state,
                                    build_from_node_blocks,
@@ -53,12 +62,15 @@ class GLSNavierStokesSolver:
     """Monolithic equal-order GLS solver (GLSNavierStokesSolver<dim>)."""
 
     def __init__(self, prm: SimulationParameters, mesh: Mesh | None = None,
-                 *, device: torch.device | str = "cpu",
-                 dtype: torch.dtype = torch.float64):
+                 *, device: torch.device | str = "cuda",
+                 dtype: torch.dtype = torch.float32):
         self.prm = prm
         self.dim = prm.dim
         self.device = torch.device(device)
         self.dtype = dtype
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("the solver runs on CUDA unless device='cpu' "
+                               "is given, and CUDA is not available")
         if self.device.type == "cuda":
             # f32 means f32: no TF32 in any matrix product
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -73,7 +85,7 @@ class GLSNavierStokesSolver:
         self._torque_tables: dict[int, Table] = {}
         self.stats = {"newton_solves": 0, "newton_iterations": 0,
                       "linear_iterations": 0, "host_syncs": 0,
-                      "newton_seconds": 0.0}
+                      "line_search_evaluations": 0, "newton_seconds": 0.0}
         self._mesh = mesh
         self.setup()
 
@@ -81,21 +93,19 @@ class GLSNavierStokesSolver:
     def _check_supported(self) -> None:
         prm = self.prm
         if prm.simulation_control.method.is_sdirk:
-            raise _not_ported("SDIRK time stepping", "D3")
+            raise _not_ported("SDIRK time stepping", "D2")
         if prm.nonlinear_solver.solver == "pseudo_transient":
-            raise _not_ported("pseudo-transient continuation", "D3")
+            raise _not_ported("pseudo-transient continuation", "D2")
         if prm.restart.checkpoint or prm.restart.restart:
-            raise _not_ported("checkpoint/restart", "D3")
+            raise _not_ported("checkpoint/restart", "D2")
         if prm.mesh_adaptation.type == "kelly" or prm.mesh.type == "gmsh":
             raise _not_ported("Kelly adaptation, forests and gmsh meshes",
-                              "A8, D6")
+                              "A8, D5")
         pc = prm.linear_solver.preconditioner
-        if pc == "gmg":
-            raise _not_ported("preconditioner = gmg", "A7, D1")
         if pc == "additive_schwarz":
-            raise _not_ported("preconditioner = additive_schwarz", "D4")
+            raise _not_ported("preconditioner = additive_schwarz", "D3")
         if prm.linear_solver.jacobian_state_precision == "bf16":
-            raise _not_ported("jacobian state precision = bf16", "D5")
+            raise _not_ported("jacobian state precision = bf16", "D4")
 
     def setup(self, mesh: Mesh | None = None) -> None:
         """read_mesh + setup_dofs + operator/BC construction."""
@@ -162,14 +172,36 @@ class GLSNavierStokesSolver:
             relative_residual=ls.relative_residual,
             minimum_residual=ls.minimum_residual,
             skip_iterations=nls.skip_iterations)
-        self.precond_kind = ls.preconditioner
-        if self.precond_kind == "auto":
-            # the JAX package resolves 'auto' to geometric multigrid,
-            # which this package does not have yet (ROADMAP A7)
+        self.precond_kind = ls.resolved_preconditioner()
+        self._vcycle = None
+        # a mesh rebuild drops a stashed fallen-back GMG (its levels
+        # belong to the old mesh); the strike count survives it
+        self._gmg_stash = None
+        self._gmg_strikes = getattr(self, "_gmg_strikes", 0)
+        if self.precond_kind == "gmg" and self._gmg_strikes >= 2:
+            print("linear solver: GMG stays evicted on the adapted mesh "
+                  "(2 stagnation strikes); using block-Jacobi")
             self.precond_kind = "block_jacobi"
-            if not prm.test.enable:
-                print("linear solver: preconditioner 'auto' resolves to "
-                      "block_jacobi (geometric multigrid is not ported)")
+        self.mg_levels = []
+        if self.precond_kind == "gmg":
+            self.mg_levels = build_hierarchy(self)
+            if len(self.mg_levels) < 2:
+                # no hierarchy on this mesh: block-Jacobi
+                self.precond_kind = "block_jacobi"
+            else:
+                self._vcycle = make_vcycle(
+                    self.mg_levels,
+                    smoother=ls.resolved_mg_smoother(
+                        self.control.is_steady(), degree=self.space.degree),
+                    krylov_m=ls.mg_krylov_vectors,
+                    cycle=ls.resolved_mg_cycle())
+                self.newton_cfg = dataclasses.replace(self.newton_cfg,
+                                                      flexible=True)
+        if ls.preconditioner == "auto" and not prm.test.enable:
+            what = (f"gmg ({len(self.mg_levels)} levels)"
+                    if self._vcycle is not None else
+                    "block_jacobi (no multigrid hierarchy on this mesh)")
+            print(f"linear solver: preconditioner 'auto' resolves to {what}")
         self._zero_prev = torch.zeros((self.space.n_nodes, self.dim), **kw)
 
     # ------------------------------------------------------------------
@@ -224,6 +256,11 @@ class GLSNavierStokesSolver:
             return node_blocks_to_state(self.precond_kind, blocks, mask)
 
         def precond_builder(u):
+            if self._vcycle is not None:
+                # the cycle's state is built here, once per Newton
+                # iteration
+                return self._vcycle(hc.distribute(u), uprev_combo, fq,
+                                    alpha0, sdt, mask)
             blocks = op.node_blocks(hc.distribute(u), mask, uprev_combo,
                                     fq, alpha0, sdt)
             blocks = bh.slip_project_blocks(blocks)
@@ -233,16 +270,43 @@ class GLSNavierStokesSolver:
         return (constrain, residual, jacobian, node_block_state,
                 precond_builder)
 
+    def _gmg_fallback(self) -> bool:
+        """Swap a stalling GMG preconditioner for block-Jacobi (the linear
+        solve ran out of its budget above its tolerance); the Newton
+        iteration is then retried.  On steady strongly convective decks
+        the rediscretized coarse correction can amplify smooth
+        convective modes while block-Jacobi FGMRES converges; where GMG
+        works it is much stronger, so the swap is undone once for the
+        next solve (``_gmg_probation``).  Returns whether it swapped."""
+        if self._vcycle is None:
+            return False
+        print("linear solver: GMG stagnated (linear budget exhausted); "
+              "falling back to block-Jacobi preconditioning")
+        self._gmg_strikes += 1
+        self._gmg_stash = self._vcycle
+        self._vcycle = None
+        self.precond_kind = "block_jacobi"
+        return True
+
+    def _gmg_probation(self) -> None:
+        """Restore a fallen-back GMG for the next nonlinear solve, while it
+        has fewer than two strikes; after the second the swap stays."""
+        if self._gmg_stash is not None and self._gmg_strikes < 2:
+            self._vcycle, self._gmg_stash = self._gmg_stash, None
+            self.precond_kind = "gmg"
+
     def _newton(self, u0, uprev_combo, t, alpha0, sdt):
         """One nonlinear solve (steady: alpha0 = sdt = 0)."""
-        if self.precond_kind not in ("jacobi", "block_jacobi"):
+        self._gmg_probation()
+        if self.precond_kind not in ("jacobi", "block_jacobi", "gmg"):
             raise ValueError(
                 f"unknown preconditioner {self.precond_kind!r}")
         t0 = _time.perf_counter()
         (constrain, residual, jacobian, node_block_state,
          precond_builder) = self._make_problem(uprev_combo, t, alpha0, sdt)
         u0 = constrain(u0)
-        if self.prm.nonlinear_solver.solver == "skip_newton":
+        if (self.prm.nonlinear_solver.solver == "skip_newton"
+                and self._vcycle is None):
             # reference SkipNewtonNonLinearSolver: the preconditioner
             # state is rebuilt every `skip iterations`
             res = newton_solve(residual, jacobian, u0,
@@ -252,7 +316,8 @@ class GLSNavierStokesSolver:
         else:
             res = newton_solve(residual, jacobian, u0,
                                precond_builder=precond_builder,
-                               config=self.newton_cfg)
+                               config=self.newton_cfg,
+                               on_linear_stall=self._gmg_fallback)
         if self.hc.n:
             res = res._replace(u=self.hc.distribute(res.u))
         st = self.stats
@@ -260,6 +325,7 @@ class GLSNavierStokesSolver:
         st["newton_iterations"] += res.n_iterations
         st["linear_iterations"] += res.linear_iters
         st["host_syncs"] += res.host_syncs
+        st["line_search_evaluations"] += res.line_search_evals
         st["newton_seconds"] += _time.perf_counter() - t0
         return res
 

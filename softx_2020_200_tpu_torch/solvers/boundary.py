@@ -33,8 +33,8 @@ from ..fem.geometry import face_measure_and_normal
 
 class BoundaryHandler:
     def __init__(self, space: FESpace, bcs: BoundaryConditionsParams, *,
-                 dtype: torch.dtype = torch.float64,
-                 device: torch.device | str = "cpu"):
+                 dtype: torch.dtype = torch.float32,
+                 device: torch.device | str = "cuda"):
         self.space = space
         dim = space.dim
         nc = dim + 1

@@ -5,7 +5,14 @@ Equal-order Qk-Qk velocity/pressure, Galerkin weak form plus SUPG + PSPG
 (+ optional GLS viscous-adjoint and LSIC) stabilization with the
 element-size-based tau, evaluated matrix-free:
 
-    gather DoFs -> element kernel (ops/gls_kernel.py) -> gather-sum assembly
+    gather DoFs -> element kernel -> assembly
+
+On a structured lattice whose elements are translates of one box (every
+box deck) the gather and the assembly are strided window reads and adds
+(ops/structured.py) around the lattice kernel B2 (ops/lattice_kernel.py);
+on any other mesh they are index gathers and a gather-sum around the
+element kernel B1 (ops/gls_kernel.py).  The operator picks its path once,
+from the mesh, on every device.
 
 Strong momentum residual (per quad point):
     r_m = du/dt + (u.grad)u + grad p - nu lap u - f
@@ -34,8 +41,10 @@ from ..fem.dof import FESpace
 from ..fem.geometry import det_and_inv
 from ..ops.batched_kernel import element_size
 from ..ops.gls_kernel import GLSElementKernel
+from ..ops.lattice_kernel import LatticeGLSKernel, is_translate_lattice
 from ..ops.operators import (assemble, build_assembly_map,
                              node_multiplicity)
+from ..ops.structured import StructuredLayout
 
 
 @dataclass(frozen=True)
@@ -118,10 +127,13 @@ def make_element_kernel(*, dim: int, degree: int, B, G, H, w, nu: float,
 
 @dataclass
 class Linearization:
-    """Element state frozen at one Newton iterate (SoA rows)."""
-    ue: torch.Tensor      # [nn, c, E]
-    up: torch.Tensor      # [nn, d, E]
-    fq: torch.Tensor      # [q, d, E]
+    """Element state frozen at one Newton iterate, in the rows of the
+    operator's kernel: SoA ``[nn, c, E]``, ``[nn, d, E]``, ``[q, d, E]``
+    for B1; component-major ``[c*nn, E]``, ``[d*nn, E]``, ``[d*q, E]``
+    on the lattice path."""
+    ue: torch.Tensor
+    up: torch.Tensor
+    fq: torch.Tensor
     alpha0: float
     sdt: float
 
@@ -136,8 +148,8 @@ class GLSOperator(nn.Module):
 
     def __init__(self, space: FESpace, nu: float, n_q1d: int | None = None,
                  stab: StabFlags = StabFlags(), *,
-                 dtype: torch.dtype = torch.float64,
-                 device: torch.device | str = "cpu"):
+                 dtype: torch.dtype = torch.float32,
+                 device: torch.device | str = "cuda"):
         super().__init__()
         self.space = space
         self.dim = space.dim
@@ -172,9 +184,22 @@ class GLSOperator(nn.Module):
         # physical quad-point coordinates (source / error evaluation)
         buf("qpts_phys", np.einsum("qn,end->eqd", B, xe))  # [E, nq, d]
 
-        self.kernel = GLSElementKernel(
-            dim=self.dim, degree=self.degree, B=B, G=G, H=H, w=wts,
-            nu=self.nu, stab=stab, dtype=dtype, device=device)
+        # the lattice path: a structured block of translates of one box
+        self.layout = None
+        if space.mesh.structured_shape is not None:
+            layout = StructuredLayout(space)
+            xe_grid = layout.elem_coords_grid_order()
+            if is_translate_lattice(xe_grid, G):
+                self.layout = layout
+                buf("elem_perm", layout.elem_perm, torch.int64)
+                self.kernel = LatticeGLSKernel(
+                    dim=self.dim, degree=self.degree, B=B, G=G, H=H,
+                    w=wts, xe0=xe_grid[0], nu=self.nu, stab=stab,
+                    dtype=dtype, device=device)
+        if self.layout is None:
+            self.kernel = GLSElementKernel(
+                dim=self.dim, degree=self.degree, B=B, G=G, H=H, w=wts,
+                nu=self.nu, stab=stab, dtype=dtype, device=device)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -196,8 +221,26 @@ class GLSOperator(nn.Module):
     def _fq_soa(self, fq):
         return fq.permute(1, 2, 0).contiguous()             # [q, d, E]
 
+    def _rows(self, u):
+        """Nodal u[N, k] -> lattice rows [k*nn, E] (element-lattice
+        order)."""
+        return self.layout.gather(u).reshape(-1, self.layout.E)
+
+    def _fq_rows(self, fq):
+        """fq[E, q, d] in space element order -> lattice rows [d*q, E]."""
+        return fq[self.elem_perm].permute(2, 1, 0).reshape(
+            -1, self.layout.E)
+
+    def _scatter_rows(self, r):
+        """Lattice rows [k*nn, E] -> assembled [N, k]."""
+        return self.layout.scatter(r.reshape(-1, self.nn, self.layout.E))
+
     def residual_free(self, u, uprev_combo, fq, alpha0, sdt):
         """Unconstrained residual R(u): [N, d+1] -> [N, d+1]."""
+        if self.layout is not None:
+            r = self.kernel.residual(self._rows(u), self._rows(uprev_combo),
+                                     self._fq_rows(fq), alpha0, sdt)
+            return self._scatter_rows(r)
         r = self.kernel.residual(self._soa(u), self.xe_soa,
                                  self._soa(uprev_combo), self._fq_soa(fq),
                                  self.h, alpha0, sdt)
@@ -210,12 +253,21 @@ class GLSOperator(nn.Module):
 
     def linearize(self, u, uprev_combo, fq, alpha0, sdt) -> Linearization:
         """Element state at ``u`` for repeated Jacobian-vector products."""
+        if self.layout is not None:
+            return Linearization(ue=self._rows(u),
+                                 up=self._rows(uprev_combo),
+                                 fq=self._fq_rows(fq), alpha0=float(alpha0),
+                                 sdt=float(sdt))
         return Linearization(ue=self._soa(u), up=self._soa(uprev_combo),
                              fq=self._fq_soa(fq), alpha0=float(alpha0),
                              sdt=float(sdt))
 
     def jvp(self, state: Linearization, du):
         """Unconstrained J(u) du: [N, d+1] -> [N, d+1]."""
+        if self.layout is not None:
+            dr = self.kernel.tangent(state.ue, self._rows(du), state.up,
+                                     state.fq, state.alpha0, state.sdt)
+            return self._scatter_rows(dr)
         dr = self.kernel.tangent(state.ue, self._soa(du), self.xe_soa,
                                  state.up, state.fq, self.h, state.alpha0,
                                  state.sdt)
@@ -225,10 +277,20 @@ class GLSOperator(nn.Module):
         """Assembled per-node (d+1)x(d+1) Jacobian diagonal blocks
         [N, c, c] for (block-)Jacobi, with Dirichlet rows/cols zeroed."""
         c = self.nc
+        keep_mask = 1.0 - bc_mask.to(self.dtype)
+        if self.layout is not None:
+            blocks = self.kernel.node_blocks(
+                self._rows(u), self._rows(uprev_combo), self._fq_rows(fq),
+                alpha0, sdt)                              # [nn, c*c, E]
+            keep = self.layout.gather(keep_mask)          # [c, nn, E]
+            keep2 = (keep[:, None] * keep[None, :]).permute(2, 0, 1, 3)
+            blocks = blocks * keep2.reshape(blocks.shape)
+            return self.layout.scatter(blocks.transpose(0, 1)).reshape(
+                self.n_nodes, c, c)
         blocks = self.kernel.node_blocks(
             self._soa(u), self.xe_soa, self._soa(uprev_combo),
             self._fq_soa(fq), self.h, alpha0, sdt)       # [nn, c*c, E]
-        keep = 1.0 - self._soa(bc_mask.to(self.dtype))   # [nn, c, E]
+        keep = self._soa(keep_mask)                      # [nn, c, E]
         keep2 = keep[:, :, None, :] * keep[:, None, :, :]
         blocks = blocks * keep2.reshape(blocks.shape)
         return self._assemble_rows(blocks).reshape(self.n_nodes, c, c)

@@ -37,6 +37,9 @@ class NewtonConfig:
     # 1/`stall_factor` (the f32 residual floor; see the JAX package)
     stall_window: int = 4
     stall_factor: float = 0.9
+    # FGMRES (required when the preconditioner itself iterates, e.g. the
+    # multigrid bottom-level Krylov solve)
+    flexible: bool = False
 
 
 class NewtonResult(NamedTuple):
@@ -46,6 +49,7 @@ class NewtonResult(NamedTuple):
     linear_iters: int
     alphas: np.ndarray           # line-search alpha per iteration
     host_syncs: int              # device-to-host reads during the solve
+    line_search_evals: int       # residual evaluations of the line search
 
 
 def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
@@ -53,6 +57,7 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
                  config: NewtonConfig,
                  precond_state_fn: Callable | None = None,
                  precond_apply_fn: Callable | None = None,
+                 on_linear_stall: Callable[[], bool] | None = None,
                  sync: HostSync | None = None) -> NewtonResult:
     """Solve R(u) = 0.
 
@@ -65,6 +70,10 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
     Skip-Newton: pass ``precond_state_fn(u) -> state`` and
     ``precond_apply_fn(state, v) -> v`` instead; the state is rebuilt
     only every ``config.skip_iterations`` iterations.
+
+    ``on_linear_stall()`` runs when a linear solve ends above its
+    tolerance; if it returns True (it changed what ``precond_builder``
+    builds) the Newton iteration is retried.
     """
     sync = sync if sync is not None else HostSync()
     start = sync.count
@@ -82,7 +91,7 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
     alphas = np.full(maxit, np.nan)
     hist[0] = rnorm
     u = u0
-    it = lin_total = 0
+    it = lin_total = ls_evals = 0
     pstate = None
     u_best, n_best = u0, rnorm
 
@@ -110,16 +119,20 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
         lin_atol = max(config.relative_residual * rnorm,
                        config.minimum_residual)
         if config.method == "bicgstab":
-            d, _, lin_it = bicgstab(
+            d, lin_rn, lin_it = bicgstab(
                 matvec, -R.reshape(-1), precond=pre_flat,
                 max_iters=config.gmres_restart * config.max_krylov_cycles,
                 atol=lin_atol, sync=sync)
         else:
-            d, _, lin_it = gmres(
+            d, lin_rn, lin_it = gmres(
                 matvec, -R.reshape(-1), precond=pre_flat,
                 m=config.gmres_restart,
                 max_restarts=config.max_krylov_cycles, atol=lin_atol,
-                sync=sync)
+                flexible=config.flexible, sync=sync)
+        lin_total += lin_it
+        if (lin_rn > lin_atol and on_linear_stall is not None
+                and on_linear_stall()):
+            continue
         d = d.reshape(shape)
 
         # alpha-halving line search on ||R(u + alpha d)||
@@ -132,13 +145,13 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
             Rt = residual_fn(u + alpha * d)
             nt = sync(norm(Rt))
             k += 1
+        ls_evals += 1 + k
 
         u = u + alpha * d
         R, rnorm = Rt, nt
         alphas[it] = alpha
         it += 1
         hist[it] = rnorm
-        lin_total += lin_it
         # best-iterate tracking: at the floating-point floor the line
         # search may accept a step that grew ||R||; return the best
         # visited iterate
@@ -146,4 +159,5 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
             u_best, n_best = u, rnorm
     return NewtonResult(u=u_best, res_history=hist, n_iterations=it,
                         linear_iters=lin_total, alphas=alphas,
-                        host_syncs=sync.count - start)
+                        host_syncs=sync.count - start,
+                        line_search_evals=ls_evals)

@@ -49,28 +49,32 @@ def _golden(name):
 
 def test_cli_without_test_mode_reports_solver_counts(tmp_path, monkeypatch):
     """Outside ``subsection test`` the app says what ``auto`` resolves to
-    and prints the Newton summary with the host syncs per iteration."""
+    (the Q2 lattice coarsens to a Q1 level) and prints the Newton summary
+    with the host syncs per iteration."""
     text = _golden("periodic_gls")
     assert text.endswith("subsection test\n  set enable = true\nend\n")
     text = text[:-len("  set enable = true\nend\n")] + "end\n"
     deck = _write(tmp_path, "deck.prm", text)
     out = _run(2, [deck, "--device", "cpu", "--dtype", "float64"],
                tmp_path, monkeypatch)
-    assert "preconditioner 'auto' resolves to block_jacobi" in out
+    assert "preconditioner 'auto' resolves to gmg (2 levels)" in out
     summary = [ln for ln in out.splitlines()
                if ln.startswith("Newton summary: 1 solves")]
     assert len(summary) == 1
     assert "host syncs per Newton iteration" in summary[0]
 
 
-@pytest.mark.parametrize("edit,match", [
-    ("  set preconditioner = gmg\n", "A7, D1"),
-    ("  set preconditioner = additive_schwarz\n", "D4"),
-    ("  set jacobian state precision = bf16\n", "D5"),
+@pytest.mark.parametrize("section,edit,match", [
+    ("non-linear solver", "  set solver = pseudo_transient\n", "D2"),
+    ("linear solver", "  set preconditioner = additive_schwarz\n", "D3"),
+    ("linear solver", "  set jacobian state precision = bf16\n", "D4"),
 ])
-def test_cli_refuses_what_is_not_ported(edit, match, tmp_path, monkeypatch):
-    text = _golden("couette_gls").replace(
-        "subsection linear solver\n", "subsection linear solver\n" + edit)
+def test_cli_refuses_what_is_not_ported(section, edit, match, tmp_path,
+                                        monkeypatch):
+    text = _golden("couette_gls")
+    head = f"subsection {section}\n"
+    assert head in text
+    text = text.replace(head, head + edit)
     deck = _write(tmp_path, "deck.prm", text)
     with pytest.raises(NotImplementedError, match=match):
         _run(2, [deck, "--device", "cpu"], tmp_path, monkeypatch)

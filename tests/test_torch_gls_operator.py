@@ -32,6 +32,7 @@ from softx_2020_200_tpu_torch.solvers.gls import (GLSOperator, StabFlags,
 torch.set_num_threads(1)
 
 RTOL = 1e-12
+CPU = dict(device="cpu", dtype=torch.float64)
 NU = 0.05
 A0, SDT = 2.0, 4.0
 
@@ -78,8 +79,8 @@ def test_operator_matches_jax(dim, degree, geometry):
     ja = jax_gls.GLSOperator(sa, nu=NU, dtype=jnp.float64)
     ja_fr = jax_gls.GLSOperator(sa, nu=NU, dtype=jnp.float64,
                                 stab=jax_gls.StabFlags(frozen_tau=True))
-    op = GLSOperator(sb, nu=NU)
-    op_fr = GLSOperator(sb, nu=NU, stab=StabFlags(frozen_tau=True))
+    op = GLSOperator(sb, nu=NU, **CPU)
+    op_fr = GLSOperator(sb, nu=NU, stab=StabFlags(frozen_tau=True), **CPU)
     u, v, prev, fq = (jnp.asarray(x[k]) for k in ("u", "v", "prev", "fq"))
     tu, tv, tprev, tfq = (_t(x[k]) for k in ("u", "v", "prev", "fq"))
 
@@ -133,7 +134,7 @@ SLOW = pytest.mark.slow
 def test_plain_kernel_matches_tpu_kernel(dim, degree, geometry, lsic):
     sa, sb, x = _setup(dim, degree, geometry, seed=9)
     pg = PallasGLS(sa, nu=NU, lsic=lsic, dtype=jnp.float64, interpret=True)
-    op = GLSOperator(sb, nu=NU, stab=StabFlags(lsic=lsic))
+    op = GLSOperator(sb, nu=NU, stab=StabFlags(lsic=lsic), **CPU)
     en = jnp.asarray(sa.elem_nodes)
     ue = gather_elements(jnp.asarray(x["u"]), en)
     due = gather_elements(jnp.asarray(x["v"]), en)

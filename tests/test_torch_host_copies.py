@@ -44,6 +44,16 @@ COPIES = ["core/prm.py", "core/parameters.py", "core/bdf.py",
 DROPPED = {"core/timer.py": {"jax_trace"}}
 
 
+# functions of JAX modules that the port copies on their own (their
+# modules import jax): (JAX module, JAX name, port module, port name)
+FUNCTION_COPIES = [
+    ("ops/pallas_lattice.py", "_affine_tables", "ops/lattice_kernel.py",
+     "affine_tables"),
+    ("ops/multigrid.py", "_transfer_maps", "ops/multigrid.py",
+     "_transfer_maps"),
+]
+
+
 class _StripImports(ast.NodeTransformer):
     def visit_Import(self, node):
         return None
@@ -67,6 +77,22 @@ def test_host_module_is_a_copy(rel):
     original = _code(os.path.join(JAX_PKG, rel), DROPPED.get(rel, set()))
     copy = _code(os.path.join(PORT_PKG, rel))
     assert copy == original
+
+
+def _function_body(path, name):
+    """The body of top-level function ``name`` without its docstring."""
+    fn = next(n for n in ast.parse(open(path).read()).body
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    return [ast.dump(n) for n in fn.body
+            if not (isinstance(n, ast.Expr)
+                    and isinstance(n.value, ast.Constant))]
+
+
+@pytest.mark.parametrize("jax_rel,jax_name,port_rel,port_name",
+                         FUNCTION_COPIES, ids=[f[1] for f in FUNCTION_COPIES])
+def test_host_function_is_a_copy(jax_rel, jax_name, port_rel, port_name):
+    assert (_function_body(os.path.join(PORT_PKG, port_rel), port_name)
+            == _function_body(os.path.join(JAX_PKG, jax_rel), jax_name))
 
 
 def _plain(obj):
@@ -134,8 +160,10 @@ def test_mesh_and_numbering_identical(name, degree):
 
 
 def test_apps_never_import_jax(tmp_path):
-    """Importing the port's apps and running a tiny deck on the CPU
-    leaves jax out of sys.modules."""
+    """Importing the port's apps and kernel, lattice and multigrid
+    modules, and running a tiny deck on the CPU (a lattice: the strided
+    layout and the lattice kernel's plain version) leaves jax out of
+    sys.modules."""
     deck = tmp_path / "tiny.prm"
     deck.write_text(open(os.path.join(ROOT, "tests", "golden",
                                       "couette_gls.prm")).read()
@@ -146,6 +174,8 @@ def test_apps_never_import_jax(tmp_path):
         "pre = {m for m in sys.modules if m.split('.')[0] == 'jax'}\n"
         "from softx_2020_200_tpu_torch.apps import gls_navier_stokes_2d\n"
         "from softx_2020_200_tpu_torch.apps import gls_navier_stokes_3d\n"
+        "from softx_2020_200_tpu_torch.ops import (cuda_build, "
+        "lattice_kernel, multigrid, structured)\n"
         f"rc = gls_navier_stokes_2d.main([{str(deck)!r}, '--device', "
         "'cpu', '--dtype', 'float64'])\n"
         "assert rc == 0\n"

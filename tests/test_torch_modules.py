@@ -118,7 +118,8 @@ def test_boundary_handler_matches_jax(case):
     mb = port_mesh.generate_mesh(grid, args, dim=dim, initial_refinement=1)
     sa, sb = JaxFESpace(ma, 2), FESpace(mb, 2)
     ba = jax_boundary.BoundaryHandler(sa, pa.boundary_conditions)
-    bb = port_boundary.BoundaryHandler(sb, pb.boundary_conditions)
+    bb = port_boundary.BoundaryHandler(sb, pb.boundary_conditions,
+                                       device="cpu", dtype=torch.float64)
     np.testing.assert_array_equal(bb.mask.numpy(), np.asarray(ba.mask))
     assert bb.n_slip == ba.n_slip
     assert (bb.n_slip > 0) == (case == "shell_slip")
@@ -234,7 +235,8 @@ def test_postprocessing_matches_jax(dim, degree):
                                                 [3, 2, 2], True, dim=3)
     sa, sb = JaxFESpace(mk(jax_mesh), degree), FESpace(mk(port_mesh), degree)
     oa = jax_gls.GLSOperator(sa, nu=0.03, dtype=jnp.float64)
-    ob = port_gls.GLSOperator(sb, nu=0.03)
+    ob = port_gls.GLSOperator(sb, nu=0.03, device="cpu",
+                              dtype=torch.float64)
     u = np.random.default_rng(dim).standard_normal((sa.n_nodes, dim + 1))
     ua, ub = jnp.asarray(u), _t(u)
     center = np.array([0.1, -0.2, 0.3])[:dim]
@@ -264,7 +266,8 @@ def test_rotated_slip_solve_matches_jax(tmp_path):
                         "subsection simulation control\n"
                         f"  set output path = {tmp_path}/\n", 1)
     ja = JaxSolver(JaxParameters.from_text(text, dim=2))
-    po = GLSNavierStokesSolver(SimulationParameters.from_text(text, dim=2))
+    po = GLSNavierStokesSolver(SimulationParameters.from_text(text, dim=2),
+                               device="cpu", dtype=torch.float64)
     assert po.bh.n_slip > 0
     ua, ra = ja.solve_steady(verbose=False)
     up, rp = po.solve_steady(verbose=False)

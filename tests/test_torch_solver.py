@@ -5,10 +5,12 @@ float64.
   in both packages);
 - the golden transient deck ``tests/golden/mms_bdf2.prm`` (BDF2 with
   startup sub-steps, MMS source, function boundary values), with
-  block-Jacobi in both (the JAX package resolves its ``auto``
-  preconditioner to geometric multigrid, which is not ported yet);
-- a periodic 3D Taylor-Green vortex on 4^3 Q1 cells, 2 steps;
-- skip-Newton on a small cavity.
+  block-Jacobi in both (multigrid solves are held by
+  ``tests/test_torch_multigrid.py``);
+- a periodic 3D Taylor-Green vortex on 4^3 Q1 cells, 2 steps (the port
+  on its lattice path, the JAX package on its XLA path);
+- skip-Newton on a small cavity;
+- the constructors' default device.
 
 Final states agree to 1e-8 relative, Newton iteration counts are equal
 and GMRES counts within 1 per solve (the two packages sum in different
@@ -59,7 +61,8 @@ def _solvers(text, dim, tmp_path):
     text = _deck_output(text, tmp_path)
     return (JaxSolver(JaxParameters.from_text(text, dim=dim)),
             GLSNavierStokesSolver(SimulationParameters.from_text(text,
-                                                                 dim=dim)))
+                                                                 dim=dim),
+                                  device="cpu", dtype=torch.float64))
 
 
 def _deck_output(text, tmp_path):
@@ -277,3 +280,24 @@ end
     assert _rel(up, ua) < 1e-8
     _same_counts([(rp.n_iterations, rp.linear_iters)],
                  [(int(ra.n_iterations), int(ra.linear_iters))])
+
+
+def test_constructors_default_to_cuda(tmp_path, monkeypatch):
+    """The solver, operator, boundary handler and both kernel wrappers run
+    on CUDA in float32 unless told otherwise; without CUDA the solver
+    raises instead of moving to the CPU."""
+    import inspect
+
+    from softx_2020_200_tpu_torch.ops.gls_kernel import GLSElementKernel
+    from softx_2020_200_tpu_torch.ops.lattice_kernel import LatticeGLSKernel
+    from softx_2020_200_tpu_torch.solvers.boundary import BoundaryHandler
+    from softx_2020_200_tpu_torch.solvers.gls import GLSOperator
+    for cls in (GLSNavierStokesSolver, GLSOperator, BoundaryHandler,
+                GLSElementKernel, LatticeGLSKernel):
+        params = inspect.signature(cls.__init__).parameters
+        assert params["device"].default == "cuda", cls
+        assert params["dtype"].default == torch.float32, cls
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prm = SimulationParameters.from_text(_deck_output(TGV, tmp_path), dim=3)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        GLSNavierStokesSolver(prm)
