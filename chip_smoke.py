@@ -10,15 +10,19 @@ Phases (each prints its own lines; any failed check raises):
 1. environment: card name and power limit, torch / CUDA / nvcc / triton
    versions;
 2. build: ``nvcc`` compiles the GLS element kernel (B1,
-   ``csrc/gls_element.cu``) and the GLS lattice kernel (B2,
-   ``csrc/gls_lattice.cu``) of ``softx_2020_200_tpu_torch``, one process
+   ``csrc/gls_element.cu``), the GLS lattice kernel (B2,
+   ``csrc/gls_lattice.cu``) and the grad-div (GD) lattice kernel (B3,
+   ``csrc/gd_lattice.cu``) of ``softx_2020_200_tpu_torch``, one process
    each, in parallel, and prints ptxas's registers and spills;
 3. B1 against its plain PyTorch version (primal, frozen-tau tangent,
    node-block probes) for Q1/Q2 in 2D/3D on non-affine geometry, without
    and with LSIC; 3b: the same at B1's main-path shapes, then kernel and
    plain times; 3c: B2 against its plain version on parity lattices with
    a ragged tail, without and with LSIC, then at B2's main-path shapes
-   (every multigrid level of phases 6 and 7 included) with times;
+   (every multigrid level of phases 6 and 7 included) with times; 3d:
+   B3 (primal, exact tangent) against its plain version on bounded and
+   periodic parity lattices with a ragged tail, then at its main-path
+   shapes (2D 256^2, 3D 16^3 and 32^3) with times;
 4. main path, 2D steady, B1: Taylor-Couette (Q2 on a curved shell) at
    refinements 3 and 5 (12,288 cells) through ``gls_navier_stokes_2d``;
 5. main path, 3D transient, B2: the Taylor-Green vortex on a periodic
@@ -30,9 +34,15 @@ Phases (each prints its own lines; any failed check raises):
    solver loop's; one V-cycle is also applied alone with CUDA
    synchronisation made an error;
 7. a Q2 lattice deck with multigrid (p-coarsening, then lattice halving):
-   the golden MMS deck at refinement 8 (256^2 Q2 cells).
+   the golden MMS deck at refinement 8 (256^2 Q2 cells);
+8. main path of the GD solver, 2D steady, B3: the golden GD cavity at
+   refinement 8 (256^2 Q2-Q1 cells) through ``gd_navier_stokes_2d`` with
+   velocity-block multigrid (6 levels): forces, FGMRES count, host
+   syncs, every solve converged;
+9. GD, 3D transient, B3: the Taylor-Green example at 16^3 Q2-Q1 cells,
+   2 BDF2 steps, through ``gd_navier_stokes_3d`` (3 multigrid levels).
 
-Phases 4-7 hold their physics numbers against the JAX package run on the
+Phases 4-9 hold their physics numbers against the JAX package run on the
 CPU in float64 on the same decks (``JAX_REFERENCE`` below) and check
 which kernel each deck launched.  The line before the last lists the
 kernels with their launch counts in the main-path runs, errors, times
@@ -113,6 +123,32 @@ DECKS = {
         ("text", ("subsection test\n  set enable = true",
                   "subsection test\n  set enable = false")),
     ]),
+    # the golden grad-div (GD) cavity at refinement 8 (256^2 Q2-Q1
+    # cells, 592,387 DoF), the largest whose JAX CPU f64 run converges
+    # in minutes; `auto` -> velocity-block GMG, 256^2 -> ... -> 8^2.
+    # Newton stops at 1e-4, not the golden 1e-9: float32 residuals at
+    # this size floor near 1e-5, and the f64 run passes 1e-4 after its
+    # second iteration (1.6 -> 1.4e-3 -> 7.2e-6)
+    "gd_cavity_r8.prm": ("tests/golden/gd_cavity.prm", [
+        ("initial refinement", "8"),
+        ("tolerance", "1e-4"),
+        ("log precision", "8"),
+        ("text", ("subsection test\n  set enable = true",
+                  "subsection test\n  set enable = false")),
+    ]),
+    # the TGV example through the GD solver at 16^3 Q2-Q1 cells (102,400
+    # DoF), 2 BDF2 steps (3 solves with the startup sub-step): `auto`
+    # -> GMG 16^3 -> 8^3 -> 4^3.  Newton stops at 1e-5, not the
+    # example's 1e-6, which float32 does not reach on this deck (on an
+    # H100 its 3 solves took 18 Newton and 13,201 FGMRES iterations,
+    # none converged); the f64 run takes the same iterates either way
+    # (each solve 2e-1..3e-1 -> 1e-4..3e-4 -> 1e-7..3e-7)
+    "tgv16_gd.prm": ("examples/tgv3d_re1600.prm", [
+        ("grid arguments", "16, 16, 16 : 0, 0, 0 : 6.283185307179586, "
+         "6.283185307179586, 6.283185307179586 : true"),
+        ("time end", "0.1"),
+        ("tolerance", "1e-5"),
+    ]),
 }
 
 # The JAX package on the CPU in float64 on these decks, written by
@@ -121,7 +157,8 @@ DECKS = {
 #     PYTHONPATH=<repo> python -m softx_2020_200_tpu.apps.gls_navier_stokes_2d \
 #     taylor_couette_r3.prm
 #   (gls_navier_stokes_3d for the tgv32 decks; gls_navier_stokes_2d for
-#   mms_q2_r8.prm)
+#   mms_q2_r8.prm); the GD decks' values, and every FGMRES count, by
+#   scripts/jax_newton_counts.py DECK DIM [gd] in the same directory
 JAX_REFERENCE = {
     "taylor_couette_r3.prm": {"l2_velocity": 1.16973573e-04,
                               "l2_pressure": 2.28645617e-05},
@@ -136,6 +173,21 @@ JAX_REFERENCE = {
         "fgmres_per_newton": 4.0},
     "mms_q2_r8.prm": {
         "l2_velocity": [1.16326916e-04, 7.90071789e-05, 3.32107022e-05]},
+    # 1 solve, 2 Newton iterations (residual 1.6018 -> 1.4325e-3 ->
+    # 7.2114e-6) and 272 FGMRES iterations:
+    # scripts/jax_newton_counts.py gd_cavity_r8.prm 2 gd
+    "gd_cavity_r8.prm": {
+        "forces": {0: (6.19774035e-01, 3.68163531e-01),
+                   1: (6.93937321e-01, -4.03186537e-01),
+                   2: (-1.59681819e-02, -1.45521351e-02),
+                   3: (-1.30945018e+00, 5.00279262e-02)},
+        "fgmres_per_newton": 136.0},
+    # 3 solves (the BDF2 startup sub-step, then step 2), 6 Newton and 455
+    # FGMRES iterations: scripts/jax_newton_counts.py tgv16_gd.prm 3 gd
+    "tgv16_gd.prm": {
+        "kinetic_energy": [1.249528e-01, 1.249278e-01],
+        "enstrophy": [3.749735e-01, 3.752148e-01],
+        "fgmres_per_newton": 75.83},
 }
 
 # Tolerances of the card's float32 runs against the float64 reference.
@@ -154,6 +206,20 @@ L2_DECAY_VELOCITY, L2_DECAY_PRESSURE = 8.0, 4.0
 # 1e-6 in both runs; f32 rounding of the state moves them by about 1e-7
 # relative, and the reference prints 7 digits.
 ENERGY_RTOL = 1e-5
+# GD cavity forces per boundary: the largest component error over the
+# boundary's largest reference component.  Float32 runs of the deck came
+# within 4.7e-5 (the port on an H100) and 2.2e-5 (on the CPU) of the f64
+# reference.  The f64 run stopped one Newton iteration early (tolerance
+# 1e-2) is off by 3.8e-2 to 0.91 on the four boundaries, and one taken a
+# Newton iteration further (tolerance 1e-9, residual 7.2e-6 -> 1.3e-10)
+# by 2.5e-4, 2.1e-4 and 1.1e-2 on boundaries 0-2 (1.6e-4 on 3).  2e-4
+# passes the first two and fails both controls.
+FORCE_RTOL = 2e-4
+# FGMRES iterations per Newton iteration on the GD cavity against the
+# JAX package's: room for f32 and summation order (8 % between two
+# calls of one deck was seen on the GLS decks); a broken cycle needs far
+# more, since block-Jacobi does not converge this deck at all
+FGMRES_RTOL = 0.25
 
 
 def deck_text(name: str) -> str:
@@ -234,11 +300,13 @@ def phase_environment(torch) -> str:
 def phase_build() -> None:
     print("== phase 2: build (one nvcc per source, in parallel)")
     from softx_2020_200_tpu_torch.ops import (cuda_build, gls_kernel,
+                                              lattice_gd_kernel,
                                               lattice_kernel)
     t0 = time.perf_counter()
     builds = cuda_build.compile_sources([gls_kernel.SOURCE,
-                                         lattice_kernel.SOURCE])
-    print(f"both built in {time.perf_counter() - t0:.2f} s")
+                                         lattice_kernel.SOURCE,
+                                         lattice_gd_kernel.SOURCE])
+    print(f"all three built in {time.perf_counter() - t0:.2f} s")
     modes = {"0": "primal", "1": "tangent", "2": "probe"}
     for source, build in builds.items():
         name = os.path.splitext(os.path.basename(source))[0]
@@ -255,6 +323,7 @@ def phase_build() -> None:
                 print(f"    {line.replace('ptxas info    :', '').strip()}")
     gls_kernel.get_build()
     lattice_kernel.get_build()
+    lattice_gd_kernel.get_build()
 
 
 # ----------------------------------------------------------------------
@@ -563,30 +632,137 @@ def _bound(dim: int, degree: int, variant: str, E: int, lattice: bool,
     else:   # node blocks: nn*c probes, each without a direction stream
         ops = nn * c * (primal_ops + nq * dpw)
         words = inputs + nn * c * c
+    return _bound_of(ops, words, E)
+
+
+def _bound_of(ops: float, words: float, E: int):
     t_bytes = 4.0 * words * E / PEAK_BYTES_PER_S
     t_ops = float(ops) * E / PEAK_F32_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def _bound_gd(dim: int, variant: str, E: int):
+    """(bound_ms, bound_by) for one call of B3 (Q2-Q1, 3 Gauss points
+    per axis) on E elements, counted as ``_bound`` counts: the velocity
+    contractions Tv @ u_i and Pv @ coefficients (and Tv's value rows @
+    u_prev in the primal), the pressure's Tp @ p and Pp @ div, and the
+    pointwise physics as the kernel writes it (3d^2 + 6d + 2 a point in
+    the primal, 5d^2 + 4d + 2 in the tangent)."""
+    d = dim
+    nnv, nnp, nq = 3 ** d, 2 ** d, 3 ** d
+    rows, mv = d * nnv + nnp, (d + 1) * nq
+    proj = 2 * d * nnv * mv + 2 * nnp * nq
+    if variant == "primal":
+        ops = (2 * d * mv * nnv + 2 * nq * nnp + 2 * d * nq * nnv + proj
+               + nq * (3 * d * d + 6 * d + 2))
+        words = 2 * rows + d * nnv + d * nq       # ue, vpe, fq; out
+    else:
+        ops = (4 * d * mv * nnv + 2 * nq * nnp + proj
+               + nq * (5 * d * d + 4 * d + 2))
+        words = 3 * rows                          # ue, due; out
+    return _bound_of(ops, words, E)
+
+
 # ----------------------------------------------------------------------
-# phases 4-7
+# phase 3d: B3
+# ----------------------------------------------------------------------
+# B3 parity lattices (dim, cells): 195 and 210 cells, several blocks (32
+# elements in 2D, 16 in 3D) and a ragged tail; each bounded and periodic
+B3_PARITY = ((2, (15, 13)), (3, (7, 6, 5)))
+# B3's main-path shapes (label, dim, cells): the GD cavity of phase 8,
+# the GD Taylor-Green deck of phase 9 and the example's own 32^3
+B3_SHAPES = (("2D Q2-Q1 256^2 (GD cavity)", 2, (256,) * 2),
+             ("3D Q2-Q1 16^3 (GD TGV)", 3, (16,) * 3),
+             ("3D Q2-Q1 32^3", 3, (32,) * 3))
+
+
+def _gd_variants(torch, dim, cells, periodic, device, seed):
+    """(operator, kernel calls, plain calls) of B3 on a box lattice with
+    seeded float32 state: the primal residual and the exact tangent (the
+    plain tangent by forward-mode AD)."""
+    from softx_2020_200_tpu_torch.fem import mesh as M
+    from softx_2020_200_tpu_torch.solvers.gd import GDOperator
+    m = M.subdivided_hyper_rectangle([0.0] * dim, [1.0, 0.7, 1.3][:dim],
+                                     list(cells), True, dim=dim)
+    if periodic:
+        m.periodic += [(2 * a, 2 * a + 1, a) for a in range(dim)]
+    op = GDOperator(m, nu=0.01, gamma=0.8, dtype=torch.float32,
+                    device=device)
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=g, dtype=torch.float64)
+                ).to(device, torch.float32)
+
+    E = op.space_v.n_elements
+    ue = op._rows(rnd(op.n_dofs, s=0.3))
+    due = op._rows(rnd(op.n_dofs))
+    vpe = op._vrows(rnd(op.Nv, dim, s=0.2))
+    fq = op._fq_rows(rnd(E, op.n_q, dim, s=0.1))
+    k, a0 = op.kernel, 1.5
+    plain = k.plain()
+    kernel = {"primal": lambda: k.residual(ue, vpe, fq, a0),
+              "tangent": lambda: k.tangent(ue, due, a0)}
+    ref = {"primal": lambda: plain(ue, vpe, fq, a0),
+           "tangent": lambda: torch.func.jvp(
+               lambda v: plain(v, None, None, a0), (ue,), (due,))[1]}
+    return op, kernel, ref
+
+
+def phase_gd_kernel(torch, device) -> tuple[dict, float]:
+    print("== phase 3d: B3 parity (CUDA kernel vs plain PyTorch, float32, "
+          f"tolerance {KERNEL_RTOL:g} of the max-abs scale), then parity "
+          "and times at the main path's shapes (ms)")
+    worst = 0.0
+    for dim, cells in B3_PARITY:
+        for periodic in (False, True):
+            op, kernel, plain = _gd_variants(torch, dim, cells, periodic,
+                                             device, seed=dim)
+            check(op.layout_v is not None, "B3 parity lattice took SoA")
+            label = f"d={dim} Q2-Q1{' periodic' if periodic else ''}"
+            worst = max(worst, _compare(torch, label, op.space_v.n_elements,
+                                        kernel, plain))
+    times = {}
+    for label, dim, cells in B3_SHAPES:
+        op, kernel, plain = _gd_variants(torch, dim, cells, True, device,
+                                         seed=5)
+        check(op.layout_v is not None, f"{label} took the SoA path")
+        E = op.space_v.n_elements
+        worst = max(worst, _compare(torch, label, E, kernel, plain))
+        _time_variants(torch, label, E, kernel, plain, times)
+        for what in kernel:
+            b, by = _bound_gd(dim, what, E)
+            print(f"  bound B3 {label:30s} {what:11s} {b:9.4f} ms ({by}); "
+                  f"kernel {times[label][what][0]:9.4f} ms")
+        del op, kernel, plain
+        torch.cuda.empty_cache()
+    return times, worst
+
+
+# ----------------------------------------------------------------------
+# phases 4-9
 # ----------------------------------------------------------------------
 _NUM = r"([-+]?\d+\.?\d*(?:[eE][-+]?\d+)?)"
-KERNELS = ("gls_element", "gls_lattice")
+KERNELS = ("gls_element", "gls_lattice", "gd_lattice")
 
 
 def _launch_counters():
     from softx_2020_200_tpu_torch.ops.gls_kernel import GLSElementKernel
+    from softx_2020_200_tpu_torch.ops.lattice_gd_kernel import \
+        LatticeGDKernel
     from softx_2020_200_tpu_torch.ops.lattice_kernel import LatticeGLSKernel
     return {"gls_element": GLSElementKernel,
-            "gls_lattice": LatticeGLSKernel}
+            "gls_lattice": LatticeGLSKernel,
+            "gd_lattice": LatticeGDKernel}
 
 
-def drive_app(torch, dim: int, deck: str, kernel: str) -> dict:
-    """Run the deck through the port's CLI entry point on the card; its
-    output is echoed and returned with the launch counts and memory.
-    Checks that it launched ``kernel`` and no other."""
+def drive_app(torch, dim: int, deck: str, kernel: str,
+              solver: str = "gls") -> dict:
+    """Run the deck through the port's CLI entry point on the card (the
+    ``solver`` app: ``gls`` or ``gd``); its output is echoed and returned
+    with the launch counts and memory.  Checks that it launched
+    ``kernel`` and no other."""
     from softx_2020_200_tpu_torch.apps.common import run_app
     counters = _launch_counters()
     with tempfile.TemporaryDirectory() as tmp:
@@ -603,7 +779,7 @@ def drive_app(torch, dim: int, deck: str, kernel: str) -> dict:
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(buf):
-                rc = run_app(dim, [path], device="cuda",
+                rc = run_app(dim, [path], solver=solver, device="cuda",
                              dtype=torch.float32)
             torch.cuda.synchronize()
         finally:
@@ -619,7 +795,8 @@ def drive_app(torch, dim: int, deck: str, kernel: str) -> dict:
     stats = re.search(
         rf"Newton summary: {_NUM} solves, {_NUM} iterations, {_NUM} "
         rf"linear iterations, {_NUM} s per Newton iteration, {_NUM} host "
-        rf"syncs per Newton iteration, {_NUM} line-search evaluations", out)
+        rf"syncs per Newton iteration, {_NUM} line-search evaluations, "
+        rf"{_NUM} Krylov restarts, {_NUM} solves above tolerance", out)
     check(stats is not None, f"{deck}: no Newton summary line")
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     res = dict(out=out, seconds=seconds, launches=launches, peak_mib=peak,
@@ -628,7 +805,9 @@ def drive_app(torch, dim: int, deck: str, kernel: str) -> dict:
                linear_iterations=int(stats.group(3)),
                s_per_newton=float(stats.group(4)),
                syncs_per_newton=float(stats.group(5)),
-               line_search_evaluations=int(stats.group(6)))
+               line_search_evaluations=int(stats.group(6)),
+               linear_restarts=int(stats.group(7)),
+               solves_above_tolerance=int(stats.group(8)))
     print(f"  wall {seconds:.2f} s, Newton iterations "
           f"{res['newton_iterations']}, linear iterations "
           f"{res['linear_iterations']}, {res['s_per_newton']:.4f} s per "
@@ -685,7 +864,13 @@ def phase_couette(torch) -> list[dict]:
 
 def _tgv(torch, deck: str) -> dict:
     res = drive_app(torch, 3, deck, "gls_lattice")
-    m = re.findall(rf"kinetic-energy: {_NUM}  enstrophy: {_NUM}", res["out"])
+    _check_energies(deck, res["out"])
+    return res
+
+
+def _check_energies(deck: str, out: str) -> None:
+    """KE and enstrophy per step against the JAX package's."""
+    m = re.findall(rf"kinetic-energy: {_NUM}  enstrophy: {_NUM}", out)
     ref = JAX_REFERENCE[deck]
     check(len(m) == len(ref["kinetic_energy"]),
           f"{deck}: expected {len(ref['kinetic_energy'])} steps, found "
@@ -698,7 +883,6 @@ def _tgv(torch, deck: str) -> dict:
         check(_close(ke, ke_ref, ENERGY_RTOL), f"step {step}: KE {ke}")
         check(_close(en, en_ref, ENERGY_RTOL), f"step {step}: enstrophy "
               f"{en}")
-    return res
 
 
 def phase_tgv(torch) -> dict:
@@ -766,20 +950,27 @@ def phase_tgv_gmg(torch) -> dict:
           f"{want:.2f}, bound +-1)")
     check(abs(lin - want) <= 1.0, f"{deck}: {lin:.2f} FGMRES iterations "
           f"per Newton iteration against {want:.2f}")
-    # the solver loop's own host reads: the first residual of each solve,
-    # the first residual of each FGMRES solve, one per FGMRES step and
-    # one per line-search evaluation; the cycle adds none
+    _check_syncs(deck, res)
+    res["vcycle_ms"] = _vcycle_alone(torch, deck)
+    return res
+
+
+def _check_syncs(deck: str, res: dict) -> None:
+    """The host reads are the solver loop's own: the first residual of
+    each solve, the first residual of each FGMRES solve, one per FGMRES
+    step, one per Krylov restart and one per line-search evaluation; the
+    multigrid cycle adds none."""
+    its = res["newton_iterations"]
     reads = (res["newton_solves"] + its + res["linear_iterations"]
-             + res["line_search_evaluations"])
+             + res["linear_restarts"] + res["line_search_evaluations"])
     syncs = res["syncs_per_newton"] * its
     print(f"  host syncs {syncs:.0f} against the solver loop's {reads} "
           f"reads ({res['newton_solves']} solves, {its} Newton iterations, "
           f"{res['linear_iterations']} FGMRES steps, "
+          f"{res['linear_restarts']} restarts, "
           f"{res['line_search_evaluations']} line-search evaluations)")
     check(round(syncs) == reads, f"{deck}: {syncs:.0f} host syncs, not "
           f"{reads}: the cycle syncs")
-    res["vcycle_ms"] = _vcycle_alone(torch, deck)
-    return res
 
 
 def phase_mms_gmg(torch) -> dict:
@@ -802,14 +993,71 @@ def phase_mms_gmg(torch) -> dict:
     return res
 
 
+def phase_gd_cavity(torch) -> dict:
+    print("== phase 8: main path on B3, 2D steady GD cavity (Q2-Q1, 256^2) "
+          "with 'auto': velocity-block multigrid, FGMRES")
+    deck = "gd_cavity_r8.prm"
+    res = drive_app(torch, 2, deck, "gd_lattice", solver="gd")
+    levels = _gmg_levels(deck, res["out"])
+    print(f"  multigrid levels: {levels}")
+    check(levels == 6, f"{deck}: {levels} multigrid levels, not 6")
+    # the JAX GD engine has no fallback to block-Jacobi: a weak cycle
+    # shows as a solve that ends above its tolerance
+    check(res["solves_above_tolerance"] == 0,
+          f"{deck}: {res['solves_above_tolerance']} Newton solves ended "
+          "above their tolerance")
+    forces = re.findall(rf"Force boundary (\d+) : {_NUM} {_NUM}\n",
+                        res["out"])
+    want = JAX_REFERENCE[deck]["forces"]
+    check(len(forces) == len(want), f"{deck}: {len(forces)} force lines")
+    for bid, fx, fy in forces:
+        got, ref = (float(fx), float(fy)), want[int(bid)]
+        rel = (max(abs(g - r) for g, r in zip(got, ref))
+               / max(abs(r) for r in ref))
+        print(f"  force on boundary {bid}: card f32 ({got[0]:.8e}, "
+              f"{got[1]:.8e}), JAX CPU f64 ({ref[0]:.8e}, {ref[1]:.8e}), "
+              f"rel diff {rel:.3e} (bound {FORCE_RTOL:g})")
+        check(rel <= FORCE_RTOL, f"{deck}: force on boundary {bid} {got} "
+              f"vs {ref}")
+    lin = res["linear_iterations"] / res["newton_iterations"]
+    want = JAX_REFERENCE[deck]["fgmres_per_newton"]
+    print(f"  FGMRES iterations per Newton iteration {lin:.2f} (JAX CPU f64 "
+          f"{want:.2f}, bound {FGMRES_RTOL:.0%})")
+    check(_close(lin, want, FGMRES_RTOL), f"{deck}: {lin:.2f} FGMRES "
+          f"iterations per Newton iteration against {want:.2f}")
+    _check_syncs(deck, res)
+    return res
+
+
+def phase_gd_tgv(torch) -> dict:
+    print("== phase 9: main path on B3, 3D transient GD Taylor-Green "
+          "(Q2-Q1, periodic 16^3, BDF2, 2 steps) with 'auto'")
+    deck = "tgv16_gd.prm"
+    res = drive_app(torch, 3, deck, "gd_lattice", solver="gd")
+    _check_energies(deck, res["out"])
+    levels = _gmg_levels(deck, res["out"])
+    print(f"  multigrid levels: {levels}")
+    check(levels == 3, f"{deck}: {levels} multigrid levels, not 3")
+    check(res["solves_above_tolerance"] == 0,
+          f"{deck}: {res['solves_above_tolerance']} Newton solves ended "
+          "above their tolerance")
+    # not held: in float32 the linear solves of this deck take 2-3x the
+    # f64 count (the port on the CPU: 127 and 71 FGMRES iterations in
+    # the first two solves in f32, 67 and 59 in f64, which are the JAX
+    # package's); the cycle is held on the cavity and in the CPU tests
+    lin = res["linear_iterations"] / res["newton_iterations"]
+    print(f"  FGMRES iterations per Newton iteration {lin:.2f} (JAX CPU f64 "
+          f"{JAX_REFERENCE[deck]['fgmres_per_newton']:.2f}; not held)")
+    _check_syncs(deck, res)
+    return res
+
+
 # ----------------------------------------------------------------------
-def _entry(name, source, replaces, launches, worst, shape, times, dim,
-           degree, lattice):
+def _entry(name, source, replaces, launches, worst, tangent, bound):
     """One kernel's line: its tangent (the Krylov matvec, most of its
-    launches) at its main-path shape."""
-    t_kernel, t_plain = times[shape]["tangent"]
-    bound_ms, bound_by = _bound(dim, degree, "tangent", times[shape]["E"],
-                                lattice)
+    launches) at its main-path shape: (kernel ms, plain ms) and
+    (bound ms, bound by)."""
+    (t_kernel, t_plain), (bound_ms, bound_by) = tangent, bound
     return {"name": name, "route": "cuda",
             "source": os.path.relpath(source, ROOT), "replaces": replaces,
             "launches": launches, "max_abs_err": worst, "ms": t_kernel,
@@ -856,19 +1104,28 @@ def main(argv=None) -> int:
     times_b2, worst_b2 = phase_lattice_kernel(torch, device)
     _print_bounds(times_b1, lattice=False)
     _print_bounds(times_b2, lattice=True)
+    times_b3, worst_b3 = phase_gd_kernel(torch, device)
     b1_runs = phase_couette(torch)
     b2_runs = [phase_tgv(torch), phase_tgv_gmg(torch), phase_mms_gmg(torch)]
+    b3_runs = [phase_gd_cavity(torch), phase_gd_tgv(torch)]
 
-    from softx_2020_200_tpu_torch.ops import gls_kernel, lattice_kernel
+    from softx_2020_200_tpu_torch.ops import (gls_kernel, lattice_gd_kernel,
+                                              lattice_kernel)
+    b1, b2 = times_b1["2D Q2 Taylor-Couette r5"], times_b2["3D Q1 TGV 32^3"]
+    b3 = times_b3["2D Q2-Q1 256^2 (GD cavity)"]
     entries = [
         _entry("gls_element", gls_kernel.SOURCE,
                "softx_2020_200_tpu/ops/pallas_gls.py:218",
                sum(r["launches"]["gls_element"] for r in b1_runs), worst_b1,
-               "2D Q2 Taylor-Couette r5", times_b1, 2, 2, lattice=False),
+               b1["tangent"], _bound(2, 2, "tangent", b1["E"], False)),
         _entry("gls_lattice", lattice_kernel.SOURCE,
                "softx_2020_200_tpu/ops/pallas_lattice.py:103",
                sum(r["launches"]["gls_lattice"] for r in b2_runs), worst_b2,
-               "3D Q1 TGV 32^3", times_b2, 3, 1, lattice=True),
+               b2["tangent"], _bound(3, 1, "tangent", b2["E"], True)),
+        _entry("gd_lattice", lattice_gd_kernel.SOURCE,
+               "softx_2020_200_tpu/ops/pallas_lattice_gd.py:59",
+               sum(r["launches"]["gd_lattice"] for r in b3_runs), worst_b3,
+               b3["tangent"], _bound_gd(2, "tangent", b3["E"])),
     ]
     print(smi)
     print(json.dumps({"kernels": entries}))

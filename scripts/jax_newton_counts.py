@@ -1,39 +1,56 @@
 #!/usr/bin/env python3
-"""Newton and Krylov iteration counts of a transient deck run through the
-JAX package, per time step and in total (its apps print neither).
+"""Newton and Krylov iteration counts of a deck run through the JAX
+package, per nonlinear solve and in total (its apps print neither), with
+each solve's Newton residual history.
 
     python3 chip_smoke.py --write-decks DIR && cd DIR &&
     JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 PYTHONPATH=<repo> \\
         python3 <repo>/scripts/jax_newton_counts.py tgv32_gmg.prm 3
+    ... python3 <repo>/scripts/jax_newton_counts.py gd_cavity_r8.prm 2 gd
 
-``chip_smoke.py`` holds the PyTorch package's FGMRES iterations per
-Newton iteration against the total this prints.
+The third argument picks the solver: ``gls`` (the default) or ``gd``.
+The deck runs through the solver's own ``solve()``, so what the app
+prints (forces, KE and enstrophy) is printed too.  ``chip_smoke.py``
+holds the PyTorch package's FGMRES iterations per Newton iteration
+against the total this prints.
 """
 
 import sys
 
+import numpy as np
+
 from softx_2020_200_tpu.core.parameters import SimulationParameters
-from softx_2020_200_tpu.solvers import base
 
 
-def main(deck: str, dim: int) -> None:
+def main(deck: str, dim: int, solver: str = "gls") -> None:
+    if solver == "gd":
+        from softx_2020_200_tpu.solvers.gd import GDNavierStokesSolver as cls
+    else:
+        from softx_2020_200_tpu.solvers.base import \
+            GLSNavierStokesSolver as cls
     total = {"solves": 0, "newton": 0, "krylov": 0}
-    step = base.GLSNavierStokesSolver.solve_transient_step
 
-    def counted(self, *args, **kwargs):
-        u, res = step(self, *args, **kwargs)
-        total["solves"] += 1
-        total["newton"] += int(res.n_iterations)
-        total["krylov"] += int(res.linear_iters)
-        print(f"solve {total['solves']}: {int(res.n_iterations)} Newton, "
-              f"{int(res.linear_iters)} Krylov iterations", flush=True)
-        return u, res
+    def counting(step):
+        def counted(self, *args, **kwargs):
+            u, res = step(self, *args, **kwargs)
+            total["solves"] += 1
+            total["newton"] += int(res.n_iterations)
+            total["krylov"] += int(res.linear_iters)
+            hist = np.asarray(res.res_history)
+            hist = " ".join(f"{r:.4e}" for r in hist[~np.isnan(hist)])
+            print(f"solve {total['solves']}: {int(res.n_iterations)} Newton, "
+                  f"{int(res.linear_iters)} Krylov iterations, residuals "
+                  f"{hist}", flush=True)
+            return u, res
+        return counted
 
-    base.GLSNavierStokesSolver.solve_transient_step = counted
-    solver = base.GLSNavierStokesSolver(
-        SimulationParameters.from_file(deck, dim=dim))
-    print(f"preconditioner {solver.precond_kind}", flush=True)
-    solver.solve()
+    cls.solve_transient_step = counting(cls.solve_transient_step)
+    cls.solve_steady = counting(cls.solve_steady)
+    s = cls(SimulationParameters.from_file(deck, dim=dim))
+    levels = getattr(s, "_mg_levels", None) or getattr(s, "mg_levels", None)
+    print(f"preconditioner {s.precond_kind}"
+          + (f" ({len(levels)} levels)" if levels else ""), flush=True)
+    s.solve()
     n = max(total["newton"], 1)
     print(f"total: {total['solves']} solves, {total['newton']} Newton, "
           f"{total['krylov']} Krylov iterations, "
@@ -41,4 +58,4 @@ def main(deck: str, dim: int) -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]))
+    main(sys.argv[1], int(sys.argv[2]), *sys.argv[3:4])

@@ -4,7 +4,9 @@
     python3 scripts/profile_torch_deck.py DECK [DECK ...]
 
 Each DECK is a name from ``chip_smoke.DECKS`` (for example
-``tgv32_3steps.prm``).  For each: one run through the app to build and
+``tgv32_3steps.prm``; a name with a ``gd`` part, such as
+``gd_cavity_r8.prm``, runs through the GD app).  For each: one run
+through the app to build and
 warm up, one timed run (host clock, ending in a synchronise), then one
 run under ``torch.profiler``.  Prints the wall of the timed run, the
 kernel time the profiler saw and its share of that wall (the device's
@@ -40,10 +42,10 @@ def profile(deck: str) -> None:
     from torch.profiler import ProfilerActivity
     import chip_smoke
     from softx_2020_200_tpu_torch.apps.common import run_app
-    from softx_2020_200_tpu_torch.ops.gls_kernel import GLSElementKernel
-    from softx_2020_200_tpu_torch.ops.lattice_kernel import LatticeGLSKernel
 
     dim = 3 if "tgv" in deck else 2
+    solver = "gd" if "gd" in deck[:-len(".prm")].split("_") else "gls"
+    counters = chip_smoke._launch_counters()
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, deck)
         with open(path, "w") as fh:
@@ -53,18 +55,17 @@ def profile(deck: str) -> None:
         try:
             def once():
                 with contextlib.redirect_stdout(io.StringIO()):
-                    run_app(dim, [path], device="cuda",
+                    run_app(dim, [path], solver=solver, device="cuda",
                             dtype=torch.float32)
                 torch.cuda.synchronize()
 
             once()
-            for cls in (GLSElementKernel, LatticeGLSKernel):
+            for cls in counters.values():
                 cls.launches = 0
             t0 = time.perf_counter()
             once()
             wall = time.perf_counter() - t0
-            launches = {"gls_element": GLSElementKernel.launches,
-                        "gls_lattice": LatticeGLSKernel.launches}
+            launches = {name: cls.launches for name, cls in counters.items()}
             with torch.profiler.profile(activities=[
                     ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 once()

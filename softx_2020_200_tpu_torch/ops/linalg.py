@@ -64,7 +64,9 @@ def gmres(matvec, b, x0=None, *, precond=None, m: int = 30,
     flexible: FGMRES — store the preconditioned vectors Z_j so the
               preconditioner may vary between applications
 
-    Returns (x, rnorm, iterations); ``rnorm`` is the Givens estimate.
+    Returns (x, rnorm, iterations, cycles); ``rnorm`` is the Givens
+    estimate, ``cycles`` the number of Arnoldi cycles run (each after the
+    first reads the restart residual's norm back once).
     """
     precond = precond or _identity
     sync = sync if sync is not None else HostSync()
@@ -132,7 +134,7 @@ def gmres(matvec, b, x0=None, *, precond=None, m: int = 30,
         iters += j
         restarts += 1
         rnorm = rn
-    return x, rnorm, iters
+    return x, rnorm, iters, restarts
 
 
 def gmres_fixed(matvec, b, x0=None, *, precond=None, m: int = 4,

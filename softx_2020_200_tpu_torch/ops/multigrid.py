@@ -67,7 +67,9 @@ def _transfer_maps(fine_space, coarse_space):
 
 @dataclass
 class Level:
-    """One level: its operator and Dirichlet mask, and (below the finest)
+    """One level: its operator (a ``GLSOperator``, or in the GD
+    hierarchy a ``GDVelocityLevel``) and Dirichlet mask, and (below the
+    finest)
     the transfers from the level above: ``masters``/``weights``
     [N_above, nn] interpolate this level's nodes to the level above,
     ``inject`` [N] picks this level's nodes out of the level above."""
@@ -76,6 +78,21 @@ class Level:
     masters: torch.Tensor | None = None
     weights: torch.Tensor | None = None
     inject: torch.Tensor | None = None
+
+
+def prolong(level: Level, vc):
+    """This level's nodal field -> the level above, by interpolation."""
+    return torch.einsum("fm,fmc->fc", level.weights, vc[level.masters])
+
+
+def restrict(level: Level, rf):
+    """A residual on the level above -> this level (the transpose of
+    ``prolong``)."""
+    c = rf.shape[-1]
+    out = rf.new_zeros((level.inject.shape[0], c))
+    return out.index_add_(
+        0, level.masters.reshape(-1),
+        (level.weights[:, :, None] * rf[:, None, :]).reshape(-1, c))
 
 
 def build_hierarchy(solver, min_elems: int = 256) -> list[Level]:
@@ -206,18 +223,6 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
                 m=m, flexible=flexible)
             return x.reshape(shape)
 
-        def prolong(li, vc):
-            lvl = levels[li]
-            return torch.einsum("fm,fmc->fc", lvl.weights, vc[lvl.masters])
-
-        def restrict(li, rf):
-            lvl = levels[li]
-            c = rf.shape[-1]
-            out = rf.new_zeros((lvl.op.n_nodes, c))
-            return out.index_add_(
-                0, lvl.masters.reshape(-1),
-                (lvl.weights[:, :, None] * rf[:, None, :]).reshape(-1, c))
-
         def smooth(level, r, z=None):
             """One pre/post smoothing application: z ~ A_level^{-1} r."""
             matvec, sm, _ = mats[level]
@@ -235,10 +240,10 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
                 return solve(level, r, coarse_iters, sm)
             z = smooth(level, r)
             res = r - matvec(z)
-            rc = restrict(level + 1, res)
+            rc = restrict(levels[level + 1], res)
             rc = torch.where(mats[level + 1][2], torch.zeros_like(rc), rc)
             zc = coarse_correct(level + 1, rc)
-            zf = prolong(level + 1, zc)
+            zf = prolong(levels[level + 1], zc)
             z = z + torch.where(mask, torch.zeros_like(zf), zf)
             return smooth(level, r, z=z)
 

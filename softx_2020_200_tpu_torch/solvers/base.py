@@ -58,6 +58,28 @@ def _not_ported(what: str, item: str):
         f"(ROADMAP.md {item})")
 
 
+def new_stats() -> dict:
+    """The engine's counts over all its Newton solves (the CLI prints
+    them as the ``Newton summary`` line)."""
+    return {"newton_solves": 0, "newton_iterations": 0,
+            "linear_iterations": 0, "host_syncs": 0,
+            "line_search_evaluations": 0, "linear_restarts": 0,
+            "solves_above_tolerance": 0, "newton_seconds": 0.0}
+
+
+def record_solve(stats: dict, res, seconds: float, tolerance: float):
+    """Add one Newton solve's counts to ``stats``."""
+    stats["newton_solves"] += 1
+    stats["newton_iterations"] += res.n_iterations
+    stats["linear_iterations"] += res.linear_iters
+    stats["host_syncs"] += res.host_syncs
+    stats["line_search_evaluations"] += res.line_search_evals
+    stats["linear_restarts"] += res.linear_restarts
+    stats["solves_above_tolerance"] += int(
+        res.res_history[res.n_iterations] > tolerance)
+    stats["newton_seconds"] += seconds
+
+
 class GLSNavierStokesSolver:
     """Monolithic equal-order GLS solver (GLSNavierStokesSolver<dim>)."""
 
@@ -83,9 +105,7 @@ class GLSNavierStokesSolver:
                                         "enstrophy": []}
         self._force_tables: dict[int, Table] = {}
         self._torque_tables: dict[int, Table] = {}
-        self.stats = {"newton_solves": 0, "newton_iterations": 0,
-                      "linear_iterations": 0, "host_syncs": 0,
-                      "line_search_evaluations": 0, "newton_seconds": 0.0}
+        self.stats = new_stats()
         self._mesh = mesh
         self.setup()
 
@@ -320,13 +340,8 @@ class GLSNavierStokesSolver:
                                on_linear_stall=self._gmg_fallback)
         if self.hc.n:
             res = res._replace(u=self.hc.distribute(res.u))
-        st = self.stats
-        st["newton_solves"] += 1
-        st["newton_iterations"] += res.n_iterations
-        st["linear_iterations"] += res.linear_iters
-        st["host_syncs"] += res.host_syncs
-        st["line_search_evaluations"] += res.line_search_evals
-        st["newton_seconds"] += _time.perf_counter() - t0
+        record_solve(self.stats, res, _time.perf_counter() - t0,
+                     self.newton_cfg.tolerance)
         return res
 
     # ------------------------------------------------------------------
@@ -382,7 +397,7 @@ class GLSNavierStokesSolver:
             return assemble(back, op.amap_idx).reshape(-1)
 
         lumped_flat = torch.repeat_interleave(lumped, c)
-        x, _, _ = gmres(
+        x, _, _, _ = gmres(
             mass_apply, rhs.reshape(-1), precond=lambda v: v / lumped_flat,
             m=50, max_restarts=10,
             atol=1e-10 * float(torch.linalg.vector_norm(rhs)))

@@ -50,6 +50,7 @@ class NewtonResult(NamedTuple):
     alphas: np.ndarray           # line-search alpha per iteration
     host_syncs: int              # device-to-host reads during the solve
     line_search_evals: int       # residual evaluations of the line search
+    linear_restarts: int         # Krylov restarts (one read each)
 
 
 def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
@@ -91,7 +92,7 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
     alphas = np.full(maxit, np.nan)
     hist[0] = rnorm
     u = u0
-    it = lin_total = ls_evals = 0
+    it = lin_total = ls_evals = restarts = 0
     pstate = None
     u_best, n_best = u0, rnorm
 
@@ -124,11 +125,12 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
                 max_iters=config.gmres_restart * config.max_krylov_cycles,
                 atol=lin_atol, sync=sync)
         else:
-            d, lin_rn, lin_it = gmres(
+            d, lin_rn, lin_it, cycles = gmres(
                 matvec, -R.reshape(-1), precond=pre_flat,
                 m=config.gmres_restart,
                 max_restarts=config.max_krylov_cycles, atol=lin_atol,
                 flexible=config.flexible, sync=sync)
+            restarts += max(cycles - 1, 0)
         lin_total += lin_it
         if (lin_rn > lin_atol and on_linear_stall is not None
                 and on_linear_stall()):
@@ -160,4 +162,5 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
     return NewtonResult(u=u_best, res_history=hist, n_iterations=it,
                         linear_iters=lin_total, alphas=alphas,
                         host_syncs=sync.count - start,
-                        line_search_evals=ls_evals)
+                        line_search_evals=ls_evals,
+                        linear_restarts=restarts)

@@ -2,6 +2,9 @@
 derived fields (vorticity, Q-criterion) (counterpart of
 ``softx_2020_200_tpu.solvers.postprocessing``).
 
+The ``gd_*`` functions take the grad-div Taylor-Hood operator
+(``solvers/gd.py::GDOperator``) and its flat mixed state.
+
 Sign convention: returned forces/torques are those exerted BY the fluid
 ON the boundary, i.e. integral of sigma . (-n) with n the fluid-domain
 outward normal, sigma = -p I + nu (grad u + grad u^T).
@@ -82,6 +85,106 @@ def torques_on_boundary(op, u, boundary_faces: np.ndarray, center):
             tq = torch.linalg.cross(r, traction, dim=-1)
             out = out - torch.einsum("fqi,fq,q->i", tq, meas, w)
     return out
+
+
+# --------------------------------------------------------------------------
+# grad-div (Taylor-Hood) variants: velocity and pressure live in two
+# spaces, so the face and volume integrals tabulate both bases at the
+# velocity space's quadrature points (no interpolation of the pressure
+# onto velocity nodes)
+# --------------------------------------------------------------------------
+
+def _gd_face_traction(gdop, x, elems, local_face, n_q1d=None):
+    """(traction, meas, wts, xq) at the face quadrature points of one
+    local-face group, for the GD mixed state x (flat [Nv*d + Np])."""
+    sv, sp = gdop.space_v, gdop.space_p
+    n_q1d = n_q1d or (sv.degree + 1)
+    fpts, fwts, Bv, Gv, _ = sv.basis.face_quadrature(int(local_face), n_q1d)
+    Bp, _, _ = sp.basis.tabulate(fpts)
+    kw = dict(dtype=gdop.dtype, device=gdop.device)
+    Bv, Gv, Bp, w = (torch.as_tensor(np.array(a), **kw)
+                     for a in (Bv, Gv, Bp, fwts))
+
+    v, p = gdop.split(x)
+    sel = torch.as_tensor(elems, dtype=torch.int64, device=gdop.device)
+    xe = gdop.xe[sel]                                 # [F, nnv, d]
+    ve = v[gdop.conn_v[sel]]                          # [F, nnv, d]
+    pe = p[gdop.conn_p[sel]]                          # [F, nnp]
+    J = torch.einsum("fni,qnj->fqij", xe, Gv)
+    _, Jinv = det_and_inv(J)
+    meas, normal = face_measure_and_normal(J, int(local_face))
+    pq = torch.einsum("qn,fn->fq", Bp, pe)
+    dv_dxi = torch.einsum("qna,fnc->fqca", Gv, ve)
+    gv = torch.einsum("fqca,fqai->fqci", dv_dxi, Jinv)
+    sym = gv + gv.transpose(-1, -2)
+    traction = (-pq[..., None] * normal
+                + gdop.nu * torch.einsum("fqij,fqj->fqi", sym, normal))
+    xq = torch.einsum("qn,fnd->fqd", Bv, xe)
+    return traction, meas, w, xq
+
+
+def gd_forces_on_boundary(gdop, x, boundary_faces: np.ndarray):
+    """Net force [d] the fluid exerts on one boundary (GD mixed state)."""
+    total = torch.zeros(gdop.dim, dtype=gdop.dtype, device=gdop.device)
+    for lf in np.unique(boundary_faces[:, 1]):
+        sel = boundary_faces[boundary_faces[:, 1] == lf][:, 0]
+        tr, meas, w, _ = _gd_face_traction(gdop, x, sel, int(lf))
+        total = total - torch.einsum("fqi,fq,q->i", tr, meas, w)
+    return total
+
+
+def gd_torques_on_boundary(gdop, x, boundary_faces: np.ndarray, center):
+    """Net torque about ``center`` the fluid exerts on one boundary (GD
+    mixed state).  2D: scalar z-torque [1]; 3D: vector [3]."""
+    d = gdop.dim
+    out = torch.zeros(1 if d == 2 else 3, dtype=gdop.dtype,
+                      device=gdop.device)
+    center = torch.as_tensor(np.asarray(center), dtype=gdop.dtype,
+                             device=gdop.device)
+    for lf in np.unique(boundary_faces[:, 1]):
+        sel = boundary_faces[boundary_faces[:, 1] == lf][:, 0]
+        tr, meas, w, xq = _gd_face_traction(gdop, x, sel, int(lf))
+        r = xq - center
+        if d == 2:
+            tz = r[..., 0] * tr[..., 1] - r[..., 1] * tr[..., 0]
+            out = out - torch.einsum("fq,fq,q->", tz, meas, w)[None]
+        else:
+            out = out - torch.einsum("fqi,fq,q->i",
+                                     torch.linalg.cross(r, tr, dim=-1),
+                                     meas, w)
+    return out
+
+
+def _gd_volume(gdop):
+    """(det J * w [E, q], J^-1 [E, q, d, d]) on the velocity geometry."""
+    J = torch.einsum("eni,qnj->eqij", gdop.xe, gdop.Gv)
+    detJ, Jinv = det_and_inv(J)
+    return detJ * gdop.w[None, :], Jinv
+
+
+def gd_kinetic_energy(gdop, x):
+    """Domain-averaged kinetic energy of the GD mixed state."""
+    v, _ = gdop.split(x)
+    vq = torch.einsum("qn,enc->eqc", gdop.Bv, v[gdop.conn_v])
+    wdet, _ = _gd_volume(gdop)
+    return 0.5 * torch.sum(wdet * torch.sum(vq * vq, dim=-1)) / torch.sum(
+        wdet)
+
+
+def gd_enstrophy(gdop, x):
+    """Domain-averaged enstrophy of the GD mixed state."""
+    v, _ = gdop.split(x)
+    wdet, Jinv = _gd_volume(gdop)
+    dv_dxi = torch.einsum("qna,enc->eqca", gdop.Gv, v[gdop.conn_v])
+    grad = torch.einsum("eqca,eqai->eqci", dv_dxi, Jinv)
+    if gdop.dim == 2:
+        om = (grad[..., 1, 0] - grad[..., 0, 1])[..., None]
+    else:
+        om = torch.stack([grad[..., 2, 1] - grad[..., 1, 2],
+                          grad[..., 0, 2] - grad[..., 2, 0],
+                          grad[..., 1, 0] - grad[..., 0, 1]], dim=-1)
+    return 0.5 * torch.sum(wdet * torch.sum(om * om, dim=-1)) / torch.sum(
+        wdet)
 
 
 # --------------------------------------------------------------------------

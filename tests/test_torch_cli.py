@@ -18,11 +18,11 @@ from tests.test_golden_apps import GOLDEN_DIR, numdiff
 torch.set_num_threads(1)
 
 
-def _run(dim, argv, tmp_path, monkeypatch):
+def _run(dim, argv, tmp_path, monkeypatch, solver="gls"):
     monkeypatch.chdir(tmp_path)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = run_app(dim, argv)
+        rc = run_app(dim, argv, solver=solver)
     assert rc == 0
     return buf.getvalue()
 
@@ -32,6 +32,17 @@ def test_cli_reproduces_golden_output(name, tmp_path, monkeypatch):
     deck = os.path.join(GOLDEN_DIR, name + ".prm")
     out = _run(2, [deck, "--device", "cpu", "--dtype", "float64"],
                tmp_path, monkeypatch)
+    with open(os.path.join(GOLDEN_DIR, name + ".output")) as fh:
+        numdiff(out, fh.read())
+
+
+@pytest.mark.parametrize("name", ["gd_cavity", "gd_mms_bdf2"])
+def test_gd_cli_reproduces_golden_output(name, tmp_path, monkeypatch):
+    """The grad-div Taylor-Hood app (``gd_navier_stokes_2d``): the steady
+    cavity with wall forces, and the BDF2 MMS deck."""
+    deck = os.path.join(GOLDEN_DIR, name + ".prm")
+    out = _run(2, [deck, "--device", "cpu", "--dtype", "float64"],
+               tmp_path, monkeypatch, solver="gd")
     with open(os.path.join(GOLDEN_DIR, name + ".output")) as fh:
         numdiff(out, fh.read())
 
@@ -78,6 +89,23 @@ def test_cli_refuses_what_is_not_ported(section, edit, match, tmp_path,
     deck = _write(tmp_path, "deck.prm", text)
     with pytest.raises(NotImplementedError, match=match):
         _run(2, [deck, "--device", "cpu"], tmp_path, monkeypatch)
+
+
+@pytest.mark.parametrize("old,new,match", [
+    ("set method        = bdf2", "set method        = sdirk2", "D2"),
+    ("subsection test\n", "subsection restart\n  set checkpoint = true\n"
+     "end\nsubsection test\n", "D2"),
+    ("subsection test\n", "subsection mesh adaptation\n  set type = kelly\n"
+     "end\nsubsection test\n", "A8, D5"),
+], ids=["sdirk", "checkpoint", "kelly"])
+def test_gd_cli_refuses_what_is_not_ported(old, new, match, tmp_path,
+                                           monkeypatch):
+    text = _golden("gd_mms_bdf2")
+    assert text.count(old) == 1
+    deck = _write(tmp_path, "deck.prm", text.replace(old, new))
+    with pytest.raises(NotImplementedError, match=match):
+        _run(2, [deck, "--device", "cpu"], tmp_path, monkeypatch,
+             solver="gd")
 
 
 def test_cli_device_and_device_count(tmp_path, monkeypatch):

@@ -51,6 +51,8 @@ FUNCTION_COPIES = [
      "affine_tables"),
     ("ops/multigrid.py", "_transfer_maps", "ops/multigrid.py",
      "_transfer_maps"),
+    ("ops/pallas_lattice_gd.py", "_gd_affine_tables",
+     "ops/lattice_gd_kernel.py", "gd_affine_tables"),
 ]
 
 
@@ -161,23 +163,36 @@ def test_mesh_and_numbering_identical(name, degree):
 
 def test_apps_never_import_jax(tmp_path):
     """Importing the port's apps and kernel, lattice and multigrid
-    modules, and running a tiny deck on the CPU (a lattice: the strided
-    layout and the lattice kernel's plain version) leaves jax out of
-    sys.modules."""
-    deck = tmp_path / "tiny.prm"
-    deck.write_text(open(os.path.join(ROOT, "tests", "golden",
-                                      "couette_gls.prm")).read()
-                    .replace("initial refinement = 3",
-                             "initial refinement = 1"))
+    modules, and running a tiny GLS deck and a tiny GD deck on the CPU
+    (lattices: the strided layout and the lattice kernels' plain
+    versions) leaves jax out of sys.modules."""
+    decks = {}
+    for name, old, new in (
+            ("couette_gls", "initial refinement = 3",
+             "initial refinement = 1"),
+            ("gd_mms_bdf2", "initial refinement = 2",
+             "initial refinement = 1")):
+        decks[name] = tmp_path / f"{name}.prm"
+        text = open(os.path.join(ROOT, "tests", "golden",
+                                 f"{name}.prm")).read()
+        assert old in text
+        decks[name].write_text(text.replace(old, new))
     code = (
         "import sys\n"
         "pre = {m for m in sys.modules if m.split('.')[0] == 'jax'}\n"
         "from softx_2020_200_tpu_torch.apps import gls_navier_stokes_2d\n"
         "from softx_2020_200_tpu_torch.apps import gls_navier_stokes_3d\n"
+        "from softx_2020_200_tpu_torch.apps import gd_navier_stokes_2d\n"
+        "from softx_2020_200_tpu_torch.apps import gd_navier_stokes_3d\n"
         "from softx_2020_200_tpu_torch.ops import (cuda_build, "
-        "lattice_kernel, multigrid, structured)\n"
-        f"rc = gls_navier_stokes_2d.main([{str(deck)!r}, '--device', "
-        "'cpu', '--dtype', 'float64'])\n"
+        "gd_multigrid, lattice_gd_kernel, lattice_kernel, multigrid, "
+        "structured)\n"
+        "args = ['--device', 'cpu', '--dtype', 'float64']\n"
+        f"rc = gls_navier_stokes_2d.main([{str(decks['couette_gls'])!r}] "
+        "+ args)\n"
+        "assert rc == 0\n"
+        f"rc = gd_navier_stokes_2d.main([{str(decks['gd_mms_bdf2'])!r}] "
+        "+ args)\n"
         "assert rc == 0\n"
         "new = {m for m in sys.modules if m.split('.')[0] == 'jax'} - pre\n"
         "assert not new, sorted(new)\n"
@@ -190,4 +205,5 @@ def test_apps_never_import_jax(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "NO_JAX_OK" in out.stdout
-    assert "L2 error velocity" in out.stdout
+    # the GLS deck prints one L2 line, the GD deck one per step
+    assert out.stdout.count("L2 error velocity") == 4

@@ -207,10 +207,10 @@ def test_steady_gmg_solve_matches_jax(tmp_path):
     assert abs(rp.linear_iters - int(ra.linear_iters)) <= 1
     # the host reads are the solver loop's own (chip_smoke.py phase 6
     # holds the card to the same count): the first residual, each
-    # FGMRES solve's first residual, one per FGMRES step and one per
-    # line-search evaluation; the cycle adds none
+    # FGMRES solve's first residual, one per FGMRES step, one per Krylov
+    # restart and one per line-search evaluation; the cycle adds none
     assert rp.host_syncs == (1 + rp.n_iterations + rp.linear_iters
-                             + rp.line_search_evals)
+                             + rp.linear_restarts + rp.line_search_evals)
 
 
 @contextlib.contextmanager
