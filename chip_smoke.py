@@ -3,6 +3,7 @@
 NVIDIA GPU.
 
     python3 chip_smoke.py                  # all phases, needs CUDA
+    python3 chip_smoke.py --phases 2,3c    # only these (no contract line)
     python3 chip_smoke.py --write-decks D  # write the main-path decks
 
 Phases (each prints its own lines; any failed check raises):
@@ -12,14 +13,20 @@ Phases (each prints its own lines; any failed check raises):
 2. build: ``nvcc`` compiles the GLS element kernel (B1,
    ``csrc/gls_element.cu``), the GLS lattice kernel (B2,
    ``csrc/gls_lattice.cu``) and the grad-div (GD) lattice kernel (B3,
-   ``csrc/gd_lattice.cu``) of ``softx_2020_200_tpu_torch``, one process
-   each, in parallel, and prints ptxas's registers and spills;
+   ``csrc/gd_lattice.cu``) of ``softx_2020_200_tpu_torch``, and B1's and
+   B2's previous designs (``scripts/previous_kernels/``), one process
+   each, in parallel; prints ptxas's registers and spills and fails on a
+   spill in any B1 or B2 variant; holds each B1 and B2 variant's shared
+   memory to the Python mirror the CPU tests check (``tile_config``);
 3. B1 against its plain PyTorch version (primal, frozen-tau tangent,
    node-block probes) for Q1/Q2 in 2D/3D on non-affine geometry, without
-   and with LSIC; 3b: the same at B1's main-path shapes, then kernel and
-   plain times; 3c: B2 against its plain version on parity lattices with
-   a ragged tail, without and with LSIC, then at B2's main-path shapes
-   (every multigrid level of phases 6 and 7 included) with times; 3d:
+   and with LSIC, with every load path (TMA and 16-byte cp.async where
+   E % 4 == 0, 4-byte cp.async where it is not) and below one tile; 3b:
+   the same at B1's main-path shapes, then times: the kernel, its
+   previous design on the same inputs (``ms_parent``), the other load
+   path, and the plain version; 3c: B2 the same way on parity lattices
+   (both routes at Q1 with 2 points per axis), then at B2's main-path
+   shapes and every multigrid level of phases 6 and 7, each timed; 3d:
    B3 (primal, exact tangent) against its plain version on bounded and
    periodic parity lattices with a ragged tail, then at its main-path
    shapes (2D 256^2, 3D 16^3 and 32^3) with times;
@@ -45,9 +52,11 @@ Phases (each prints its own lines; any failed check raises):
 Phases 4-9 hold their physics numbers against the JAX package run on the
 CPU in float64 on the same decks (``JAX_REFERENCE`` below) and check
 which kernel each deck launched.  The line before the last lists the
-kernels with their launch counts in the main-path runs, errors, times
-and bounds; the last line of standard output is the JSON contract line
-``{"ok": true, "device": {...}}``.  Exits non-zero without CUDA.
+kernels with their launch counts in the main-path runs (in total and per
+shape and variant), errors, times (the kernel's, its previous design's,
+the plain version's) and bounds; the last line of standard output is the
+JSON contract line ``{"ok": true, "device": {...}}``.  Exits non-zero
+without CUDA.
 """
 
 from __future__ import annotations
@@ -297,54 +306,116 @@ def phase_environment(torch) -> str:
 # ----------------------------------------------------------------------
 # phase 2
 # ----------------------------------------------------------------------
+PREVIOUS = {name: os.path.join(ROOT, "scripts", "previous_kernels",
+                               f"{name}.cu")
+            for name in ("gls_element", "gls_lattice")}
+# B1's and B2's previous designs, bound in phase 2 with their own C
+# signatures (which the current entry points extend)
+_PREVIOUS_LIBS = {}
+
+
+def _bind_previous(builds) -> None:
+    import ctypes
+    c_int, ptr, flt = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+    args = {"gls_element": [c_int] * 3 + [ptr] * 8 + [ctypes.c_int64]
+            + [flt] * 3 + [c_int] * 6 + [ptr],
+            "gls_lattice": [c_int] * 4 + [ptr] * 6 + [ctypes.c_int64]
+            + [flt] * 4 + [c_int] * 6 + [ptr]}
+    for name, source in PREVIOUS.items():
+        lib = ctypes.CDLL(builds[source].path)
+        fn = getattr(lib, f"{name}_launch")
+        fn.restype, fn.argtypes = c_int, args[name]
+        _PREVIOUS_LIBS[name] = lib
+
+
 def phase_build() -> None:
     print("== phase 2: build (one nvcc per source, in parallel)")
     from softx_2020_200_tpu_torch.ops import (cuda_build, gls_kernel,
                                               lattice_gd_kernel,
                                               lattice_kernel)
     t0 = time.perf_counter()
-    builds = cuda_build.compile_sources([gls_kernel.SOURCE,
-                                         lattice_kernel.SOURCE,
-                                         lattice_gd_kernel.SOURCE])
-    print(f"all three built in {time.perf_counter() - t0:.2f} s")
+    sources = [gls_kernel.SOURCE, lattice_kernel.SOURCE,
+               lattice_gd_kernel.SOURCE, *PREVIOUS.values()]
+    builds = cuda_build.compile_sources(sources)
+    print(f"all {len(sources)} built in {time.perf_counter() - t0:.2f} s")
     modes = {"0": "primal", "1": "tangent", "2": "probe"}
+    spills = []
     for source, build in builds.items():
         name = os.path.splitext(os.path.basename(source))[0]
-        print(f" {os.path.relpath(build.path, ROOT)} ({build.seconds:.2f} s)")
-        # ptxas reports each template instance <dim, degree, [points per
-        # axis,] mode> by its mangled name, then its registers and spills
+        current = source in (gls_kernel.SOURCE, lattice_kernel.SOURCE)
+        print(f" {os.path.relpath(source, ROOT)} -> "
+              f"{os.path.relpath(build.path, ROOT)} ({build.seconds:.2f} s)")
+        # ptxas reports each template instance <dim, [degree, points per
+        # axis,] mode> by its mangled name, then its spills and registers
+        entry = None
         for line in build.log.splitlines():
-            inst = re.search(rf"{name}_kernelI((?:Li\d+E)+)E", line)
+            inst = re.search(rf"({name}(?:_reg)?_kernel)I((?:Li\d+E)+)E",
+                             line)
             if inst and "Compiling entry" in line:
-                *shape, mode = re.findall(r"Li(\d+)E", inst.group(1))
+                args = re.findall(r"Li(\d+)E", inst.group(2))
+                # B1's register route ends in its threads per element
+                split = (f" split={args.pop()}"
+                         if inst.group(1) == "gls_element_reg_kernel" else "")
+                *shape, mode = args
                 dims = " ".join(f"{a}={v}" for a, v in zip("dkq", shape))
-                print(f"  ptxas {name} {dims} {modes[mode]}:")
+                entry = f"{inst.group(1)} {dims} {modes[mode]}{split}"
+                print(f"  ptxas {entry}:")
             elif "registers" in line or "spill" in line or "error" in line:
                 print(f"    {line.replace('ptxas info    :', '').strip()}")
+                m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                              r"loads", line)
+                if current and m and (int(m.group(1)) or int(m.group(2))):
+                    spills.append(f"{entry}: {line.strip()}")
+    check(not spills, "ptxas spills in B1/B2: " + "; ".join(spills))
+    print("  no spill in any B1 or B2 variant")
+    _bind_previous(builds)
     gls_kernel.get_build()
     lattice_kernel.get_build()
     lattice_gd_kernel.get_build()
+    # each variant's shared memory against the Python mirror (the CPU
+    # tests hold that to the card's 227 KB), and its blocks per SM
+    for name, mod in (("B1", gls_kernel), ("B2", lattice_kernel)):
+        for shape in sorted(mod.SUPPORTED):
+            variants = [(0, 1)]
+            if shape in mod.REGISTER_SHAPES:
+                variants += [(1, n) for n in (gls_kernel.REG_SPLITS[shape[0]]
+                                              if mod is gls_kernel else (1,))]
+            for (route, n), mode in ((v, m) for v in variants
+                                     for m in range(3)):
+                extra = (n,) if mod is gls_kernel else ()
+                blocks, smem, threads = mod.config_on_card(*shape, mode,
+                                                           route, *extra)
+                cfg = mod.tile_config(*shape, mode, route, *extra)
+                print(f"  {name} {shape} {('staged', 'registers')[route]:9s} "
+                      f"/{n} {mod.MODES[mode]:7s}: {threads} threads, {smem} "
+                      f"B shared memory, {blocks} blocks per SM")
+                check(smem == cfg["smem_bytes"] and threads == cfg["threads"]
+                      and blocks >= 1,
+                      f"{name} {shape} {mode} {route}: {smem} B, {threads} "
+                      f"threads (mirror {cfg}), {blocks} blocks per SM")
 
 
 # ----------------------------------------------------------------------
 # phase 3: B1
 # ----------------------------------------------------------------------
-def _space(dim: int, degree: int, cells: int, seed: int):
-    """A non-affine FE space: a curved shell in 2D, a box with randomly
-    moved interior vertices in 3D."""
+def _space(dim: int, degree: int, cells, seed: int):
+    """A non-affine FE space: a curved shell (refinement ``cells``) in 2D,
+    a box of ``cells`` per axis (an int, or one per axis) with randomly
+    moved interior vertices in 3D, and in 2D when ``cells`` is a tuple."""
     import numpy as np
     from softx_2020_200_tpu_torch.fem import mesh as M
     from softx_2020_200_tpu_torch.fem.dof import FESpace
-    if dim == 2:
+    if dim == 2 and isinstance(cells, int):
         m = M.generate_mesh("hyper_shell", "0, 0 : 0.25 : 1 : 12 : true",
                             dim=2, initial_refinement=cells)
     else:
-        m = M.subdivided_hyper_rectangle([0.0] * 3, [1.0] * 3,
-                                         [cells] * 3, True, dim=3)
+        n = np.broadcast_to(np.asarray(cells), (dim,))
+        m = M.subdivided_hyper_rectangle([0.0] * dim, [1.0] * dim,
+                                         [int(c) for c in n], True, dim=dim)
         v = m.vertices
         inner = np.all((v > 1e-9) & (v < 1 - 1e-9), axis=1)
         rng = np.random.default_rng(seed)
-        v[inner] += rng.uniform(-0.2, 0.2, (int(inner.sum()), 3)) / cells
+        v[inner] += rng.uniform(-0.2, 0.2, (int(inner.sum()), dim)) / n
         m.structured_shape = None      # no longer a lattice of translates
     return FESpace(m, degree)
 
@@ -385,13 +456,66 @@ def _median_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def _previous(torch, op, ue, due, args) -> dict:
+    """The previous design of the operator's kernel (B1 or B2, phase 2's
+    build of ``scripts/previous_kernels``) on the same inputs: primal,
+    tangent and node blocks, called as the wrapper called it."""
+    k = op.kernel
+    lattice = op.layout is not None
+    lib = _PREVIOUS_LIBS["gls_lattice" if lattice else "gls_element"]
+    flags = (int(k.stab.supg), int(k.stab.pspg),
+             int(k.stab.gls_viscous_adjoint), int(k.stab.lsic))
+    E = ue.shape[-1]
+    if lattice:
+        up, fq, a0, sdt = args
+        tables = k.tables
+        q1d = round(k.nq ** (1 / k.dim))
+
+        def launch(mode, d, out, probe):
+            return lib.gls_lattice_launch(
+                k.dim, k.degree, q1d, mode, ue.data_ptr(), d, up.data_ptr(),
+                fq.data_ptr(), tables.data_ptr(), out.data_ptr(), E, k.nu,
+                k.h, a0, sdt, *flags, *probe,
+                torch.cuda.current_stream().cuda_stream)
+    else:
+        xe, up, fq, h, a0, sdt = args
+        # its tables: B, G, the full Hessians H and w
+        tables = torch.cat([t.reshape(-1) for t in (k.B, k.G, k.H, k.w)]
+                           ).float().contiguous()
+
+        def launch(mode, d, out, probe):
+            return lib.gls_element_launch(
+                k.dim, k.degree, mode, ue.data_ptr(), d, xe.data_ptr(),
+                up.data_ptr(), fq.data_ptr(), h.data_ptr(),
+                tables.data_ptr(), out.data_ptr(), E, k.nu, a0, sdt,
+                *flags, *probe, torch.cuda.current_stream().cuda_stream)
+
+    def call(mode, d=None, out=None, probe=(0, 0)):
+        out = torch.empty_like(ue) if out is None else out
+        err = launch(mode, d, out, probe)
+        check(err == 0, f"previous kernel launch: CUDA error {err}")
+        return out
+
+    def blocks():
+        out = ue.new_empty((k.nn, k.nc * k.nc, E))
+        for n0 in range(k.nn):
+            for j in range(k.nc):
+                call(2, out=out, probe=(n0, j))
+        return out
+
+    return {"primal": lambda: call(0),
+            "tangent": lambda: call(1, due.data_ptr()),
+            "node blocks": blocks}
+
+
 def _variants(torch, space, device, seed: int, lsic: bool = False,
               n_q1d: int | None = None):
-    """(operator, kernel calls, plain calls) on one space with seeded
-    float32 inputs: the primal residual, the tangent and the node blocks.
-    The plain tangent and node blocks differentiate with tau (and the
-    LSIC coefficient) frozen, as the kernels do.  The operator picks B2
-    on a lattice of translates and B1 otherwise."""
+    """(operator, kernel calls, plain calls, previous design's calls) on
+    one space with seeded float32 inputs: the primal residual, the
+    tangent and the node blocks.  The plain tangent and node blocks
+    differentiate with tau (and the LSIC coefficient) frozen, as the
+    kernels do.  The operator picks B2 on a lattice of translates and B1
+    otherwise."""
     from softx_2020_200_tpu_torch.ops import batched_kernel as bk
     from softx_2020_200_tpu_torch.ops import lattice_kernel as lk
     from softx_2020_200_tpu_torch.solvers.gls import GLSOperator, StabFlags
@@ -421,44 +545,112 @@ def _variants(torch, space, device, seed: int, lsic: bool = False,
     kernel = {"primal": lambda: k.residual(ue, *args),
               "tangent": lambda: k.tangent(ue, due, *args),
               "node blocks": lambda: k.node_blocks(ue, *args)}
-    return op, kernel, plain
+    return op, kernel, plain, _previous(torch, op, ue, due, args)
 
 
-def _compare(torch, label: str, E: int, kernel, plain) -> float:
-    """Each kernel output against the plain one; the worst max-abs
-    error.  Raises if one is off by more than KERNEL_RTOL of scale."""
+def _outputs(torch, calls) -> dict:
+    out = {what: fn() for what, fn in calls.items()}
+    torch.cuda.synchronize()
+    return out
+
+
+def _check_outputs(torch, label: str, E: int, kernel, want) -> float:
+    """Each kernel output against the plain one (``want``, computed
+    once); the worst max-abs error.  Raises if one is off by more than
+    KERNEL_RTOL of scale."""
     worst = 0.0
     for what in kernel:
-        got, want = kernel[what](), plain[what]()
+        got = kernel[what]()
         torch.cuda.synchronize()
-        err, rel = _rel(torch, got, want)
+        err, rel = _rel(torch, got, want[what])
         worst = max(worst, err)
-        print(f"  {label:30s} E={E:7d} {what:11s} max_abs_err {err:.3e}  "
+        print(f"  {label:44s} E={E:7d} {what:11s} max_abs_err {err:.3e}  "
               f"rel {rel:.3e}")
         check(rel < KERNEL_RTOL and bool(torch.isfinite(got).all()),
               f"kernel {what} {label} E={E}: rel error {rel:.3e}")
     return worst
 
 
-# Parity meshes (dim, degree, refinement or cells per axis): 192, 192,
-# 216 and 216 elements, so each launch spans two 128-thread blocks and
-# ends in a ragged one.  Each runs without and with LSIC.
-PARITY_SHAPES = ((2, 1, 2), (2, 2, 2), (3, 1, 6), (3, 2, 6))
+def _compare(torch, label: str, E: int, kernel, plain) -> float:
+    return _check_outputs(torch, label, E, kernel, _outputs(torch, plain))
+
+
+@contextlib.contextmanager
+def _setting(loader: str, route: str | None = None, split="auto"):
+    """B1's and B2's load path (``loader``) and, when given, their route
+    ("staged" or "registers") and B1's threads per element on its
+    REGISTERS route (``split``), for the launches inside."""
+    from softx_2020_200_tpu_torch.ops import gls_kernel as gk
+    from softx_2020_200_tpu_torch.ops import lattice_kernel as lk
+    saved = gk.LOADER, lk.LOADER, gk.ROUTE, lk.ROUTE, gk.REG_SPLIT
+    gk.LOADER = lk.LOADER = loader
+    gk.ROUTE = lk.ROUTE = route or gk.ROUTE
+    gk.REG_SPLIT = split
+    try:
+        yield
+    finally:
+        gk.LOADER, lk.LOADER, gk.ROUTE, lk.ROUTE, gk.REG_SPLIT = saved
+
+
+def _settings(E: int, has_registers, split=None) -> list:
+    """(name, loader, route, split) of every way the kernel can run on E
+    elements, the default (the route and load path the main path takes)
+    first: the STAGED route with each load path (both where rows are
+    16-byte aligned, E % 4 == 0), and the REGISTERS route where the shape
+    has one (for B1, ``split`` its dim: each of its threads per
+    element)."""
+    from softx_2020_200_tpu_torch.ops import gls_kernel as gk
+    loaders = [gk.LOADER] + ([l for l in ("cp.async", "tma")
+                              if l != gk.LOADER] if E % 4 == 0 else [])
+    out = [("default", gk.LOADER, None, "auto")]
+    out += [(f"staged {l}", l, "staged", "auto") for l in loaders]
+    if has_registers:
+        out += ([(f"registers/{n}", gk.LOADER, "registers", n)
+                 for n in gk.REG_SPLITS[split]] if split else
+                [("registers", gk.LOADER, "registers", "auto")])
+    return out
+
+
+def _check_settings(torch, label, E, kernel, want, has_registers,
+                    split=None) -> float:
+    worst = 0.0
+    for name, loader, route, n in _settings(E, has_registers, split):
+        with _setting(loader, route, n):
+            worst = max(worst, _check_outputs(torch, f"{label} [{name}]", E,
+                                              kernel, want))
+    return worst
+
+
+# B1 parity meshes (dim, degree, refinement or cells per axis): 192, 192,
+# 216 and 216 elements, so each launch spans several tiles (32 elements;
+# 16 at 3D Q2) and 3D ends in a ragged one with E % 4 == 0 (a partial
+# TMA box); then moved boxes with E % 4 != 0 (195 and 210 elements,
+# 4-byte loads) and below one tile (9 and 12 elements).  Each runs
+# without and with LSIC.
+PARITY_SHAPES = ((2, 1, 2), (2, 2, 2), (3, 1, 6), (3, 2, 6),
+                 (2, 1, (15, 13)), (2, 2, (15, 13)), (3, 1, (7, 6, 5)),
+                 (3, 2, (7, 6, 5)), (2, 1, (3, 3)), (2, 2, (3, 3)),
+                 (3, 1, (2, 2, 3)), (3, 2, (2, 2, 3)))
 
 
 def phase_kernel_parity(torch, device) -> float:
+    from softx_2020_200_tpu_torch.ops import gls_kernel as gk
     print("== phase 3: B1 parity (CUDA kernel vs plain PyTorch, float32, "
-          f"tolerance {KERNEL_RTOL:g} of the max-abs scale)")
+          f"tolerance {KERNEL_RTOL:g} of the max-abs scale; every load "
+          "path)")
     worst = 0.0
     for dim, degree, cells in PARITY_SHAPES:
         space = _space(dim, degree, cells, seed=dim * 10 + degree)
         for lsic in (False, True):
-            op, kernel, plain = _variants(torch, space, device,
-                                          seed=dim * 10 + degree, lsic=lsic)
+            op, kernel, plain, _ = _variants(torch, space, device,
+                                             seed=dim * 10 + degree,
+                                             lsic=lsic)
             check(op.layout is None, "B1 parity mesh took the lattice path")
             label = f"d={dim} k={degree}{' lsic' if lsic else ''}"
-            worst = max(worst, _compare(torch, label, space.n_elements,
-                                        kernel, plain))
+            worst = max(worst, _check_settings(
+                torch, label, space.n_elements, kernel,
+                _outputs(torch, plain),
+                (dim, degree) in gk.REGISTER_SHAPES, split=dim))
     return worst
 
 
@@ -480,20 +672,47 @@ def _graph_ms(torch, fn, reps: int = 20) -> float:
     return ms
 
 
-def _time_variants(torch, label, E, kernel, plain, times):
-    """Kernel and plain times of each variant: the kernel's device time
-    (a CUDA graph of 20 calls) and, beside it, one event-timed call,
-    which adds the host's launch cost; the plain version's event-timed
-    call (median of 5, of 2 for the plain node blocks, whose nn*c
-    forward-mode passes take up to seconds)."""
+def _time_variants(torch, label, E, kernel, plain, times, previous=None,
+                   has_registers=False, alternatives=True, split=None):
+    """Times of each variant at one shape: the kernel's device time (a
+    CUDA graph of 20 calls) in every setting (``_settings``; the default
+    is ``ms``); its previous design's on the same inputs (``ms_parent``),
+    timed in turns with the default (previous, kernel, kernel, previous);
+    one event-timed call of each, which adds the host's launch cost; and
+    the plain version's event-timed call (median of 5, of 2 for the plain
+    node blocks, whose nn*c forward-mode passes take up to seconds).
+    Without a previous design (B3, unchanged) ``ms_parent`` is ``ms``;
+    without ``alternatives`` (B3, which has one load path) only the
+    default runs."""
     times[label] = row = {"E": E}
+    settings = (_settings(E, has_registers, split) if alternatives
+                else [("default", "", None, "auto")])
     for what in kernel:
-        reps = 2 if what == "node blocks" else 5
-        row[what] = (_graph_ms(torch, kernel[what]),
-                     _median_ms(torch, plain[what], reps=reps))
-        call = _median_ms(torch, kernel[what])
-        print(f"  {label:30s} E={E:7d} {what:11s} kernel {row[what][0]:9.4f}"
-              f" ms (one call {call:9.4f} ms)  plain {row[what][1]:10.4f} ms")
+        r = row[what] = {}
+        if previous is not None:
+            p1 = _graph_ms(torch, previous[what])
+            k1 = _graph_ms(torch, kernel[what])
+            k2 = _graph_ms(torch, kernel[what])
+            p2 = _graph_ms(torch, previous[what])
+            r["ms"], r["ms_parent"] = (k1 + k2) / 2, (p1 + p2) / 2
+            r["call_ms_parent"] = _median_ms(torch, previous[what])
+        else:
+            r["ms"] = r["ms_parent"] = _graph_ms(torch, kernel[what])
+        r["call_ms"] = _median_ms(torch, kernel[what])
+        r["settings"] = {}
+        for name, loader, route, n in settings[1:]:
+            with _setting(loader, route, n):
+                r["settings"][name] = (_graph_ms(torch, kernel[what]),
+                                       _median_ms(torch, kernel[what]))
+        r["plain_ms"] = _median_ms(torch, plain[what],
+                                   reps=2 if what == "node blocks" else 5)
+        alt = "".join(f"; {n} {t:.4f} (call {c:.4f})"
+                      for n, (t, c) in r["settings"].items())
+        prev = (f"; previous {r['ms_parent']:.4f} (call "
+                f"{r['call_ms_parent']:.4f})" if previous is not None else "")
+        print(f"  {label:32s} E={E:7d} {what:11s} kernel [default] "
+              f"{r['ms']:.4f} ms (call {r['call_ms']:.4f}){prev}{alt}; "
+              f"plain {r['plain_ms']:.4f} ms")
         torch.cuda.empty_cache()
 
 
@@ -506,20 +725,36 @@ B1_SHAPES = (("2D Q2 Taylor-Couette r3", 2, 2, 3),
 
 def phase_kernel_times(torch, device) -> tuple[dict, float]:
     """B1 against plain at its main path's shapes (and, for comparison
-    with B2, at the 3D Q1 sizes on a non-affine box): compared first,
-    then timed.  Returns the times and the worst max-abs error."""
+    with B2, at the 3D Q1 sizes on a non-affine box): compared first in
+    every setting, then timed.  Returns the times and the worst max-abs
+    error."""
     print("== phase 3b: B1 parity and times at the main path's shapes "
           "(ms)")
+    from softx_2020_200_tpu_torch.ops import gls_kernel as gk
     times, worst = {}, 0.0
     for label, dim, degree, cells in B1_SHAPES:
         space = _space(dim, degree, cells, seed=7)
-        _, kernel, plain = _variants(torch, space, device, seed=3)
-        worst = max(worst, _compare(torch, label, space.n_elements,
-                                    kernel, plain))
-        _time_variants(torch, label, space.n_elements, kernel, plain, times)
-        del kernel, plain
+        _, kernel, plain, previous = _variants(torch, space, device, seed=3)
+        E, reg = space.n_elements, (dim, degree) in gk.REGISTER_SHAPES
+        want = _outputs(torch, plain)
+        worst = max(worst, _check_settings(torch, label, E, kernel, want,
+                                           reg, split=dim))
+        _compare_previous(torch, label, E, previous, want)
+        del want
+        _time_variants(torch, label, E, kernel, plain, times, previous, reg,
+                       split=dim)
+        del kernel, plain, previous
         torch.cuda.empty_cache()
     return times, worst
+
+
+def _compare_previous(torch, label, E, previous, want) -> None:
+    """The previous design's outputs against the plain ones: a check that
+    it is called right, so that its times compare like with like."""
+    for what, fn in previous.items():
+        err, rel = _rel(torch, fn(), want[what])
+        check(rel < KERNEL_RTOL, f"previous {what} {label}: rel {rel:.3e}")
+    print(f"  {label:44s} E={E:7d} previous design within {KERNEL_RTOL:g}")
 
 
 # ----------------------------------------------------------------------
@@ -538,11 +773,17 @@ def _lattice(dim: int, degree: int, cells, periodic: bool = False):
 
 
 # B2 parity lattices (dim, degree, Gauss points per axis, cells): 195 and
-# 210 cells, so each launch spans several blocks (32 elements; 16 when
-# there are 27 nodes or points) and ends in a ragged one.  Q1 with 3
-# points is what the Q1 multigrid levels of a Q2 deck run.
-B2_PARITY = ((2, 1, 2, (15, 13)), (2, 2, 3, (15, 13)), (3, 1, 2, (7, 6, 5)),
-             (3, 2, 3, (7, 6, 5)), (2, 1, 3, (15, 13)), (3, 1, 3, (7, 6, 5)))
+# 210 cells (E % 4 != 0: 4-byte loads), so each launch spans several
+# tiles (32 elements; 16 when there are 27 nodes or points) and ends in a
+# ragged one; then 108 and 60 cells (E % 4 == 0, a ragged tile: a
+# partial TMA box) and 9 and 12 cells (below one tile).  Q1 with 3 points
+# is what the Q1 multigrid levels of a Q2 deck run.
+B2_PARITY = tuple(
+    (d, k, q, cells)
+    for d, k, q in ((2, 1, 2), (2, 2, 3), (3, 1, 2), (3, 2, 3), (2, 1, 3),
+                    (3, 1, 3))
+    for cells in (((15, 13), (12, 9), (3, 3)) if d == 2 else
+                  ((7, 6, 5), (5, 4, 3), (2, 2, 3))))
 # B2's main-path shapes (label, dim, degree, Gauss points per axis,
 # cells), compared with the plain version and then timed: the TGV
 # lattice, the 64^3 box of bench.py, Q2 lattices in 2D (128^2, and the
@@ -556,7 +797,8 @@ B2_SHAPES = (("3D Q1 TGV 32^3", 3, 1, 2, (32,) * 3),
              ("3D Q2 32^3", 3, 2, 3, (32,) * 3),
              ("2D Q1 256^2 q=2 (MMS level 1)", 2, 1, 2, (256,) * 2),
              ("2D Q1 128^2 q=3 (MMS level 2)", 2, 1, 3, (128,) * 2))
-# the coarser multigrid levels of phases 6 and 7, compared only
+# the coarser multigrid levels of phases 6 and 7, compared and timed too:
+# they carry most of B2's launches on the main path
 B2_LEVELS = (("3D Q1 16^3 (TGV level 1)", 3, 1, 2, (16,) * 3),
              ("3D Q1 8^3 (TGV level 2)", 3, 1, 2, (8,) * 3),
              ("2D Q1 64^2 q=3 (MMS level 3)", 2, 1, 3, (64,) * 2),
@@ -565,32 +807,38 @@ B2_LEVELS = (("3D Q1 16^3 (TGV level 1)", 3, 1, 2, (16,) * 3),
 
 
 def phase_lattice_kernel(torch, device) -> tuple[dict, float]:
+    from softx_2020_200_tpu_torch.ops import lattice_kernel as lk
     print("== phase 3c: B2 parity (CUDA kernel vs plain PyTorch, float32, "
-          f"tolerance {KERNEL_RTOL:g} of the max-abs scale), then parity "
-          "and times at the main path's shapes (ms)")
+          f"tolerance {KERNEL_RTOL:g} of the max-abs scale; every load "
+          "path and route), then parity and times at the main path's "
+          "shapes and levels (ms)")
     worst = 0.0
     for dim, degree, q1d, cells in B2_PARITY:
         space = _lattice(dim, degree, cells)
         for lsic in (False, True):
-            op, kernel, plain = _variants(torch, space, device,
-                                          seed=dim * 10 + degree, lsic=lsic,
-                                          n_q1d=q1d)
+            op, kernel, plain, _ = _variants(torch, space, device,
+                                             seed=dim * 10 + degree,
+                                             lsic=lsic, n_q1d=q1d)
             check(op.layout is not None, "B2 parity lattice took B1")
             label = f"d={dim} k={degree} q={q1d}{' lsic' if lsic else ''}"
-            worst = max(worst, _compare(torch, label, space.n_elements,
-                                        kernel, plain))
+            worst = max(worst, _check_settings(
+                torch, label, space.n_elements, kernel,
+                _outputs(torch, plain),
+                (dim, degree, q1d) in lk.REGISTER_SHAPES))
     times = {}
     for label, dim, degree, q1d, cells in B2_SHAPES + B2_LEVELS:
         space = _lattice(dim, degree, cells, periodic=True)
-        op, kernel, plain = _variants(torch, space, device, seed=5,
-                                      n_q1d=q1d)
+        op, kernel, plain, previous = _variants(torch, space, device, seed=5,
+                                                n_q1d=q1d)
         check(op.layout is not None, f"{label} took B1")
-        worst = max(worst, _compare(torch, label, space.n_elements,
-                                    kernel, plain))
-        if (label, dim, degree, q1d, cells) in B2_SHAPES:
-            _time_variants(torch, label, space.n_elements, kernel, plain,
-                           times)
-        del op, kernel, plain
+        E, q1 = space.n_elements, (dim, degree, q1d) in lk.REGISTER_SHAPES
+        want = _outputs(torch, plain)
+        worst = max(worst, _check_settings(torch, label, E, kernel, want,
+                                           q1))
+        _compare_previous(torch, label, E, previous, want)
+        del want
+        _time_variants(torch, label, E, kernel, plain, times, previous, q1)
+        del op, kernel, plain, previous
         torch.cuda.empty_cache()
     return times, worst
 
@@ -730,11 +978,12 @@ def phase_gd_kernel(torch, device) -> tuple[dict, float]:
         check(op.layout_v is not None, f"{label} took the SoA path")
         E = op.space_v.n_elements
         worst = max(worst, _compare(torch, label, E, kernel, plain))
-        _time_variants(torch, label, E, kernel, plain, times)
+        _time_variants(torch, label, E, kernel, plain, times,
+                       alternatives=False)
         for what in kernel:
             b, by = _bound_gd(dim, what, E)
             print(f"  bound B3 {label:30s} {what:11s} {b:9.4f} ms ({by}); "
-                  f"kernel {times[label][what][0]:9.4f} ms")
+                  f"kernel {times[label][what]['ms']:9.4f} ms")
         del op, kernel, plain
         torch.cuda.empty_cache()
     return times, worst
@@ -776,6 +1025,7 @@ def drive_app(torch, dim: int, deck: str, kernel: str,
         torch.cuda.reset_peak_memory_stats()
         for cls in counters.values():
             cls.launches = 0
+            cls.launches_by_shape = {}
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(buf):
@@ -786,6 +1036,8 @@ def drive_app(torch, dim: int, deck: str, kernel: str,
             os.chdir(cwd)
         seconds = time.perf_counter() - t0
         launches = {name: cls.launches for name, cls in counters.items()}
+        by_shape = {name: dict(cls.launches_by_shape)
+                    for name, cls in counters.items()}
     out = buf.getvalue()
     for line in out.splitlines():
         print(f"  | {line}")
@@ -799,7 +1051,8 @@ def drive_app(torch, dim: int, deck: str, kernel: str,
         rf"{_NUM} Krylov restarts, {_NUM} solves above tolerance", out)
     check(stats is not None, f"{deck}: no Newton summary line")
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    res = dict(out=out, seconds=seconds, launches=launches, peak_mib=peak,
+    res = dict(out=out, seconds=seconds, launches=launches,
+               launches_by_shape=by_shape, peak_mib=peak,
                newton_solves=int(stats.group(1)),
                newton_iterations=int(stats.group(2)),
                linear_iterations=int(stats.group(3)),
@@ -1053,38 +1306,96 @@ def phase_gd_tgv(torch) -> dict:
 
 
 # ----------------------------------------------------------------------
-def _entry(name, source, replaces, launches, worst, tangent, bound):
+def _shape_keys(lattice: bool) -> dict:
+    """label -> (dim, degree, points per axis) of B1's or B2's timed
+    shapes."""
+    if lattice:
+        return {s[0]: s[1:4] for s in B2_SHAPES + B2_LEVELS}
+    return {s[0]: (s[1], s[2], s[2] + 1) for s in B1_SHAPES}
+
+
+def _by_shape(times: dict, lattice: bool, launches: dict) -> list:
+    """Per timed shape: its main-path launches per variant (``launches``
+    maps (dim, degree, points per axis, E, variant) to a count) and, per
+    variant, the kernel's, its previous design's and the plain version's
+    times, the other settings' times and the bound."""
+    keys, out = _shape_keys(lattice), []
+    for label, row in times.items():
+        dim, degree, q1d = keys[label]
+        E = row["E"]
+        entry = {"label": label, "E": E, "launches": {
+            mode: launches.get((dim, degree, q1d, E, mode), 0)
+            for mode in ("primal", "tangent", "probe")}}
+        for what in ("primal", "tangent", "node blocks"):
+            r = row[what]
+            b, by = _bound(dim, degree, what, E, lattice, q1d)
+            entry[what] = {"ms": r["ms"], "ms_parent": r["ms_parent"],
+                           "plain_ms": r["plain_ms"], "bound_ms": b,
+                           "bound_by": by, "call_ms": r["call_ms"],
+                           "call_ms_parent": r.get("call_ms_parent"),
+                           "settings": {n: t for n, (t, _) in
+                                        r["settings"].items()}}
+        out.append(entry)
+    return out
+
+
+def _entry(name, source, replaces, runs, worst, row, bound, lattice=None,
+           times=None):
     """One kernel's line: its tangent (the Krylov matvec, most of its
-    launches) at its main-path shape: (kernel ms, plain ms) and
-    (bound ms, bound by)."""
-    (t_kernel, t_plain), (bound_ms, bound_by) = tangent, bound
-    return {"name": name, "route": "cuda",
-            "source": os.path.relpath(source, ROOT), "replaces": replaces,
-            "launches": launches, "max_abs_err": worst, "ms": t_kernel,
-            "plain_ms": t_plain, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None}
+    launches) at its main-path shape ``row``: kernel, previous design
+    (``ms_parent``) and plain times, and (bound ms, bound by); launches
+    in total and per (dim, degree, points per axis, E, variant) over the
+    main-path ``runs``; for B1 and B2 (``times``) every timed shape."""
+    bound_ms, bound_by = bound
+    t = row["tangent"]
+    per_shape = {}
+    for r in runs:
+        for key, n in r["launches_by_shape"][name].items():
+            per_shape[key] = per_shape.get(key, 0) + n
+    entry = {"name": name, "route": "cuda",
+             "source": os.path.relpath(source, ROOT), "replaces": replaces,
+             "launches": sum(r["launches"][name] for r in runs),
+             "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
+             "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+             "ms_parent": t["ms_parent"],
+             "launches_by_shape": {",".join(map(str, k)): n
+                                   for k, n in sorted(per_shape.items())}}
+    if times is not None:
+        entry["by_shape"] = _by_shape(times, lattice, per_shape)
+    return entry
 
 
 def _print_bounds(times: dict, lattice: bool) -> None:
-    shapes = ({s[0]: s[1:4] for s in B2_SHAPES} if lattice else
-              {s[0]: s[1:3] + (None,) for s in B1_SHAPES})
+    shapes = _shape_keys(lattice)
     for label, row in times.items():
         dim, degree, q1d = shapes[label]
         for what in ("primal", "tangent", "node blocks"):
             b, by = _bound(dim, degree, what, row["E"], lattice, q1d)
-            print(f"  bound {'B2' if lattice else 'B1'} {label:30s} "
+            print(f"  bound {'B2' if lattice else 'B1'} {label:32s} "
                   f"{what:11s} {b:9.4f} ms ({by}); kernel "
-                  f"{row[what][0]:9.4f} ms")
+                  f"{row[what]['ms']:9.4f} ms, previous "
+                  f"{row[what]['ms_parent']:9.4f} ms")
+
+
+PHASES = ("2", "3", "3b", "3c", "3d", "4", "5", "6", "7", "8", "9")
 
 
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--write-decks", metavar="DIR",
                         help="write the main-path decks to DIR and stop")
+    parser.add_argument("--phases", metavar="LIST",
+                        help="run only these phases (comma-separated, "
+                        "e.g. 2,3c; phase 1 always runs, and phase 2 with "
+                        "any of 3-3c); prints no contract line")
     args = parser.parse_args(argv)
     if args.write_decks:
         write_decks(args.write_decks)
         return 0
+    only = set(args.phases.split(",")) if args.phases else set(PHASES)
+    check(only <= set(PHASES), f"unknown phases {only - set(PHASES)}")
+    if only & {"3", "3b", "3c"}:
+        only.add("2")
 
     import torch
     if not torch.cuda.is_available():
@@ -1097,17 +1408,32 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smi = phase_environment(torch)
-    phase_build()
-    worst_b1 = phase_kernel_parity(torch, device)
-    times_b1, worst_at_scale = phase_kernel_times(torch, device)
-    worst_b1 = max(worst_b1, worst_at_scale)
-    times_b2, worst_b2 = phase_lattice_kernel(torch, device)
-    _print_bounds(times_b1, lattice=False)
-    _print_bounds(times_b2, lattice=True)
-    times_b3, worst_b3 = phase_gd_kernel(torch, device)
-    b1_runs = phase_couette(torch)
-    b2_runs = [phase_tgv(torch), phase_tgv_gmg(torch), phase_mms_gmg(torch)]
-    b3_runs = [phase_gd_cavity(torch), phase_gd_tgv(torch)]
+    if "2" in only:
+        phase_build()
+    worst_b1 = worst_b2 = 0.0
+    times_b1 = times_b2 = {}
+    if "3" in only:
+        worst_b1 = phase_kernel_parity(torch, device)
+    if "3b" in only:
+        times_b1, worst_at_scale = phase_kernel_times(torch, device)
+        worst_b1 = max(worst_b1, worst_at_scale)
+        _print_bounds(times_b1, lattice=False)
+    if "3c" in only:
+        times_b2, worst_b2 = phase_lattice_kernel(torch, device)
+        _print_bounds(times_b2, lattice=True)
+    if "3d" in only:
+        times_b3, worst_b3 = phase_gd_kernel(torch, device)
+    b1_runs = phase_couette(torch) if "4" in only else []
+    b2_runs = [phase(torch) for name, phase in (("5", phase_tgv),
+                                            ("6", phase_tgv_gmg),
+                                            ("7", phase_mms_gmg))
+               if name in only]
+    b3_runs = [phase(torch) for name, phase in (("8", phase_gd_cavity),
+                                            ("9", phase_gd_tgv))
+               if name in only]
+    if only != set(PHASES):
+        print(f"phases {sorted(only)} passed; no contract line")
+        return 0
 
     from softx_2020_200_tpu_torch.ops import (gls_kernel, lattice_gd_kernel,
                                               lattice_kernel)
@@ -1115,17 +1441,15 @@ def main(argv=None) -> int:
     b3 = times_b3["2D Q2-Q1 256^2 (GD cavity)"]
     entries = [
         _entry("gls_element", gls_kernel.SOURCE,
-               "softx_2020_200_tpu/ops/pallas_gls.py:218",
-               sum(r["launches"]["gls_element"] for r in b1_runs), worst_b1,
-               b1["tangent"], _bound(2, 2, "tangent", b1["E"], False)),
+               "softx_2020_200_tpu/ops/pallas_gls.py:218", b1_runs, worst_b1,
+               b1, _bound(2, 2, "tangent", b1["E"], False), False, times_b1),
         _entry("gls_lattice", lattice_kernel.SOURCE,
-               "softx_2020_200_tpu/ops/pallas_lattice.py:103",
-               sum(r["launches"]["gls_lattice"] for r in b2_runs), worst_b2,
-               b2["tangent"], _bound(3, 1, "tangent", b2["E"], True)),
+               "softx_2020_200_tpu/ops/pallas_lattice.py:103", b2_runs,
+               worst_b2, b2, _bound(3, 1, "tangent", b2["E"], True), True,
+               times_b2),
         _entry("gd_lattice", lattice_gd_kernel.SOURCE,
-               "softx_2020_200_tpu/ops/pallas_lattice_gd.py:59",
-               sum(r["launches"]["gd_lattice"] for r in b3_runs), worst_b3,
-               b3["tangent"], _bound_gd(2, "tangent", b3["E"])),
+               "softx_2020_200_tpu/ops/pallas_lattice_gd.py:59", b3_runs,
+               worst_b3, b3, _bound_gd(2, "tangent", b3["E"])),
     ]
     print(smi)
     print(json.dumps({"kernels": entries}))

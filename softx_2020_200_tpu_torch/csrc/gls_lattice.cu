@@ -30,39 +30,65 @@
 // i*nq + q); out[c*nn, E].  Compiled for Q1 and Q2 in 2D and 3D with
 // (degree + 1) Gauss points per axis, and for Q1 with 3 points per axis,
 // which the Q1 levels of a Q2 deck's multigrid hierarchy use (as in the
-// JAX package).  A block takes BE elements (32; 16 when nq or nn is 27)
-// and runs max(nq, nn)*BE threads in two phases:
-//   A  thread (q, e) interpolates, evaluates the physics at quadrature
-//      point q of element e and stages its coefficients in shared memory;
-//   B  thread (n, e) projects: out[k, n, e] = sum_r T_proj[n, r] C_k[r, e].
-// The tables (3D Q2: 2 x 135 x 27 f32 = 29 KB), the block's input rows and
-// its coefficients (3D Q2: 513 per element) live in shared memory, so no
-// thread holds an element's c*nn accumulators (108 at 3D Q2), which is
-// what spilled B1's one-thread-per-element design at 3D Q2.  Loads and
-// stores of a row are coalesced over e; table reads are broadcasts within
-// a warp (one q or n per warp); the ragged tail is masked.
+// JAX package).
 //
 // What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 without tensor
-// cores): at 3D Q1 an element moves 448 B in the primal (ue 32, up 24,
-// fq 24, out 32 floats) and 576 B in the tangent, against about 5.7 and
-// 8.6 kFLOP, 13-15 FLOP/B, under the f32 ridge of about 20: memory-bound,
-// about 35 us primal at the 64^3 box.  At 3D Q2 about 60 kFLOP against
-// 1,512 B per element: compute-bound.
+// cores): at 3D Q1 an element moves 448 B in the primal and 576 B in the
+// tangent against about 5.7 and 8.6 kFLOP: memory-bound (5.6 us for the
+// tangent at 32^3).  At 3D Q2 about 60 kFLOP against 1,512 B per element:
+// compute-bound.  The first design ran one block per 32 (or 16) elements
+// strictly in sequence: restage the tables, copy the rows with scalar
+// loads, interpolate at two shared-memory loads per FMA, project; nothing
+// hid the load latency, and the shared-memory load issue rate, not the
+// memory, set its time at 3D Q1.
+//
+// Two routes, on the skeleton of persistent_tiles.cuh (a persistent grid
+// of at most occupancy x SMs blocks, walking element tiles):
+//   STAGED     every compiled shape.  A block stages the tables once, then
+//              per tile of BE elements (32; 16 when nq or nn is 27) the
+//              rows arrive in a two-stage ring by cp.async or TMA while the
+//              previous tile computes: thread (q, e) interpolates and
+//              evaluates the physics at point q into shared-memory
+//              coefficients (phase A), then thread (n, e) projects (phase
+//              B).  No thread holds an element's c*nn accumulators.
+//   REGISTERS  Q1 with 2 points per axis on a lattice of boxes only: one
+//              thread per element, its rows loaded straight into registers
+//              with coalesced loads, the tables passed as a
+//              __grid_constant__ kernel parameter so the unrolled products
+//              read them as constant operands (no shared memory at all);
+//              the Laplacian rows, zero for a multilinear basis on a box,
+//              are left out.
+// STAGED loads each table entry once per point for every component
+// (one pass over the nodes) and each T_proj entry once per node for every
+// component, but its cost is still shared-memory traffic; REGISTERS moves
+// only the rows.  The caller picks the route per launch from the shape and
+// E: REGISTERS where one thread per element fills the card (from 128
+// elements per SM on; ops/lattice_kernel.py).  What bounds this design:
+// STAGED, the shared-memory load issue (one load per product) that set
+// the first design's time too, now with the tables staged once per block
+// and the next tile's rows in flight; REGISTERS, at 3D Q1, occupancy (about
+// 170 registers a thread, 12 warps an SM) with the FMAs of the unrolled
+// products, about 2x over the byte bound.  Measured times of both routes
+// and load paths: PERF.md.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libgls_lattice.so gls_lattice.cu
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "persistent_tiles.cuh"
 
 namespace {
 
 constexpr int PRIMAL = 0;
 constexpr int TANGENT = 1;
 constexpr int PROBE = 2;
+constexpr int STAGED = 0;
+constexpr int REGISTERS = 1;
+constexpr int REG_THREADS = 128;
 
-template <int D, int K, int Q>
+using tiles::pad32;
+
+template <int D, int K, int Q, int MODE>
 struct Shape {
   static constexpr int N1 = K + 1;
   static constexpr int NN = (D == 2) ? N1 * N1 : N1 * N1 * N1;
@@ -75,180 +101,79 @@ struct Shape {
   static constexpr int THREADS = SLOTS * BE;
   static constexpr int TABLES = 2 * M * NN;
   static constexpr int CROWS = D * M + MNL;   // staged coefficients per element
+  // inputs: ue, due, up, fq
+  static constexpr int R_UE = C * NN, R_DUE = MODE == TANGENT ? C * NN : 0,
+                       R_UP = D * NN, R_FQ = D * NQ;
+  static constexpr int O_UE = 0, O_DUE = O_UE + pad32(R_UE * BE),
+                       O_UP = O_DUE + pad32(R_DUE * BE),
+                       O_FQ = O_UP + pad32(R_UP * BE),
+                       STAGE = O_FQ + pad32(R_FQ * BE);
+  static constexpr int STAGE_BYTES = 4 * BE * (R_UE + R_DUE + R_UP + R_FQ);
+  static constexpr int SMEM_FLOATS =
+      pad32(TABLES) + tiles::STAGES * STAGE + CROWS * BE;
 };
 
-template <int D, int K, int Q, int MODE>
-constexpr int smem_floats() {
-  using S = Shape<D, K, Q>;
-  return S::TABLES +
-         (S::C * S::NN * (MODE == TANGENT ? 2 : 1) + D * S::NN + S::CROWS) *
-             S::BE;
-}
-
-struct Params {
-  const float* ue;
-  const float* due;
-  const float* up;
-  const float* fq;
-  const float* tables;
-  float* out;
-  int64_t E;
+struct Physics {
   float nu, h, alpha0, sdt;
   int supg, pspg, gls_adjoint, lsic;
   int probe_node, probe_comp;
 };
 
-// value (b = 0), gradients (b = 1..D) and Laplacian (b = D+1) of the
-// staged component rows `rows` [NN][BE] at quadrature point q
-template <class S, int NB>
-__device__ __forceinline__ void interpolate(const float* sT, const float* rows,
-                                            int q, int el, float (&acc)[NB]) {
-#pragma unroll
-  for (int b = 0; b < NB; ++b) acc[b] = 0.0f;
-#pragma unroll
-  for (int n = 0; n < S::NN; ++n) {
-    const float u = rows[n * S::BE + el];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) acc[b] += sT[(b * S::NQ + q) * S::NN + n] * u;
-  }
-}
+struct Params {
+  tiles::Inputs in;
+  const float* tables;
+  float* out;
+  int64_t E;
+  Physics ph;
+  int path;
+};
 
-template <int D, int K, int Q, int MODE>
-__global__ void __launch_bounds__(Shape<D, K, Q>::THREADS)
-    gls_lattice_kernel(const Params p) {
-  using S = Shape<D, K, Q>;
-  constexpr int NN = S::NN;
-  constexpr int NQ = S::NQ;
-  constexpr int C = S::C;
-  constexpr int M = S::M;
-  constexpr int MNL = S::MNL;
-  constexpr int BE = S::BE;
+// The pointwise weak form at one quadrature point, as B2's body writes it:
+// from the values, gradients and Laplacians of (u, p) (and of the
+// direction for the tangent and the probe) and s = u^{n-i} terms - f, the
+// coefficients against phi (a_v), grad phi (a_g), lap phi (a_lap) for the
+// velocity and against psi (a_p), grad psi (a_pg) for the pressure.
+template <int D, int MODE>
+struct Point {
+  float vel[D], gvel[D][D], lap[D], pr, gp[D], s[D];
+  float dvel[D], dgvel[D][D], dlap[D], dp, dgp[D];
 
-  extern __shared__ float smem[];
-  float* sT = smem;                         // T_all [M][NN]
-  float* sP = sT + M * NN;                  // T_proj [NN][M]
-  float* sU = sP + NN * M;                  // ue rows [C*NN][BE]
-  float* sDU = sU + C * NN * BE;            // due rows (TANGENT)
-  float* sUP = sDU + (MODE == TANGENT ? C * NN * BE : 0);  // up [D*NN][BE]
-  float* sC = sUP + D * NN * BE;            // coefficients [CROWS][BE]
-
-  const int tid = threadIdx.x;
-  const int el = tid % BE;
-  const int slot = tid / BE;                // q in phase A, n in phase B
-  const int64_t E = p.E;
-  const int64_t e0 = (int64_t)blockIdx.x * BE;
-  const int64_t e = e0 + el;
-
-  for (int i = tid; i < S::TABLES; i += S::THREADS) sT[i] = p.tables[i];
-  for (int i = tid; i < C * NN * BE; i += S::THREADS) {
-    const int64_t g = e0 + i % BE;
-    const int64_t src = (int64_t)(i / BE) * E + g;
-    sU[i] = g < E ? p.ue[src] : 0.0f;
-    if constexpr (MODE == TANGENT) sDU[i] = g < E ? p.due[src] : 0.0f;
-  }
-  for (int i = tid; i < D * NN * BE; i += S::THREADS) {
-    const int64_t g = e0 + i % BE;
-    sUP[i] = g < E ? p.up[(int64_t)(i / BE) * E + g] : 0.0f;
-  }
-  __syncthreads();
-
-  // ---- phase A: quadrature point q of element el ------------------------
-  if (slot < NQ) {
-    const int q = slot;
-    const float nu = p.nu, alpha0 = p.alpha0, sdt = p.sdt, h = p.h;
+  __device__ __forceinline__ void coefficients(
+      const Physics& ph, float (&a_v)[D], float (&a_g)[D][D],
+      float (&a_lap)[D], float& a_p, float (&a_pg)[D]) const {
+    const float nu = ph.nu, h = ph.h, alpha0 = ph.alpha0, sdt = ph.sdt;
     const float inv_h2 = 1.0f / (h * h);
     const float visc_term = 9.0f * (4.0f * nu) * (4.0f * nu) * inv_h2 * inv_h2;
-
-    float vel[D], gvel[D][D], lap[D], pr, gp[D], upv[D], f[D];
-#pragma unroll
-    for (int k = 0; k < D; ++k) {
-      float a[D + 2];
-      interpolate<S, D + 2>(sT, sU + k * NN * BE, q, el, a);
-      vel[k] = a[0];
-#pragma unroll
-      for (int j = 0; j < D; ++j) gvel[k][j] = a[1 + j];
-      lap[k] = a[D + 1];
-      float b[1];
-      interpolate<S, 1>(sT, sUP + k * NN * BE, q, el, b);
-      upv[k] = b[0];
-      f[k] = e < E ? p.fq[(int64_t)(k * NQ + q) * E + e] : 0.0f;
-    }
-    {
-      float a[D + 1];
-      interpolate<S, D + 1>(sT, sU + D * NN * BE, q, el, a);
-      pr = a[0];
-#pragma unroll
-      for (int j = 0; j < D; ++j) gp[j] = a[1 + j];
-    }
-
-    float udot[D], conv[D], r_m[D];
+    float conv[D], r_m[D];
     float div = 0.0f, umag2 = 0.0f;
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      udot[i] = alpha0 * vel[i] + upv[i];
-      float s = 0.0f;
+      float c = 0.0f;
 #pragma unroll
-      for (int j = 0; j < D; ++j) s += gvel[i][j] * vel[j];
-      conv[i] = s;
-      r_m[i] = udot[i] + conv[i] + gp[i] - nu * lap[i] - f[i];
+      for (int j = 0; j < D; ++j) c += gvel[i][j] * vel[j];
+      conv[i] = c;
+      r_m[i] = alpha0 * vel[i] + s[i] + conv[i] + gp[i] - nu * lap[i];
       div += gvel[i][i];
       umag2 += vel[i] * vel[i];
     }
     const float tau = 1.0f / sqrtf(sdt * sdt + 4.0f * umag2 * inv_h2 +
                                    visc_term);
     const float tau_l = 0.5f * sqrtf(umag2) * h;
-
-    float a_v[D], a_g[D][D], a_p, a_pg[D], a_lap[D];
     if constexpr (MODE == PRIMAL) {
 #pragma unroll
       for (int i = 0; i < D; ++i) {
-        a_v[i] = udot[i] + conv[i] - f[i];
+        a_v[i] = alpha0 * vel[i] + s[i] + conv[i];
 #pragma unroll
         for (int j = 0; j < D; ++j) {
           a_g[i][j] = nu * gvel[i][j] - (i == j ? pr : 0.0f);
-          if (p.supg) a_g[i][j] += tau * r_m[i] * vel[j];
+          if (ph.supg) a_g[i][j] += tau * r_m[i] * vel[j];
         }
-        if (p.lsic) a_g[i][i] += tau_l * div;
-        a_pg[i] = p.pspg ? tau * r_m[i] : 0.0f;
-        a_lap[i] = p.gls_adjoint ? -tau * nu * r_m[i] : 0.0f;
+        if (ph.lsic) a_g[i][i] += tau_l * div;
+        a_pg[i] = ph.pspg ? tau * r_m[i] : 0.0f;
+        a_lap[i] = ph.gls_adjoint ? -tau * nu * r_m[i] : 0.0f;
       }
       a_p = div;
     } else {
-      // direction fields: from due (TANGENT) or the one-hot probe (PROBE)
-      float dvel[D], dgvel[D][D], dlap[D], dp, dgp[D];
-      if constexpr (MODE == TANGENT) {
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-          float a[D + 2];
-          interpolate<S, D + 2>(sT, sDU + k * NN * BE, q, el, a);
-          dvel[k] = a[0];
-#pragma unroll
-          for (int j = 0; j < D; ++j) dgvel[k][j] = a[1 + j];
-          dlap[k] = a[D + 1];
-        }
-        float a[D + 1];
-        interpolate<S, D + 1>(sT, sDU + D * NN * BE, q, el, a);
-        dp = a[0];
-#pragma unroll
-        for (int j = 0; j < D; ++j) dgp[j] = a[1 + j];
-      } else {
-        const int n0 = p.probe_node, j0 = p.probe_comp;
-        float t[D + 2];
-#pragma unroll
-        for (int b = 0; b < D + 2; ++b) t[b] = sT[(b * NQ + q) * NN + n0];
-#pragma unroll
-        for (int k = 0; k < D; ++k) {
-          const bool hot = (k == j0);
-          dvel[k] = hot ? t[0] : 0.0f;
-#pragma unroll
-          for (int j = 0; j < D; ++j) dgvel[k][j] = hot ? t[1 + j] : 0.0f;
-          dlap[k] = hot ? t[D + 1] : 0.0f;
-        }
-        dp = (j0 == D) ? t[0] : 0.0f;
-#pragma unroll
-        for (int j = 0; j < D; ++j) dgp[j] = (j0 == D) ? t[1 + j] : 0.0f;
-      }
-
       float ddiv = 0.0f, dr_m[D];
 #pragma unroll
       for (int i = 0; i < D; ++i) {
@@ -266,124 +191,534 @@ __global__ void __launch_bounds__(Shape<D, K, Q>::THREADS)
 #pragma unroll
         for (int j = 0; j < D; ++j) {
           a_g[i][j] = nu * dgvel[i][j] - (i == j ? dp : 0.0f);
-          if (p.supg) a_g[i][j] += tau * (dr_m[i] * vel[j] + r_m[i] * dvel[j]);
+          if (ph.supg)
+            a_g[i][j] += tau * (dr_m[i] * vel[j] + r_m[i] * dvel[j]);
         }
-        if (p.lsic) a_g[i][i] += tau_l * ddiv;
-        a_pg[i] = p.pspg ? tau * dr_m[i] : 0.0f;
-        a_lap[i] = p.gls_adjoint ? -tau * nu * dr_m[i] : 0.0f;
+        if (ph.lsic) a_g[i][i] += tau_l * ddiv;
+        a_pg[i] = ph.pspg ? tau * dr_m[i] : 0.0f;
+        a_lap[i] = ph.gls_adjoint ? -tau * nu * dr_m[i] : 0.0f;
       }
       a_p = ddiv;
     }
+  }
 
-    // stage: row (i*M + b*NQ + q) for velocity component i, block b
-    // (value, gradients, Laplacian); row (D*M + b*NQ + q) for pressure
-    float* cq = sC + q * BE + el;
+  // the one-hot probe direction from the table column of node n0:
+  // t[b] = T_all[b*NQ + q, n0], b = 0..D+1
+  __device__ __forceinline__ void probe(const float (&t)[D + 2], int j0) {
 #pragma unroll
-    for (int i = 0; i < D; ++i) {
-      cq[(i * M) * BE] = a_v[i];
+    for (int k = 0; k < D; ++k) {
+      const bool hot = (k == j0);
+      dvel[k] = hot ? t[0] : 0.0f;
 #pragma unroll
-      for (int j = 0; j < D; ++j) cq[(i * M + (1 + j) * NQ) * BE] = a_g[i][j];
-      cq[(i * M + (D + 1) * NQ) * BE] = a_lap[i];
+      for (int j = 0; j < D; ++j) dgvel[k][j] = hot ? t[1 + j] : 0.0f;
+      dlap[k] = hot ? t[D + 1] : 0.0f;
     }
-    cq[(D * M) * BE] = a_p;
+    dp = (j0 == D) ? t[0] : 0.0f;
 #pragma unroll
-    for (int j = 0; j < D; ++j) cq[(D * M + (1 + j) * NQ) * BE] = a_pg[j];
+    for (int j = 0; j < D; ++j) dgp[j] = (j0 == D) ? t[1 + j] : 0.0f;
   }
-  __syncthreads();
+};
 
-  // ---- phase B: node n of element el ------------------------------------
-  const int n = slot;
-  if (e >= E || n >= NN) return;
-  if constexpr (MODE == PROBE) {
-    if (n != p.probe_node) return;
-  }
-  const float* Prow = sP + n * M;
+// ------------------------------------------------------------- STAGED --
+// Phase A: point q of element el of the staged tile `st` into the
+// coefficient rows sC [CROWS][BE]: row (i*M + b*NQ + q) for velocity
+// component i and block b (value, gradients, Laplacian); row
+// (D*M + b*NQ + q) for the pressure
+template <int D, int K, int Q, int MODE>
+__device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
+                                            const float* st, int q, int el,
+                                            float* sC) {
+  using S = Shape<D, K, Q, MODE>;
+  constexpr int NN = S::NN, NQ = S::NQ, M = S::M, BE = S::BE, C = S::C;
+  constexpr bool TAN = MODE == TANGENT;
+  // one pass over the nodes, each table entry T_all[b*NQ + q, n] loaded
+  // once: value (b = 0), gradients (1..D) and Laplacian (D+1) of every
+  // component of u (and of due), and the value of u^{n-i}
+  float a[C][D + 2], da[TAN ? C : 1][D + 2], upv[D];
 #pragma unroll
-  for (int k = 0; k < C; ++k) {
-    const float* ck = sC + (k * M) * BE + el;
-    const int rows = (k < D) ? M : MNL;
-    float s = 0.0f;
-#pragma unroll 9
-    for (int r = 0; r < rows; ++r) s += Prow[r] * ck[r * BE];
-    if constexpr (MODE == PROBE) {
-      p.out[(int64_t)(n * C * C + k * C + p.probe_comp) * E + e] = s;
-    } else {
-      p.out[(int64_t)(k * NN + n) * E + e] = s;
+  for (int k = 0; k < C; ++k)
+#pragma unroll
+    for (int b = 0; b < D + 2; ++b) {
+      a[k][b] = 0.0f;
+      if constexpr (TAN) da[k][b] = 0.0f;
+    }
+#pragma unroll
+  for (int i = 0; i < D; ++i) upv[i] = 0.0f;
+#pragma unroll
+  for (int n = 0; n < NN; ++n) {
+    float t[D + 2];
+#pragma unroll
+    for (int b = 0; b < D + 2; ++b) t[b] = sT[(b * NQ + q) * NN + n];
+#pragma unroll
+    for (int k = 0; k < C; ++k) {
+      const float u = st[S::O_UE + (k * NN + n) * BE + el];
+#pragma unroll
+      for (int b = 0; b < D + 2; ++b) a[k][b] += t[b] * u;
+      if constexpr (TAN) {
+        const float du = st[S::O_DUE + (k * NN + n) * BE + el];
+#pragma unroll
+        for (int b = 0; b < D + 2; ++b) da[k][b] += t[b] * du;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < D; ++i)
+      upv[i] += t[0] * st[S::O_UP + (i * NN + n) * BE + el];
+  }
+
+  Point<D, MODE> pt;
+#pragma unroll
+  for (int k = 0; k < D; ++k) {
+    pt.vel[k] = a[k][0];
+    pt.lap[k] = a[k][D + 1];
+    pt.s[k] = upv[k] - st[S::O_FQ + (k * NQ + q) * BE + el];
+#pragma unroll
+    for (int j = 0; j < D; ++j) pt.gvel[k][j] = a[k][1 + j];
+  }
+  pt.pr = a[D][0];
+#pragma unroll
+  for (int j = 0; j < D; ++j) pt.gp[j] = a[D][1 + j];
+  if constexpr (TAN) {
+#pragma unroll
+    for (int k = 0; k < D; ++k) {
+      pt.dvel[k] = da[k][0];
+      pt.dlap[k] = da[k][D + 1];
+#pragma unroll
+      for (int j = 0; j < D; ++j) pt.dgvel[k][j] = da[k][1 + j];
+    }
+    pt.dp = da[D][0];
+#pragma unroll
+    for (int j = 0; j < D; ++j) pt.dgp[j] = da[D][1 + j];
+  } else if constexpr (MODE == PROBE) {
+    float t[D + 2];
+#pragma unroll
+    for (int b = 0; b < D + 2; ++b) t[b] = sT[(b * NQ + q) * NN + ph.probe_node];
+    pt.probe(t, ph.probe_comp);
+  }
+  float a_v[D], a_g[D][D], a_lap[D], a_p, a_pg[D];
+  pt.coefficients(ph, a_v, a_g, a_lap, a_p, a_pg);
+
+  float* cq = sC + q * BE + el;
+#pragma unroll
+  for (int i = 0; i < D; ++i) {
+    cq[(i * M) * BE] = a_v[i];
+#pragma unroll
+    for (int j = 0; j < D; ++j) cq[(i * M + (1 + j) * NQ) * BE] = a_g[i][j];
+    cq[(i * M + (D + 1) * NQ) * BE] = a_lap[i];
+  }
+  cq[(D * M) * BE] = a_p;
+#pragma unroll
+  for (int j = 0; j < D; ++j) cq[(D * M + (1 + j) * NQ) * BE] = a_pg[j];
+}
+
+template <int D, int K, int Q, int MODE>
+__global__ void __launch_bounds__(Shape<D, K, Q, MODE>::THREADS)
+    gls_lattice_kernel(const __grid_constant__ Params p) {
+  using S = Shape<D, K, Q, MODE>;
+  constexpr int NN = S::NN, NQ = S::NQ, C = S::C, M = S::M, MNL = S::MNL,
+                BE = S::BE;
+
+  extern __shared__ __align__(128) float smem[];
+  __shared__ __align__(8) uint64_t bars[tiles::STAGES];
+  float* sT = smem;                         // T_all [M][NN]
+  const float* sP = sT + M * NN;            // T_proj [NN][M]
+  float* stages = smem + pad32(S::TABLES);
+  float* sC = stages + tiles::STAGES * S::STAGE;   // coefficients
+  const tiles::Ring<BE, S::THREADS, 4> ring{stages, S::STAGE, bars, p.path};
+  constexpr int off[4] = {S::O_UE, S::O_DUE, S::O_UP, S::O_FQ};
+
+  const int tid = threadIdx.x;
+  const int el = tid % BE;
+  const int slot = tid / BE;                // q in phase A, n in phase B
+  const int64_t E = p.E;
+  const int64_t ntiles = (E + BE - 1) / BE;
+
+  // the first tile's loads start before the tables are staged, so the
+  // two latencies overlap
+  ring.init(tid);
+  int64_t t = blockIdx.x;
+  if (t < ntiles) ring.issue(p.in, off, S::STAGE_BYTES, E, t * BE, 0, tid);
+  for (int i = tid; i < S::TABLES; i += S::THREADS) sT[i] = p.tables[i];
+  __syncthreads();
+  for (int it = 0; t < ntiles; ++it, t += gridDim.x) {
+    const int s = it % tiles::STAGES;
+    const int64_t next = t + gridDim.x;
+    if (next < ntiles)
+      ring.issue(p.in, off, S::STAGE_BYTES, E, next * BE, s ^ 1, tid);
+    else
+      ring.skip();
+    ring.wait(it);
+    __syncthreads();
+
+    if (slot < NQ)
+      stage_point<D, K, Q, MODE>(p.ph, sT, ring.stage(s), slot, el, sC);
+    __syncthreads();
+
+    // phase B: node n of element el
+    const int n = slot;
+    const int64_t e = t * BE + el;
+    if (e < E && n < NN && (MODE != PROBE || n == p.ph.probe_node)) {
+      // each T_proj entry loaded once for all C components
+      const float* Prow = sP + n * M;
+      const float* cn = sC + el;
+      float acc[C];
+#pragma unroll
+      for (int k = 0; k < C; ++k) acc[k] = 0.0f;
+#pragma unroll 4
+      for (int r = 0; r < MNL; ++r) {
+        const float pr = Prow[r];
+#pragma unroll
+        for (int k = 0; k < C; ++k) acc[k] += pr * cn[(k * M + r) * BE];
+      }
+#pragma unroll 4
+      for (int r = MNL; r < M; ++r) {
+        const float pr = Prow[r];
+#pragma unroll
+        for (int k = 0; k < D; ++k) acc[k] += pr * cn[(k * M + r) * BE];
+      }
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        const int64_t row = MODE == PROBE ? n * C * C + k * C + p.ph.probe_comp
+                                          : k * NN + n;
+        p.out[row * E + e] = acc[k];
+      }
     }
   }
 }
 
-template <int D, int K, int Q, int MODE>
-cudaError_t launch(const Params& p, cudaStream_t stream) {
-  using S = Shape<D, K, Q>;
-  constexpr size_t smem = sizeof(float) * smem_floats<D, K, Q, MODE>();
-  static bool configured = false;
-  if (!configured) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        gls_lattice_kernel<D, K, Q, MODE>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    configured = true;
+// ---------------------------------------------------------- REGISTERS --
+// Q1 on a lattice of boxes: the basis is multilinear and the element axis-
+// aligned, so the Laplacian rows of T_all (and columns of T_proj) are zero
+// and this route leaves them out (the caller takes it only then).
+template <int D>
+struct RegShape {
+  static constexpr int NN = D == 2 ? 4 : 8;   // Q1
+  static constexpr int NQ = NN;               // 2 points per axis
+  static constexpr int C = D + 1;
+  static constexpr int M = (D + 2) * NQ;      // rows of the packed T_all
+  static constexpr int MNL = (D + 1) * NQ;    // its value + gradient rows
+};
+
+template <int D>
+struct RegParams {
+  const float* ue;
+  const float* due;
+  const float* up;
+  const float* fq;
+  float* out;
+  int64_t E;
+  Physics ph;
+  float T[RegShape<D>::MNL * RegShape<D>::NN];   // T_all [MNL][NN]
+  float P[RegShape<D>::NN * RegShape<D>::MNL];   // T_proj [NN][MNL]
+};
+
+template <int D, int MODE>
+__global__ void __launch_bounds__(REG_THREADS)
+    gls_lattice_reg_kernel(const __grid_constant__ RegParams<D> p) {
+  using S = RegShape<D>;
+  constexpr int NN = S::NN, NQ = S::NQ, C = S::C, M = S::MNL;
+  const int64_t E = p.E;
+  const int n0 = p.ph.probe_node, j0 = p.ph.probe_comp;
+  for (int64_t e = (int64_t)blockIdx.x * REG_THREADS + threadIdx.x; e < E;
+       e += (int64_t)gridDim.x * REG_THREADS) {
+    float u[C * NN], du[MODE == TANGENT ? C * NN : 1];
+#pragma unroll
+    for (int r = 0; r < C * NN; ++r) u[r] = __ldg(p.ue + r * E + e);
+    if constexpr (MODE == TANGENT) {
+#pragma unroll
+      for (int r = 0; r < C * NN; ++r) du[r] = __ldg(p.due + r * E + e);
+    }
+    constexpr int NACC = MODE == PROBE ? C : C * NN;
+    float acc[NACC];
+#pragma unroll
+    for (int r = 0; r < NACC; ++r) acc[r] = 0.0f;
+
+    // the 3D tangent walks the points one at a time (its state, u, due
+    // and the accumulators, fills the registers), reading the tables by a
+    // uniform index; the rest unrolls the points.  u^{n-i} is read at
+    // each point (from L1 after the first), not held.
+#pragma unroll (D == 3 && MODE == TANGENT ? 1 : NQ)
+    for (int q = 0; q < NQ; ++q) {
+      Point<D, MODE> pt;
+#pragma unroll
+      for (int k = 0; k < C; ++k) {
+        float a[D + 1], da[D + 1];
+#pragma unroll
+        for (int b = 0; b <= D; ++b) {
+          a[b] = 0.0f;
+          da[b] = 0.0f;
+        }
+#pragma unroll
+        for (int n = 0; n < NN; ++n)
+#pragma unroll
+          for (int b = 0; b <= D; ++b) {
+            const float t = p.T[(b * NQ + q) * NN + n];
+            a[b] += t * u[k * NN + n];
+            if constexpr (MODE == TANGENT) da[b] += t * du[k * NN + n];
+          }
+        if (k < D) {
+          pt.vel[k] = a[0];
+          pt.lap[k] = 0.0f;
+          float s = -__ldg(p.fq + (k * NQ + q) * E + e);
+#pragma unroll
+          for (int n = 0; n < NN; ++n)
+            s += p.T[q * NN + n] * __ldg(p.up + (k * NN + n) * E + e);
+          pt.s[k] = s;
+#pragma unroll
+          for (int j = 0; j < D; ++j) pt.gvel[k][j] = a[1 + j];
+          if constexpr (MODE == TANGENT) {
+            pt.dvel[k] = da[0];
+            pt.dlap[k] = 0.0f;
+#pragma unroll
+            for (int j = 0; j < D; ++j) pt.dgvel[k][j] = da[1 + j];
+          }
+        } else {
+          pt.pr = a[0];
+#pragma unroll
+          for (int j = 0; j < D; ++j) pt.gp[j] = a[1 + j];
+          if constexpr (MODE == TANGENT) {
+            pt.dp = da[0];
+#pragma unroll
+            for (int j = 0; j < D; ++j) pt.dgp[j] = da[1 + j];
+          }
+        }
+      }
+      if constexpr (MODE == PROBE) {
+        float t[D + 2];
+#pragma unroll
+        for (int b = 0; b <= D; ++b) t[b] = p.T[(b * NQ + q) * NN + n0];
+        t[D + 1] = 0.0f;
+        pt.probe(t, j0);
+      }
+      float a_v[D], a_g[D][D], a_lap[D], a_p, a_pg[D];
+      pt.coefficients(p.ph, a_v, a_g, a_lap, a_p, a_pg);
+
+      // project: out[k, n] += sum_b T_proj[n, b*NQ + q] coeff_k[b] (a_lap
+      // meets the zero Laplacian columns)
+      if constexpr (MODE == PROBE) {
+#pragma unroll
+        for (int i = 0; i < D; ++i) {
+          float s = p.P[n0 * M + q] * a_v[i];
+#pragma unroll
+          for (int j = 0; j < D; ++j) s += p.P[n0 * M + (1 + j) * NQ + q] * a_g[i][j];
+          acc[i] += s;
+        }
+        float s = p.P[n0 * M + q] * a_p;
+#pragma unroll
+        for (int j = 0; j < D; ++j) s += p.P[n0 * M + (1 + j) * NQ + q] * a_pg[j];
+        acc[D] += s;
+      } else {
+#pragma unroll
+        for (int n = 0; n < NN; ++n) {
+#pragma unroll
+          for (int i = 0; i < D; ++i) {
+            float s = p.P[n * M + q] * a_v[i];
+#pragma unroll
+            for (int j = 0; j < D; ++j)
+              s += p.P[n * M + (1 + j) * NQ + q] * a_g[i][j];
+            acc[i * NN + n] += s;
+          }
+          float s = p.P[n * M + q] * a_p;
+#pragma unroll
+          for (int j = 0; j < D; ++j) s += p.P[n * M + (1 + j) * NQ + q] * a_pg[j];
+          acc[D * NN + n] += s;
+        }
+      }
+    }
+    if constexpr (MODE == PROBE) {
+#pragma unroll
+      for (int i = 0; i < C; ++i) p.out[(n0 * C * C + i * C + j0) * E + e] = acc[i];
+    } else {
+#pragma unroll
+      for (int r = 0; r < C * NN; ++r) p.out[r * E + e] = acc[r];
+    }
   }
-  const int64_t blocks = (p.E + S::BE - 1) / S::BE;
-  if (blocks == 0) return cudaSuccess;
-  gls_lattice_kernel<D, K, Q, MODE>
-      <<<(unsigned)blocks, S::THREADS, smem, stream>>>(p);
+}
+
+// ----------------------------------------------------------- dispatch --
+struct Launch {
+  const float* ue;
+  const float* due;
+  const float* up;
+  const float* fq;
+  const float* tables;
+  const float* host_tables;
+  float* out;
+  int64_t E;
+  Physics ph;
+  int grid, path;
+  cudaStream_t stream;
+};
+
+template <int D, int K, int Q, int MODE>
+cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
+  using S = Shape<D, K, Q, MODE>;
+  constexpr size_t smem = sizeof(float) * S::SMEM_FLOATS;
+  static int cached = 0;
+  if (!cached) {
+    const cudaError_t err = tiles::occupancy(gls_lattice_kernel<D, K, Q, MODE>,
+                                             S::THREADS, smem, &cached);
+    if (err != cudaSuccess) return err;
+  }
+  *blocks = cached;
+  *smem_bytes = (int)smem;
+  *threads = S::THREADS;
+  return cudaSuccess;
+}
+
+template <int D, int K, int Q, int MODE>
+cudaError_t staged_launch(const Launch& a) {
+  using S = Shape<D, K, Q, MODE>;
+  int blocks, smem, threads;
+  cudaError_t err = staged_config<D, K, Q, MODE>(&blocks, &smem, &threads);
+  if (err != cudaSuccess) return err;
+  if (a.E == 0 || a.grid <= 0) return cudaSuccess;
+  Params p{};
+  p.in.ptr[0] = a.ue;
+  p.in.ptr[1] = a.due;
+  p.in.ptr[2] = a.up;
+  p.in.ptr[3] = a.fq;
+  p.in.rows[0] = S::R_UE;
+  p.in.rows[1] = S::R_DUE;
+  p.in.rows[2] = S::R_UP;
+  p.in.rows[3] = S::R_FQ;
+  p.tables = a.tables;
+  p.out = a.out;
+  p.E = a.E;
+  p.ph = a.ph;
+  p.path = a.path;
+  if (p.path == tiles::LOAD_TMA) {
+    err = tiles::encode_inputs(p.in, 4, a.E, S::BE);
+    if (err != cudaSuccess) return err;
+  }
+  gls_lattice_kernel<D, K, Q, MODE><<<a.grid, S::THREADS, smem, a.stream>>>(p);
+  return cudaGetLastError();
+}
+
+template <int D, int MODE>
+cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
+  static int cached = 0;
+  if (!cached) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &cached, gls_lattice_reg_kernel<D, MODE>, REG_THREADS, 0);
+    if (err != cudaSuccess) return err;
+  }
+  *blocks = cached;
+  *smem_bytes = 0;
+  *threads = REG_THREADS;
+  return cudaSuccess;
+}
+
+template <int D, int MODE>
+cudaError_t reg_launch(const Launch& a) {
+  using S = RegShape<D>;
+  int blocks, smem, threads;
+  cudaError_t err = reg_config<D, MODE>(&blocks, &smem, &threads);
+  if (err != cudaSuccess) return err;
+  if (a.E == 0 || a.grid <= 0) return cudaSuccess;
+  RegParams<D> p{};
+  p.ue = a.ue;
+  p.due = a.due;
+  p.up = a.up;
+  p.fq = a.fq;
+  p.out = a.out;
+  p.E = a.E;
+  p.ph = a.ph;
+  // the tables travel in the kernel parameters, copied from the caller's
+  // host copy (no device read, so the launch can be captured in a graph)
+  // (T_all's first MNL rows; T_proj's first MNL columns)
+  if (!a.host_tables) return cudaErrorInvalidValue;
+  for (int i = 0; i < S::MNL * S::NN; ++i) p.T[i] = a.host_tables[i];
+  for (int n = 0; n < S::NN; ++n)
+    for (int r = 0; r < S::MNL; ++r)
+      p.P[n * S::MNL + r] = a.host_tables[S::M * S::NN + n * S::M + r];
+  gls_lattice_reg_kernel<D, MODE><<<a.grid, REG_THREADS, 0, a.stream>>>(p);
   return cudaGetLastError();
 }
 
 template <int D, int K, int Q>
-cudaError_t launch_mode(int mode, const Params& p, cudaStream_t stream) {
+cudaError_t dispatch(int mode, int route, bool query, const Launch& a,
+                     int* blocks, int* smem, int* threads) {
+  if (route == REGISTERS) {
+    if constexpr (K == 1 && Q == 2) {
+      switch (mode) {
+        case PRIMAL: return query ? reg_config<D, PRIMAL>(blocks, smem, threads) : reg_launch<D, PRIMAL>(a);
+        case TANGENT: return query ? reg_config<D, TANGENT>(blocks, smem, threads) : reg_launch<D, TANGENT>(a);
+        case PROBE: return query ? reg_config<D, PROBE>(blocks, smem, threads) : reg_launch<D, PROBE>(a);
+        default: return cudaErrorInvalidValue;
+      }
+    }
+    return cudaErrorInvalidValue;
+  }
+  if (route != STAGED) return cudaErrorInvalidValue;
   switch (mode) {
-    case PRIMAL: return launch<D, K, Q, PRIMAL>(p, stream);
-    case TANGENT: return launch<D, K, Q, TANGENT>(p, stream);
-    case PROBE: return launch<D, K, Q, PROBE>(p, stream);
+    case PRIMAL: return query ? staged_config<D, K, Q, PRIMAL>(blocks, smem, threads) : staged_launch<D, K, Q, PRIMAL>(a);
+    case TANGENT: return query ? staged_config<D, K, Q, TANGENT>(blocks, smem, threads) : staged_launch<D, K, Q, TANGENT>(a);
+    case PROBE: return query ? staged_config<D, K, Q, PROBE>(blocks, smem, threads) : staged_launch<D, K, Q, PROBE>(a);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+cudaError_t dispatch_shape(int dim, int degree, int n_q1d, int mode, int route,
+                           bool query, const Launch& a, int* blocks,
+                           int* smem, int* threads) {
+  switch (dim * 100 + degree * 10 + n_q1d) {
+    case 212: return dispatch<2, 1, 2>(mode, route, query, a, blocks, smem, threads);
+    case 213: return dispatch<2, 1, 3>(mode, route, query, a, blocks, smem, threads);
+    case 223: return dispatch<2, 2, 3>(mode, route, query, a, blocks, smem, threads);
+    case 312: return dispatch<3, 1, 2>(mode, route, query, a, blocks, smem, threads);
+    case 313: return dispatch<3, 1, 3>(mode, route, query, a, blocks, smem, threads);
+    case 323: return dispatch<3, 2, 3>(mode, route, query, a, blocks, smem, threads);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Launches one variant on `stream`.  Returns cudaGetLastError() after the
-// launch (0 on success); cudaErrorInvalidValue for a (dim, degree, points
-// per axis, mode) that is not compiled.  Does not synchronise and
-// allocates nothing.
+// The variant's blocks per SM (after opting it in to its dynamic shared
+// memory), shared-memory bytes and threads per block; the caller sizes
+// the persistent grid from them.  Returns a CUDA error code.
+extern "C" int gls_lattice_config(int dim, int degree, int n_q1d, int mode,
+                                  int route, int* blocks_per_sm,
+                                  int* smem_bytes, int* threads) {
+  Launch a{};
+  return static_cast<int>(dispatch_shape(dim, degree, n_q1d, mode, route,
+                                         true, a, blocks_per_sm, smem_bytes,
+                                         threads));
+}
+
+// Launches one variant on `stream` with `grid` blocks: route STAGED (0)
+// with load path `path` (tiles::LOAD_*; the 16-byte and TMA paths need
+// E % 4 == 0 and 16-byte aligned inputs) and the packed tables `tables`
+// on the card, or REGISTERS (1, Q1 with 2 points per axis) with the same
+// tables in host memory (`host_tables`).  Returns cudaGetLastError()
+// after the launch (0 on success); cudaErrorInvalidValue for a (dim, degree, points per axis,
+// mode, route) that is not compiled.  Does not synchronise and allocates
+// nothing.
 extern "C" int gls_lattice_launch(
     int dim, int degree, int n_q1d, int mode,
     const void* ue, const void* due, const void* up, const void* fq,
-    const void* tables, void* out, int64_t n_elements,
-    float nu, float h, float alpha0, float sdt,
+    const void* tables, const void* host_tables, void* out,
+    int64_t n_elements, float nu, float h, float alpha0, float sdt,
     int supg, int pspg, int gls_adjoint, int lsic,
-    int probe_node, int probe_comp, void* stream) {
-  Params p;
-  p.ue = static_cast<const float*>(ue);
-  p.due = static_cast<const float*>(due);
-  p.up = static_cast<const float*>(up);
-  p.fq = static_cast<const float*>(fq);
-  p.tables = static_cast<const float*>(tables);
-  p.out = static_cast<float*>(out);
-  p.E = n_elements;
-  p.nu = nu;
-  p.h = h;
-  p.alpha0 = alpha0;
-  p.sdt = sdt;
-  p.supg = supg;
-  p.pspg = pspg;
-  p.gls_adjoint = gls_adjoint;
-  p.lsic = lsic;
-  p.probe_node = probe_node;
-  p.probe_comp = probe_comp;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  const int key = dim * 100 + degree * 10 + n_q1d;
-  switch (key) {
-    case 212: err = launch_mode<2, 1, 2>(mode, p, s); break;
-    case 213: err = launch_mode<2, 1, 3>(mode, p, s); break;
-    case 223: err = launch_mode<2, 2, 3>(mode, p, s); break;
-    case 312: err = launch_mode<3, 1, 2>(mode, p, s); break;
-    case 313: err = launch_mode<3, 1, 3>(mode, p, s); break;
-    case 323: err = launch_mode<3, 2, 3>(mode, p, s); break;
-    default: err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+    int probe_node, int probe_comp, int route, int grid, int path,
+    void* stream) {
+  if (path < tiles::LOAD_CP_ASYNC_4 || path > tiles::LOAD_TMA)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Launch a{};
+  a.ue = static_cast<const float*>(ue);
+  a.due = static_cast<const float*>(due);
+  a.up = static_cast<const float*>(up);
+  a.fq = static_cast<const float*>(fq);
+  a.tables = static_cast<const float*>(tables);
+  a.host_tables = static_cast<const float*>(host_tables);
+  a.out = static_cast<float*>(out);
+  a.E = n_elements;
+  a.ph = Physics{nu, h, alpha0, sdt, supg, pspg, gls_adjoint, lsic,
+                 probe_node, probe_comp};
+  a.grid = grid;
+  a.path = path;
+  a.stream = static_cast<cudaStream_t>(stream);
+  int blocks, smem, threads;
+  return static_cast<int>(dispatch_shape(dim, degree, n_q1d, mode, route,
+                                         false, a, &blocks, &smem, &threads));
 }

@@ -47,9 +47,14 @@ def find_nvcc() -> str:
 
 
 def library_path(source: str) -> str:
-    with open(source, "rb") as fh:
-        src = fh.read()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    """The library's path, named by a hash of the source, the headers
+    beside it (``csrc/*.cuh``) and the flags."""
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [source] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as fh:
+            digest.update(fh.read())
+    tag = digest.hexdigest()[:12]
     stem = os.path.splitext(os.path.basename(source))[0]
     return os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so")
 

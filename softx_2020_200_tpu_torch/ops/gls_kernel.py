@@ -18,7 +18,11 @@ Dispatch is on the device of the tensors it is given:
 
 The kernel is compiled by ``nvcc`` from ``csrc/gls_element.cu`` at first
 use into ``build/`` next to this package, and loaded with ``ctypes``
-(``ops/cuda_build.py``).
+(``ops/cuda_build.py``).  A launch is a persistent grid
+(``ops/persistent_tiles.py``) on one of two routes: STAGED (tiles of
+rows through a shared-memory ring, one thread per quadrature point, then
+one per node) or REGISTERS (one thread per element, on the shapes whose
+state fits the registers); ``ROUTE`` says which.
 """
 
 from __future__ import annotations
@@ -31,15 +35,35 @@ import torch
 from torch import nn
 
 from . import cuda_build
+from . import persistent_tiles as pt
 from .batched_kernel import (make_batched_kernel, node_blocks_batched,
                              tangent_batched)
 
 SOURCE = os.path.join(cuda_build.CSRC, "gls_element.cu")
 
 _PRIMAL, _TANGENT, _PROBE = 0, 1, 2
+MODES = ("primal", "tangent", "probe")
 SUPPORTED = {(2, 1), (2, 2), (3, 1), (3, 2)}
+# the shapes with a REGISTERS route (one thread per element; 3D Q2's state
+# does not fit the registers), and its threads per block
+REGISTER_SHAPES = {(2, 1), (2, 2), (3, 1)}
+REG_THREADS = 64
+# the compiled threads per element of the REGISTERS route, per dim
+REG_SPLITS = {2: (1, 2, 4), 3: (1,)}
+# the route ("auto", "staged" or "registers"; "auto" takes REGISTERS from
+# REG_MIN_PER_SM elements per SM on) and the tile ring's load path where
+# rows are 16-byte aligned ("cp.async" or "tma"), each chosen by
+# measurement (PERF.md); 4-byte cp.async wherever rows are not aligned
+ROUTE = "auto"
+REG_MIN_PER_SM = 64
+LOADER = "tma"
+# REGISTERS: threads per element ("auto": the largest of REG_SPLITS that
+# fits the card at once, ``persistent_tiles.split_for``; or 1, 2, 4)
+REG_SPLIT = "auto"
 
 _BUILD: cuda_build.KernelBuild | None = None
+_CONFIG: dict = {}
+_PLANS: dict = {}
 
 
 def get_build() -> cuda_build.KernelBuild:
@@ -49,9 +73,68 @@ def get_build() -> cuda_build.KernelBuild:
         _BUILD = cuda_build.load(
             SOURCE, "gls_element_launch",
             [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
-            + [ctypes.c_int64] + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
+            + [ctypes.c_int64] + [ctypes.c_float] * 3 + [ctypes.c_int] * 10
             + [ctypes.c_void_p])
+        _BUILD.lib.gls_element_config.restype = ctypes.c_int
+        _BUILD.lib.gls_element_config.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3)
     return _BUILD
+
+
+def route_for(dim: int, degree: int, n_elements: int, n_sms: int) -> int:
+    """The route of one launch (``ROUTE``, ``REG_MIN_PER_SM``)."""
+    return pt.choose_route(ROUTE, (dim, degree) in REGISTER_SHAPES,
+                           n_elements, REG_MIN_PER_SM, n_sms)
+
+
+def tile_config(dim: int, degree: int, mode: int,
+                route: int = pt.STAGED, split: int = 1) -> dict:
+    """The shape of one variant's launch, as ``csrc/gls_element.cu``
+    computes it: elements per tile ``be`` (per block on the REGISTERS
+    route, with ``split`` threads per element), threads per block (one
+    per (point, element) on the STAGED route), the input rows of a ring
+    stage (ue, due, xe, up, fq, h) and the shared-memory bytes (STAGED:
+    tables, two stages, the staged coefficients of every point;
+    REGISTERS: the tables)."""
+    nn = (degree + 1) ** dim
+    nq, c, nh = nn, dim + 1, dim * (dim + 1) // 2
+    tables = nq * nn * (1 + dim + nh) + nq
+    rows = (nn * c, nn * c if mode == _TANGENT else 0, nn * dim, nn * dim,
+            nq * dim, 1)
+    if route == pt.REGISTERS:
+        return dict(be=REG_THREADS // split, threads=REG_THREADS,
+                    rows=rows, smem_bytes=4 * tables)
+    be = 32 if nn * 32 <= 512 else 16
+    ncoef = 3 * dim + dim * dim + 1 + nh
+    floats = (pt.pad32(tables) + pt.STAGES * pt.stage_floats(rows, be)
+              + nq * ncoef * be)
+    return dict(be=be, threads=nn * be, rows=rows, smem_bytes=4 * floats)
+
+
+def config_on_card(dim: int, degree: int, mode: int, route: int,
+                   split: int = 1) -> tuple[int, int, int]:
+    """(blocks per SM, shared-memory bytes, threads) of one variant (with
+    ``split`` threads per element on the REGISTERS route), from the
+    compiled library (cached)."""
+    key = (dim, degree, mode, route, split)
+    if key not in _CONFIG:
+        out = [ctypes.c_int() for _ in range(3)]
+        err = get_build().lib.gls_element_config(
+            *key, *(ctypes.byref(o) for o in out))
+        if err != 0:
+            raise RuntimeError(f"GLS element kernel {key}: CUDA error {err}")
+        _CONFIG[key] = tuple(o.value for o in out)
+    return _CONFIG[key]
+
+
+def symmetric_hessians(H, dim: int) -> np.ndarray:
+    """Hs[q, n, k] from H[q, n, a, b] over the pairs a <= b (row-major),
+    off-diagonal pairs summed, so that sum_ab H[a, b] K[a, b] is
+    sum_k Hs[k] K[a_k, b_k] for a symmetric K."""
+    H = np.asarray(H, np.float64).reshape(*np.shape(H)[:2], dim, dim)
+    cols = [H[..., a, a] if a == b else H[..., a, b] + H[..., b, a]
+            for a in range(dim) for b in range(a, dim)]
+    return np.stack(cols, axis=-1)
 
 
 class GLSElementKernel(nn.Module):
@@ -59,11 +142,13 @@ class GLSElementKernel(nn.Module):
     kernel, on the SoA rows ``ue[nn, c, E]``, ``xe[nn, d, E]``,
     ``up[nn, d, E]``, ``fq[q, d, E]``, ``h[E]``.
 
-    ``launches`` counts CUDA kernel launches (class-wide); the plain
-    version on CPU tensors does not count.
+    ``launches`` counts CUDA kernel launches (class-wide), and
+    ``launches_by_shape`` the same per (dim, degree, points per axis, E,
+    variant); the plain version on CPU tensors does not count.
     """
 
     launches = 0
+    launches_by_shape: dict = {}
 
     def __init__(self, *, dim: int, degree: int, B, G, H, w, nu: float,
                  stab, dtype: torch.dtype = torch.float32,
@@ -78,9 +163,10 @@ class GLSElementKernel(nn.Module):
             self.register_buffer(name, torch.as_tensor(
                 np.array(arr), dtype=dtype, device=device))
         # packed float32 tables for the CUDA kernel: B[q, n], G[q, n, a],
-        # H[q, n, a, b], w[q], each flattened q-major
+        # the symmetric Hessians Hs[q, n, k], w[q], each flattened q-major
         packed = np.concatenate([np.asarray(a, np.float64).reshape(-1)
-                                 for a in (B, G, H, w)])
+                                 for a in (B, G, symmetric_hessians(H, dim),
+                                           w)])
         self.register_buffer("tables", torch.as_tensor(
             packed, dtype=torch.float32, device=device))
         self._plain_cache = {}
@@ -138,6 +224,30 @@ class GLSElementKernel(nn.Module):
         return out
 
     # ------------------------------------------------------------------
+    def _plan(self, mode, E, device):
+        """(route, split, grid) of a launch on E elements, cached per
+        variant, E, device and the module's settings: the host cost of a
+        launch is most of a small kernel's time."""
+        d, k = self.dim, self.degree
+        key = (d, k, mode, E, device.index, ROUTE, REG_SPLIT, REG_MIN_PER_SM)
+        if key in _PLANS:
+            return _PLANS[key]
+        n_sms = torch.cuda.get_device_properties(device).multi_processor_count
+        route = route_for(d, k, E, n_sms)
+        split = 1
+        if route == pt.REGISTERS and REG_SPLIT == "auto":
+            split = pt.split_for(
+                E, [(n, config_on_card(d, k, mode, route, n)[0])
+                    for n in REG_SPLITS[d]], n_sms, REG_THREADS)
+        elif route == pt.REGISTERS:
+            split = int(REG_SPLIT)
+        blocks_per_sm = config_on_card(d, k, mode, route, split)[0]
+        grid = pt.persistent_grid(E, tile_config(d, k, mode, route,
+                                                 split)["be"],
+                                  blocks_per_sm, n_sms)
+        _PLANS[key] = (route, split, grid)
+        return _PLANS[key]
+
     def _launch(self, mode, ue, due, xe, up, fq, h, out, alpha0, sdt,
                 probe=(0, 0)):
         d, nn, nq, c = self.dim, self.nn, self.nq, self.nc
@@ -152,26 +262,34 @@ class GLSElementKernel(nn.Module):
                   (self.tables, self.tables.shape)]
         if due is not None:
             expect.append((due, (nn, c, E)))
+        dev = ue.device
         for t, shape in expect:
-            if (t.device != ue.device or t.dtype != torch.float32
-                    or not t.is_contiguous() or tuple(t.shape) != shape):
+            if (t.shape != shape or t.dtype != torch.float32
+                    or t.device != dev or not t.is_contiguous()):
                 raise ValueError(
                     "CUDA GLS kernel takes contiguous float32 tensors on "
                     f"{ue.device}: got {tuple(t.shape)} {t.dtype} on "
                     f"{t.device} where {shape} was expected")
         lib = get_build().lib
+        route, split, grid = self._plan(mode, E, ue.device)
+        ptrs = [t.data_ptr() for t in (ue, xe, up, fq, h)]
+        if due is not None:
+            ptrs.append(due.data_ptr())
+        path = pt.load_path(E, ptrs, LOADER)
         supg, pspg, adj, lsic = (int(self.stab.supg), int(self.stab.pspg),
                                  int(self.stab.gls_viscous_adjoint),
                                  int(self.stab.lsic))
         stream = torch.cuda.current_stream(ue.device).cuda_stream
         err = lib.gls_element_launch(
-            d, self.degree, mode, ue.data_ptr(),
-            due.data_ptr() if due is not None else None, xe.data_ptr(),
-            up.data_ptr(), fq.data_ptr(), h.data_ptr(),
+            d, self.degree, mode, ptrs[0],
+            ptrs[5] if due is not None else None, *ptrs[1:5],
             self.tables.data_ptr(), out.data_ptr(), E, self.nu,
             float(alpha0), float(sdt), supg, pspg, adj, lsic,
-            probe[0], probe[1], stream)
+            probe[0], probe[1], route, split, grid, path, stream)
         if err != 0:
             raise RuntimeError(f"GLS element kernel launch failed: CUDA "
                                f"error {err}")
-        GLSElementKernel.launches += 1
+        cls = GLSElementKernel
+        cls.launches += 1
+        key = (d, self.degree, self.degree + 1, E, MODES[mode])
+        cls.launches_by_shape[key] = cls.launches_by_shape.get(key, 0) + 1

@@ -124,11 +124,13 @@ class LatticeGDKernel(nn.Module):
     """Residual and exact tangent of the GD weak form on a lattice of
     translates of the velocity element ``xe0`` [nnv, d].
 
-    ``launches`` counts CUDA kernel launches (class-wide); the plain
-    version on CPU tensors does not count.
+    ``launches`` counts CUDA kernel launches (class-wide), and
+    ``launches_by_shape`` the same per (dim, velocity degree, points per
+    axis, E, variant); the plain version on CPU tensors does not count.
     """
 
     launches = 0
+    launches_by_shape: dict = {}
 
     def __init__(self, *, dim: int, degree_pressure: int, Bv, Gv, Bp, w,
                  xe0, nu: float, gamma: float,
@@ -217,4 +219,8 @@ class LatticeGDKernel(nn.Module):
         if err != 0:
             raise RuntimeError(f"GD lattice kernel launch failed: CUDA "
                                f"error {err}")
-        LatticeGDKernel.launches += 1
+        cls = LatticeGDKernel
+        cls.launches += 1
+        key = (d, self.degree_pressure + 1, q1d, E,
+               ("primal", "tangent")[mode])
+        cls.launches_by_shape[key] = cls.launches_by_shape.get(key, 0) + 1

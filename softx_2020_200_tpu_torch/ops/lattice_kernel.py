@@ -25,6 +25,12 @@ Dispatch is on the device of the tensors it is given:
   the frozen-tau linearization, as B2's);
 - anything else raises.  There is no fallback from CUDA to the plain
   version.
+
+A launch is a persistent grid (``ops/persistent_tiles.py``) on one of two
+routes: STAGED (every shape: tiles of rows through a shared-memory ring,
+then one thread per point and one per node) or REGISTERS (Q1 with 2
+points per axis on a lattice of boxes: one thread per element, the tables
+in the kernel's parameters); ``ROUTE`` says which.
 """
 
 from __future__ import annotations
@@ -38,16 +44,30 @@ import torch
 from torch import nn
 
 from . import cuda_build
+from . import persistent_tiles as pt
 
 SOURCE = os.path.join(cuda_build.CSRC, "gls_lattice.cu")
 
 _PRIMAL, _TANGENT, _PROBE = 0, 1, 2
+MODES = ("primal", "tangent", "probe")
+REG_THREADS = 128          # REGISTERS: one thread per element
 # (dim, degree, Gauss points per axis): Q1/Q2 with degree + 1 points, and
 # Q1 with 3, which the Q1 multigrid levels of a Q2 deck use
 SUPPORTED = {(2, 1, 2), (2, 2, 3), (3, 1, 2), (3, 2, 3), (2, 1, 3),
              (3, 1, 3)}
+# the shapes with a REGISTERS route: Q1 with 2 points per axis
+REGISTER_SHAPES = {(2, 1, 2), (3, 1, 2)}
+# the route ("auto", "staged" or "registers"; "auto" takes REGISTERS from
+# REG_MIN_PER_SM elements per SM on) and the tile ring's load path where
+# rows are 16-byte aligned ("cp.async" or "tma"), each chosen by
+# measurement (PERF.md)
+ROUTE = "auto"
+REG_MIN_PER_SM = 128
+LOADER = "tma"
 
 _BUILD: cuda_build.KernelBuild | None = None
+_CONFIG: dict = {}
+_PLANS: dict = {}
 
 
 def get_build() -> cuda_build.KernelBuild:
@@ -57,10 +77,59 @@ def get_build() -> cuda_build.KernelBuild:
     if _BUILD is None:
         _BUILD = cuda_build.load(
             SOURCE, "gls_lattice_launch",
-            [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
-            + [ctypes.c_int64] + [ctypes.c_float] * 4 + [ctypes.c_int] * 6
+            [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
+            + [ctypes.c_int64] + [ctypes.c_float] * 4 + [ctypes.c_int] * 9
             + [ctypes.c_void_p])
+        _BUILD.lib.gls_lattice_config.restype = ctypes.c_int
+        _BUILD.lib.gls_lattice_config.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3)
     return _BUILD
+
+
+def route_for(dim: int, degree: int, n_q1d: int, n_elements: int,
+              n_sms: int, laplacian_free: bool) -> int:
+    """The route of one launch (``ROUTE``, ``REG_MIN_PER_SM``).  The
+    REGISTERS route leaves out the Laplacian rows of the tables, so it
+    needs them zero (``laplacian_free``: Q1 on a lattice of boxes)."""
+    return pt.choose_route(
+        ROUTE, (dim, degree, n_q1d) in REGISTER_SHAPES and laplacian_free,
+        n_elements, REG_MIN_PER_SM, n_sms)
+
+
+def tile_config(dim: int, degree: int, n_q1d: int, mode: int,
+                route: int = pt.STAGED) -> dict:
+    """The shape of one variant's launch, as ``Shape<D, K, Q, MODE>`` in
+    ``csrc/gls_lattice.cu`` computes it: elements per tile ``be`` (per
+    block on the REGISTERS route), threads per block, the input rows of a
+    ring stage (ue, due, up, fq) and the shared-memory bytes (tables, two
+    stages, the staged coefficients); REGISTERS uses none."""
+    nn, nq = (degree + 1) ** dim, n_q1d ** dim
+    c = dim + 1
+    rows = (c * nn, c * nn if mode == _TANGENT else 0, dim * nn, dim * nq)
+    if route == pt.REGISTERS:
+        return dict(be=REG_THREADS, threads=REG_THREADS, rows=rows,
+                    smem_bytes=0)
+    M, Mnl = (dim + 2) * nq, (dim + 1) * nq
+    slots = max(nq, nn)
+    be = 32 if slots * 32 <= 512 else 16
+    floats = (pt.pad32(2 * M * nn) + pt.STAGES * pt.stage_floats(rows, be)
+              + (dim * M + Mnl) * be)
+    return dict(be=be, threads=slots * be, rows=rows, smem_bytes=4 * floats)
+
+
+def config_on_card(dim: int, degree: int, n_q1d: int, mode: int,
+                   route: int) -> tuple[int, int, int]:
+    """(blocks per SM, shared-memory bytes, threads) of one variant, from
+    the compiled library (cached)."""
+    key = (dim, degree, n_q1d, mode, route)
+    if key not in _CONFIG:
+        out = [ctypes.c_int() for _ in range(3)]
+        err = get_build().lib.gls_lattice_config(
+            *key, *(ctypes.byref(o) for o in out))
+        if err != 0:
+            raise RuntimeError(f"GLS lattice kernel {key}: CUDA error {err}")
+        _CONFIG[key] = tuple(o.value for o in out)
+    return _CONFIG[key]
 
 
 def affine_tables(dim, nn, nq, B, G, H, w, xe0, degree):
@@ -195,11 +264,13 @@ class LatticeGLSKernel(nn.Module):
     """Residual, tangent and node-block probes of the GLS weak form on a
     lattice of translates of the element ``xe0`` [nn, d].
 
-    ``launches`` counts CUDA kernel launches (class-wide); the plain
-    version on CPU tensors does not count.
+    ``launches`` counts CUDA kernel launches (class-wide), and
+    ``launches_by_shape`` the same per (dim, degree, points per axis, E,
+    variant); the plain version on CPU tensors does not count.
     """
 
     launches = 0
+    launches_by_shape: dict = {}
 
     def __init__(self, *, dim: int, degree: int, B, G, H, w, xe0,
                  nu: float, stab, dtype: torch.dtype = torch.float32,
@@ -215,15 +286,22 @@ class LatticeGLSKernel(nn.Module):
             np.asarray(H).reshape(self.nq, self.nn, dim, dim), w, xe0,
             degree)
         self.h = h
+        # the basis Laplacians vanish, up to the rounding of J^-1 (Q1 on a
+        # lattice of boxes; not on a sheared one): the REGISTERS route
+        # relies on it
+        self.laplacian_free = bool(np.abs(T[(dim + 1) * self.nq:]).max()
+                                   <= 1e-12 * np.abs(T).max())
         self.register_buffer("T_all", torch.as_tensor(T, dtype=dtype,
                                                       device=device))
         self.register_buffer("T_proj", torch.as_tensor(P, dtype=dtype,
                                                        device=device))
         # packed float32 tables for the CUDA kernel: T_all then T_proj,
-        # each row-major
+        # each row-major; the REGISTERS route takes them from the host
+        self._host_tables = np.concatenate(
+            [T.reshape(-1), P.reshape(-1)]).astype(np.float32)
+        self._host_tables_ptr = self._host_tables.ctypes.data
         self.register_buffer("tables", torch.as_tensor(
-            np.concatenate([T.reshape(-1), P.reshape(-1)]),
-            dtype=torch.float32, device=device))
+            self._host_tables, device=device))
         self._plain_cache = {}
 
     def plain(self, stab=None):
@@ -278,6 +356,22 @@ class LatticeGLSKernel(nn.Module):
         return out
 
     # ------------------------------------------------------------------
+    def _plan(self, mode, q1d, E, device):
+        """(route, grid) of a launch on E elements, cached per variant,
+        E, device and the module's settings: the host cost of a launch is
+        most of a small kernel's time."""
+        d, k = self.dim, self.degree
+        key = (d, k, q1d, mode, E, device.index, ROUTE, REG_MIN_PER_SM)
+        if key not in _PLANS:
+            n_sms = torch.cuda.get_device_properties(
+                device).multi_processor_count
+            route = route_for(d, k, q1d, E, n_sms, self.laplacian_free)
+            grid = pt.persistent_grid(
+                E, tile_config(d, k, q1d, mode, route)["be"],
+                config_on_card(d, k, q1d, mode, route)[0], n_sms)
+            _PLANS[key] = (route, grid)
+        return _PLANS[key]
+
     def _launch(self, mode, ue, due, up, fq, out, alpha0, sdt,
                 probe=(0, 0)):
         d, nn, nq, c = self.dim, self.nn, self.nq, self.nc
@@ -293,24 +387,33 @@ class LatticeGLSKernel(nn.Module):
                   (out, out.shape), (self.tables, self.tables.shape)]
         if due is not None:
             expect.append((due, (c * nn, E)))
+        dev = ue.device
         for t, shape in expect:
-            if (t.device != ue.device or t.dtype != torch.float32
-                    or not t.is_contiguous() or tuple(t.shape) != shape):
+            if (t.shape != shape or t.dtype != torch.float32
+                    or t.device != dev or not t.is_contiguous()):
                 raise ValueError(
                     "CUDA GLS lattice kernel takes contiguous float32 "
                     f"tensors on {ue.device}: got {tuple(t.shape)} "
                     f"{t.dtype} on {t.device} where {shape} was expected")
         lib = get_build().lib
+        route, grid = self._plan(mode, q1d, E, ue.device)
+        ptrs = [t.data_ptr() for t in (ue, up, fq)]
+        if due is not None:
+            ptrs.append(due.data_ptr())
+        path = pt.load_path(E, ptrs, LOADER)
         stream = torch.cuda.current_stream(ue.device).cuda_stream
         err = lib.gls_lattice_launch(
-            d, self.degree, q1d, mode, ue.data_ptr(),
-            due.data_ptr() if due is not None else None, up.data_ptr(),
-            fq.data_ptr(), self.tables.data_ptr(), out.data_ptr(), E,
+            d, self.degree, q1d, mode, ptrs[0],
+            ptrs[3] if due is not None else None, ptrs[1], ptrs[2],
+            self.tables.data_ptr(), self._host_tables_ptr, out.data_ptr(), E,
             self.nu, self.h, float(alpha0), float(sdt),
             int(self.stab.supg), int(self.stab.pspg),
             int(self.stab.gls_viscous_adjoint), int(self.stab.lsic),
-            probe[0], probe[1], stream)
+            probe[0], probe[1], route, grid, path, stream)
         if err != 0:
             raise RuntimeError(f"GLS lattice kernel launch failed: CUDA "
                                f"error {err}")
-        LatticeGLSKernel.launches += 1
+        cls = LatticeGLSKernel
+        cls.launches += 1
+        key = (d, self.degree, q1d, E, MODES[mode])
+        cls.launches_by_shape[key] = cls.launches_by_shape.get(key, 0) + 1
