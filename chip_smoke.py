@@ -4,6 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py                  # all phases, needs CUDA
     python3 chip_smoke.py --phases 2,3c    # only these (no contract line)
+    python3 chip_smoke.py --parent DIR     # and time DIR's B1 and B2 too
     python3 chip_smoke.py --write-decks D  # write the main-path decks
 
 Phases (each prints its own lines; any failed check raises):
@@ -13,20 +14,24 @@ Phases (each prints its own lines; any failed check raises):
 2. build: ``nvcc`` compiles the GLS element kernel (B1,
    ``csrc/gls_element.cu``), the GLS lattice kernel (B2,
    ``csrc/gls_lattice.cu``) and the grad-div (GD) lattice kernel (B3,
-   ``csrc/gd_lattice.cu``) of ``softx_2020_200_tpu_torch``, and B1's and
-   B2's previous designs (``scripts/previous_kernels/``), one process
-   each, in parallel; prints ptxas's registers and spills and fails on a
-   spill in any B1 or B2 variant; holds each B1 and B2 variant's shared
-   memory to the Python mirror the CPU tests check (``tile_config``);
+   ``csrc/gd_lattice.cu``) of ``softx_2020_200_tpu_torch`` (and, with
+   ``--parent``, B1 and B2 of that checkout), one process each, in
+   parallel; prints ptxas's registers and spills and fails on a spill in
+   any B1 or B2 variant; holds each B1 and B2 variant's shared memory to
+   the Python mirror the CPU tests check (``tile_config``);
 3. B1 against its plain PyTorch version (primal, frozen-tau tangent,
    node-block probes) for Q1/Q2 in 2D/3D on non-affine geometry, without
-   and with LSIC, with every load path (TMA and 16-byte cp.async where
-   E % 4 == 0, 4-byte cp.async where it is not) and below one tile; 3b:
-   the same at B1's main-path shapes, then times: the kernel, its
-   previous design on the same inputs (``ms_parent``), the other load
-   path, and the plain version; 3c: B2 the same way on parity lattices
-   (both routes at Q1 with 2 points per axis), then at B2's main-path
-   shapes and every multigrid level of phases 6 and 7, each timed; 3d:
+   and with LSIC, on each route (STAGED; REGISTERS with each of its
+   threads per element), with both load paths (TMA where E % 4 == 0,
+   4-byte cp.async where it is not) and below one tile; 3b: the same at
+   B1's main-path shapes, then times: the kernel, the other routes, and
+   the plain version (and with ``--parent`` the parent's kernel through
+   its own wrapper on the same inputs, ``ms_parent``); 3c: B2 the same
+   way on parity lattices (both routes at Q1 with 2 points per axis), on
+   a box and then a sheared lattice of the same size (the sheared one
+   must stay STAGED, and its REGISTERS launch is refused), then at B2's
+   main-path shapes and every multigrid level of phases 6 and 7, each
+   timed; 3d:
    B3 (primal, exact tangent) against its plain version on bounded and
    periodic parity lattices with a ragged tail, then at its main-path
    shapes (2D 256^2, 3D 16^3 and 32^3) with times;
@@ -53,8 +58,9 @@ Phases 4-9 hold their physics numbers against the JAX package run on the
 CPU in float64 on the same decks (``JAX_REFERENCE`` below) and check
 which kernel each deck launched.  The line before the last lists the
 kernels with their launch counts in the main-path runs (in total and per
-shape and variant), errors, times (the kernel's, its previous design's,
-the plain version's) and bounds; the last line of standard output is the
+shape and variant), errors, times (the kernel's, the plain version's and,
+with ``--parent``, the parent's; ``ms_parent`` is null without it) and
+bounds; the last line of standard output is the
 JSON contract line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without CUDA.
 """
@@ -71,7 +77,9 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import types
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -306,38 +314,64 @@ def phase_environment(torch) -> str:
 # ----------------------------------------------------------------------
 # phase 2
 # ----------------------------------------------------------------------
-PREVIOUS = {name: os.path.join(ROOT, "scripts", "previous_kernels",
-                               f"{name}.cu")
-            for name in ("gls_element", "gls_lattice")}
-# B1's and B2's previous designs, bound in phase 2 with their own C
-# signatures (which the current entry points extend)
-_PREVIOUS_LIBS = {}
+PARENT_PACKAGE = "parent_softx_2020_200_tpu_torch"
 
 
-def _bind_previous(builds) -> None:
-    import ctypes
-    c_int, ptr, flt = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-    args = {"gls_element": [c_int] * 3 + [ptr] * 8 + [ctypes.c_int64]
-            + [flt] * 3 + [c_int] * 6 + [ptr],
-            "gls_lattice": [c_int] * 4 + [ptr] * 6 + [ctypes.c_int64]
-            + [flt] * 4 + [c_int] * 6 + [ptr]}
-    for name, source in PREVIOUS.items():
-        lib = ctypes.CDLL(builds[source].path)
-        fn = getattr(lib, f"{name}_launch")
-        fn.restype, fn.argtypes = c_int, args[name]
-        _PREVIOUS_LIBS[name] = lib
+def load_parent(root: str):
+    """B1's and B2's wrappers (``ops/gls_kernel.py``,
+    ``ops/lattice_kernel.py``) of the ``softx_2020_200_tpu_torch`` in
+    another checkout ``root`` (a ``git archive`` of the parent commit),
+    imported beside this one under another package name; they build
+    their kernels from that checkout's sources into its own ``build/``."""
+    import importlib
+    import importlib.util
+    pkg = os.path.join(os.path.abspath(root), "softx_2020_200_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        PARENT_PACKAGE, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[PARENT_PACKAGE] = module
+    spec.loader.exec_module(module)
+    ops = f"{PARENT_PACKAGE}.ops"
+    return types.SimpleNamespace(
+        root=os.path.abspath(root),
+        cuda_build=importlib.import_module(f"{ops}.cuda_build"),
+        gls_kernel=importlib.import_module(f"{ops}.gls_kernel"),
+        lattice_kernel=importlib.import_module(f"{ops}.lattice_kernel"))
 
 
-def phase_build() -> None:
+def phase_build(parent=None) -> None:
     print("== phase 2: build (one nvcc per source, in parallel)")
     from softx_2020_200_tpu_torch.ops import (cuda_build, gls_kernel,
                                               lattice_gd_kernel,
                                               lattice_kernel)
     t0 = time.perf_counter()
     sources = [gls_kernel.SOURCE, lattice_kernel.SOURCE,
-               lattice_gd_kernel.SOURCE, *PREVIOUS.values()]
+               lattice_gd_kernel.SOURCE]
+    parent_builds, failed = {}, []
+    if parent is not None:
+        # the parent's B1 and B2, compiled by its own cuda_build into its
+        # own build/, while this checkout's compile
+        def build_parent():
+            try:
+                parent_builds.update(parent.cuda_build.compile_sources(
+                    [parent.gls_kernel.SOURCE, parent.lattice_kernel.SOURCE]))
+            except RuntimeError as exc:
+                failed.append(exc)
+        thread = threading.Thread(target=build_parent)
+        thread.start()
     builds = cuda_build.compile_sources(sources)
-    print(f"all {len(sources)} built in {time.perf_counter() - t0:.2f} s")
+    if parent is not None:
+        thread.join()
+        check(not failed, f"parent build: {failed}")
+        for source, build in parent_builds.items():
+            print(f" parent {os.path.relpath(source, parent.root)} -> "
+                  f"{os.path.relpath(build.path, parent.root)} "
+                  f"({build.seconds:.2f} s)")
+        parent.gls_kernel.get_build()
+        parent.lattice_kernel.get_build()
+    print(f"all {len(sources) + len(parent_builds)} built in "
+          f"{time.perf_counter() - t0:.2f} s")
     modes = {"0": "primal", "1": "tangent", "2": "probe"}
     spills = []
     for source, build in builds.items():
@@ -368,7 +402,6 @@ def phase_build() -> None:
                     spills.append(f"{entry}: {line.strip()}")
     check(not spills, "ptxas spills in B1/B2: " + "; ".join(spills))
     print("  no spill in any B1 or B2 variant")
-    _bind_previous(builds)
     gls_kernel.get_build()
     lattice_kernel.get_build()
     lattice_gd_kernel.get_build()
@@ -456,66 +489,35 @@ def _median_ms(torch, fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def _previous(torch, op, ue, due, args) -> dict:
-    """The previous design of the operator's kernel (B1 or B2, phase 2's
-    build of ``scripts/previous_kernels``) on the same inputs: primal,
-    tangent and node blocks, called as the wrapper called it."""
+def parent_calls(torch, parent, op, ue, due, args) -> dict:
+    """The parent's wrapper of the operator's kernel (B1 or B2, from
+    ``load_parent``), built from the same basis tables, and its primal,
+    tangent and node blocks through its own public methods on the same
+    inputs: called as the solvers call it."""
     k = op.kernel
-    lattice = op.layout is not None
-    lib = _PREVIOUS_LIBS["gls_lattice" if lattice else "gls_element"]
-    flags = (int(k.stab.supg), int(k.stab.pspg),
-             int(k.stab.gls_viscous_adjoint), int(k.stab.lsic))
-    E = ue.shape[-1]
-    if lattice:
-        up, fq, a0, sdt = args
-        tables = k.tables
-        q1d = round(k.nq ** (1 / k.dim))
-
-        def launch(mode, d, out, probe):
-            return lib.gls_lattice_launch(
-                k.dim, k.degree, q1d, mode, ue.data_ptr(), d, up.data_ptr(),
-                fq.data_ptr(), tables.data_ptr(), out.data_ptr(), E, k.nu,
-                k.h, a0, sdt, *flags, *probe,
-                torch.cuda.current_stream().cuda_stream)
+    q1d = round(k.nq ** (1 / k.dim))
+    _, w, B, G, H = op.space.basis.quadrature(q1d)
+    common = dict(dim=k.dim, degree=k.degree, B=B, G=G, H=H, w=w, nu=k.nu,
+                  stab=k.stab, dtype=torch.float32, device=ue.device)
+    if op.layout is None:
+        pk = parent.gls_kernel.GLSElementKernel(**common)
     else:
-        xe, up, fq, h, a0, sdt = args
-        # its tables: B, G, the full Hessians H and w
-        tables = torch.cat([t.reshape(-1) for t in (k.B, k.G, k.H, k.w)]
-                           ).float().contiguous()
-
-        def launch(mode, d, out, probe):
-            return lib.gls_element_launch(
-                k.dim, k.degree, mode, ue.data_ptr(), d, xe.data_ptr(),
-                up.data_ptr(), fq.data_ptr(), h.data_ptr(),
-                tables.data_ptr(), out.data_ptr(), E, k.nu, a0, sdt,
-                *flags, *probe, torch.cuda.current_stream().cuda_stream)
-
-    def call(mode, d=None, out=None, probe=(0, 0)):
-        out = torch.empty_like(ue) if out is None else out
-        err = launch(mode, d, out, probe)
-        check(err == 0, f"previous kernel launch: CUDA error {err}")
-        return out
-
-    def blocks():
-        out = ue.new_empty((k.nn, k.nc * k.nc, E))
-        for n0 in range(k.nn):
-            for j in range(k.nc):
-                call(2, out=out, probe=(n0, j))
-        return out
-
-    return {"primal": lambda: call(0),
-            "tangent": lambda: call(1, due.data_ptr()),
-            "node blocks": blocks}
+        pk = parent.lattice_kernel.LatticeGLSKernel(
+            xe0=op.layout.elem_coords_grid_order()[0], **common)
+    return {"primal": lambda: pk.residual(ue, *args),
+            "tangent": lambda: pk.tangent(ue, due, *args),
+            "node blocks": lambda: pk.node_blocks(ue, *args)}
 
 
 def _variants(torch, space, device, seed: int, lsic: bool = False,
-              n_q1d: int | None = None):
-    """(operator, kernel calls, plain calls, previous design's calls) on
+              n_q1d: int | None = None, parent=None):
+    """(operator, kernel calls, plain calls, forced, parent's calls) on
     one space with seeded float32 inputs: the primal residual, the
     tangent and the node blocks.  The plain tangent and node blocks
     differentiate with tau (and the LSIC coefficient) frozen, as the
-    kernels do.  The operator picks B2 on a lattice of translates and B1
-    otherwise."""
+    kernels do.  ``forced(route, split)`` gives the kernel's calls on a
+    forced route; the parent's calls are None without ``parent``.  The
+    operator picks B2 on a lattice of translates and B1 otherwise."""
     from softx_2020_200_tpu_torch.ops import batched_kernel as bk
     from softx_2020_200_tpu_torch.ops import lattice_kernel as lk
     from softx_2020_200_tpu_torch.solvers.gls import GLSOperator, StabFlags
@@ -545,7 +547,16 @@ def _variants(torch, space, device, seed: int, lsic: bool = False,
     kernel = {"primal": lambda: k.residual(ue, *args),
               "tangent": lambda: k.tangent(ue, due, *args),
               "node blocks": lambda: k.node_blocks(ue, *args)}
-    return op, kernel, plain, _previous(torch, op, ue, due, args)
+
+    def forced(route, split=None):
+        kw = {} if split is None else {"split": split}
+        return {what: (lambda m=m, d=d: k._call(m, ue, d, args, route, **kw))
+                for what, m, d in (("primal", 0, None), ("tangent", 1, due),
+                                   ("node blocks", 2, None))}
+
+    parent_fns = (None if parent is None
+                else parent_calls(torch, parent, op, ue, due, args))
+    return op, kernel, plain, forced, parent_fns
 
 
 def _outputs(torch, calls) -> dict:
@@ -575,49 +586,26 @@ def _compare(torch, label: str, E: int, kernel, plain) -> float:
     return _check_outputs(torch, label, E, kernel, _outputs(torch, plain))
 
 
-@contextlib.contextmanager
-def _setting(loader: str, route: str | None = None, split="auto"):
-    """B1's and B2's load path (``loader``) and, when given, their route
-    ("staged" or "registers") and B1's threads per element on its
-    REGISTERS route (``split``), for the launches inside."""
+def _settings(has_registers: bool, dim: int | None = None) -> list:
+    """(name, route, split) of every forced route the kernel can take
+    besides its default: STAGED, and REGISTERS where the shape has it
+    (for B1, ``dim`` given: with each of its threads per element)."""
     from softx_2020_200_tpu_torch.ops import gls_kernel as gk
-    from softx_2020_200_tpu_torch.ops import lattice_kernel as lk
-    saved = gk.LOADER, lk.LOADER, gk.ROUTE, lk.ROUTE, gk.REG_SPLIT
-    gk.LOADER = lk.LOADER = loader
-    gk.ROUTE = lk.ROUTE = route or gk.ROUTE
-    gk.REG_SPLIT = split
-    try:
-        yield
-    finally:
-        gk.LOADER, lk.LOADER, gk.ROUTE, lk.ROUTE, gk.REG_SPLIT = saved
-
-
-def _settings(E: int, has_registers, split=None) -> list:
-    """(name, loader, route, split) of every way the kernel can run on E
-    elements, the default (the route and load path the main path takes)
-    first: the STAGED route with each load path (both where rows are
-    16-byte aligned, E % 4 == 0), and the REGISTERS route where the shape
-    has one (for B1, ``split`` its dim: each of its threads per
-    element)."""
-    from softx_2020_200_tpu_torch.ops import gls_kernel as gk
-    loaders = [gk.LOADER] + ([l for l in ("cp.async", "tma")
-                              if l != gk.LOADER] if E % 4 == 0 else [])
-    out = [("default", gk.LOADER, None, "auto")]
-    out += [(f"staged {l}", l, "staged", "auto") for l in loaders]
+    out = [("staged", "staged", None)]
     if has_registers:
-        out += ([(f"registers/{n}", gk.LOADER, "registers", n)
-                 for n in gk.REG_SPLITS[split]] if split else
-                [("registers", gk.LOADER, "registers", "auto")])
+        out += ([(f"registers/{n}", "registers", n)
+                 for n in gk.REG_SPLITS[dim]] if dim else
+                [("registers", "registers", None)])
     return out
 
 
-def _check_settings(torch, label, E, kernel, want, has_registers,
-                    split=None) -> float:
-    worst = 0.0
-    for name, loader, route, n in _settings(E, has_registers, split):
-        with _setting(loader, route, n):
-            worst = max(worst, _check_outputs(torch, f"{label} [{name}]", E,
-                                              kernel, want))
+def _check_settings(torch, label, E, kernel, forced, want, has_registers,
+                    dim=None) -> float:
+    """The default calls and every forced route against ``want``."""
+    worst = _check_outputs(torch, f"{label} [default]", E, kernel, want)
+    for name, route, split in _settings(has_registers, dim):
+        worst = max(worst, _check_outputs(torch, f"{label} [{name}]", E,
+                                          forced(route, split), want))
     return worst
 
 
@@ -636,21 +624,20 @@ PARITY_SHAPES = ((2, 1, 2), (2, 2, 2), (3, 1, 6), (3, 2, 6),
 def phase_kernel_parity(torch, device) -> float:
     from softx_2020_200_tpu_torch.ops import gls_kernel as gk
     print("== phase 3: B1 parity (CUDA kernel vs plain PyTorch, float32, "
-          f"tolerance {KERNEL_RTOL:g} of the max-abs scale; every load "
-          "path)")
+          f"tolerance {KERNEL_RTOL:g} of the max-abs scale; every route, "
+          "both load paths)")
     worst = 0.0
     for dim, degree, cells in PARITY_SHAPES:
         space = _space(dim, degree, cells, seed=dim * 10 + degree)
         for lsic in (False, True):
-            op, kernel, plain, _ = _variants(torch, space, device,
-                                             seed=dim * 10 + degree,
-                                             lsic=lsic)
+            op, kernel, plain, forced, _ = _variants(
+                torch, space, device, seed=dim * 10 + degree, lsic=lsic)
             check(op.layout is None, "B1 parity mesh took the lattice path")
             label = f"d={dim} k={degree}{' lsic' if lsic else ''}"
             worst = max(worst, _check_settings(
-                torch, label, space.n_elements, kernel,
+                torch, label, space.n_elements, kernel, forced,
                 _outputs(torch, plain),
-                (dim, degree) in gk.REGISTER_SHAPES, split=dim))
+                (dim, degree) in gk.REGISTER_SHAPES, dim))
     return worst
 
 
@@ -672,44 +659,41 @@ def _graph_ms(torch, fn, reps: int = 20) -> float:
     return ms
 
 
-def _time_variants(torch, label, E, kernel, plain, times, previous=None,
-                   has_registers=False, alternatives=True, split=None):
+def _time_variants(torch, label, E, kernel, plain, times, parent_fns=None,
+                   settings=(), forced=None):
     """Times of each variant at one shape: the kernel's device time (a
-    CUDA graph of 20 calls) in every setting (``_settings``; the default
-    is ``ms``); its previous design's on the same inputs (``ms_parent``),
-    timed in turns with the default (previous, kernel, kernel, previous);
-    one event-timed call of each, which adds the host's launch cost; and
-    the plain version's event-timed call (median of 5, of 2 for the plain
-    node blocks, whose nn*c forward-mode passes take up to seconds).
-    Without a previous design (B3, unchanged) ``ms_parent`` is ``ms``;
-    without ``alternatives`` (B3, which has one load path) only the
-    default runs."""
+    CUDA graph of 20 calls, ``ms``) and one event-timed call of it, which
+    adds the host's launch cost (``call_ms``); with ``parent_fns`` (the
+    parent's kernel through its own wrapper on the same inputs) the same
+    for it (``ms_parent``, ``call_ms_parent``), timed in turns with the
+    kernel (parent, kernel, kernel, parent); each forced route of
+    ``settings`` (``_settings``) through ``forced``; and the plain
+    version's event-timed call (median of 5, of 2 for the plain node
+    blocks, whose nn*c forward-mode passes take up to seconds)."""
     times[label] = row = {"E": E}
-    settings = (_settings(E, has_registers, split) if alternatives
-                else [("default", "", None, "auto")])
     for what in kernel:
         r = row[what] = {}
-        if previous is not None:
-            p1 = _graph_ms(torch, previous[what])
+        if parent_fns is not None:
+            p1 = _graph_ms(torch, parent_fns[what])
             k1 = _graph_ms(torch, kernel[what])
             k2 = _graph_ms(torch, kernel[what])
-            p2 = _graph_ms(torch, previous[what])
+            p2 = _graph_ms(torch, parent_fns[what])
             r["ms"], r["ms_parent"] = (k1 + k2) / 2, (p1 + p2) / 2
-            r["call_ms_parent"] = _median_ms(torch, previous[what])
+            r["call_ms_parent"] = _median_ms(torch, parent_fns[what])
         else:
-            r["ms"] = r["ms_parent"] = _graph_ms(torch, kernel[what])
+            r["ms"] = _graph_ms(torch, kernel[what])
         r["call_ms"] = _median_ms(torch, kernel[what])
         r["settings"] = {}
-        for name, loader, route, n in settings[1:]:
-            with _setting(loader, route, n):
-                r["settings"][name] = (_graph_ms(torch, kernel[what]),
-                                       _median_ms(torch, kernel[what]))
+        for name, route, split in settings:
+            fn = forced(route, split)[what]
+            r["settings"][name] = (_graph_ms(torch, fn),
+                                   _median_ms(torch, fn))
         r["plain_ms"] = _median_ms(torch, plain[what],
                                    reps=2 if what == "node blocks" else 5)
         alt = "".join(f"; {n} {t:.4f} (call {c:.4f})"
                       for n, (t, c) in r["settings"].items())
-        prev = (f"; previous {r['ms_parent']:.4f} (call "
-                f"{r['call_ms_parent']:.4f})" if previous is not None else "")
+        prev = (f"; parent {r['ms_parent']:.4f} (call "
+                f"{r['call_ms_parent']:.4f})" if "ms_parent" in r else "")
         print(f"  {label:32s} E={E:7d} {what:11s} kernel [default] "
               f"{r['ms']:.4f} ms (call {r['call_ms']:.4f}){prev}{alt}; "
               f"plain {r['plain_ms']:.4f} ms")
@@ -723,50 +707,58 @@ B1_SHAPES = (("2D Q2 Taylor-Couette r3", 2, 2, 3),
              ("3D Q1 64^3 (moved)", 3, 1, 64))
 
 
-def phase_kernel_times(torch, device) -> tuple[dict, float]:
+def phase_kernel_times(torch, device, parent=None) -> tuple[dict, float]:
     """B1 against plain at its main path's shapes (and, for comparison
-    with B2, at the 3D Q1 sizes on a non-affine box): compared first in
-    every setting, then timed.  Returns the times and the worst max-abs
-    error."""
+    with B2, at the 3D Q1 sizes on a non-affine box): compared first on
+    every route, then timed (with the parent's kernel when ``parent`` is
+    given).  Returns the times and the worst max-abs error."""
     print("== phase 3b: B1 parity and times at the main path's shapes "
           "(ms)")
     from softx_2020_200_tpu_torch.ops import gls_kernel as gk
     times, worst = {}, 0.0
     for label, dim, degree, cells in B1_SHAPES:
         space = _space(dim, degree, cells, seed=7)
-        _, kernel, plain, previous = _variants(torch, space, device, seed=3)
+        _, kernel, plain, forced, parent_fns = _variants(
+            torch, space, device, seed=3, parent=parent)
         E, reg = space.n_elements, (dim, degree) in gk.REGISTER_SHAPES
         want = _outputs(torch, plain)
-        worst = max(worst, _check_settings(torch, label, E, kernel, want,
-                                           reg, split=dim))
-        _compare_previous(torch, label, E, previous, want)
+        worst = max(worst, _check_settings(torch, label, E, kernel, forced,
+                                           want, reg, dim))
+        _compare_parent(torch, label, E, parent_fns, want)
         del want
-        _time_variants(torch, label, E, kernel, plain, times, previous, reg,
-                       split=dim)
-        del kernel, plain, previous
+        _time_variants(torch, label, E, kernel, plain, times, parent_fns,
+                       _settings(reg, dim), forced)
+        del kernel, plain, forced, parent_fns
         torch.cuda.empty_cache()
     return times, worst
 
 
-def _compare_previous(torch, label, E, previous, want) -> None:
-    """The previous design's outputs against the plain ones: a check that
-    it is called right, so that its times compare like with like."""
-    for what, fn in previous.items():
+def _compare_parent(torch, label, E, parent_fns, want) -> None:
+    """The parent's outputs against the plain ones (when there is a
+    parent): a check that it is called right, so that its times compare
+    like with like."""
+    if parent_fns is None:
+        return
+    for what, fn in parent_fns.items():
         err, rel = _rel(torch, fn(), want[what])
-        check(rel < KERNEL_RTOL, f"previous {what} {label}: rel {rel:.3e}")
-    print(f"  {label:44s} E={E:7d} previous design within {KERNEL_RTOL:g}")
+        check(rel < KERNEL_RTOL, f"parent {what} {label}: rel {rel:.3e}")
+    print(f"  {label:44s} E={E:7d} parent's kernel within {KERNEL_RTOL:g}")
 
 
 # ----------------------------------------------------------------------
 # phase 3c: B2
 # ----------------------------------------------------------------------
-def _lattice(dim: int, degree: int, cells, periodic: bool = False):
-    """An FE space on a box lattice with unequal spacings per axis."""
+def _lattice(dim: int, degree: int, cells, periodic: bool = False,
+             shear: float = 0.0):
+    """An FE space on a box lattice with unequal spacings per axis, its
+    x coordinate sheared by ``shear`` times y (still a lattice of
+    translates of one element, but not of a box)."""
     from softx_2020_200_tpu_torch.fem import mesh as M
     from softx_2020_200_tpu_torch.fem.dof import FESpace
     hi = [1.0, 0.7, 1.3][:dim]
     m = M.subdivided_hyper_rectangle([0.0] * dim, hi, list(cells), True,
                                      dim=dim)
+    m.vertices[:, 0] += shear * m.vertices[:, 1]
     if periodic:
         m.periodic += [(2 * a, 2 * a + 1, a) for a in range(dim)]
     return FESpace(m, degree)
@@ -797,6 +789,15 @@ B2_SHAPES = (("3D Q1 TGV 32^3", 3, 1, 2, (32,) * 3),
              ("3D Q2 32^3", 3, 2, 3, (32,) * 3),
              ("2D Q1 256^2 q=2 (MMS level 1)", 2, 1, 2, (256,) * 2),
              ("2D Q1 128^2 q=3 (MMS level 2)", 2, 1, 3, (128,) * 2))
+# a box and then a sheared lattice of the same size (dim, cells), Q1 with
+# 2 points per axis: at least 128 elements per SM of the card (16,896 on
+# 132 SMs), where the box takes the REGISTERS route; the sheared one has
+# a nonzero Laplacian and must stay STAGED.  3D only, and a shear of x
+# by 0.02 y, under one cell width over the lattice's height: the lattice
+# layout (ops/structured.py) needs the node numbering in lattice order,
+# which a 2D shear or a larger one breaks
+B2_SHEARED = ((3, (32, 32, 17)),)
+B2_SHEAR = 0.02
 # the coarser multigrid levels of phases 6 and 7, compared and timed too:
 # they carry most of B2's launches on the main path
 B2_LEVELS = (("3D Q1 16^3 (TGV level 1)", 3, 1, 2, (16,) * 3),
@@ -806,39 +807,84 @@ B2_LEVELS = (("3D Q1 16^3 (TGV level 1)", 3, 1, 2, (16,) * 3),
              ("2D Q1 16^2 q=3 (MMS level 5)", 2, 1, 3, (16,) * 2))
 
 
-def phase_lattice_kernel(torch, device) -> tuple[dict, float]:
+def _sheared_lattices(torch, device) -> float:
+    """B2 with the default route on a box lattice and then on a sheared
+    one of the same size, each against its plain version; the box must
+    take REGISTERS and the sheared one STAGED, and a REGISTERS launch on
+    the sheared tables (``laplacian_free`` 0) must be refused by the
+    kernel's entry point."""
+    from softx_2020_200_tpu_torch.ops import lattice_kernel as lk
+    from softx_2020_200_tpu_torch.ops import persistent_tiles as pt
+    worst = 0.0
+    for dim, cells in B2_SHEARED:
+        for shear in (0.0, B2_SHEAR):
+            space = _lattice(dim, 1, cells, shear=shear)
+            op, kernel, plain, _, _ = _variants(torch, space, device,
+                                                seed=dim, n_q1d=2)
+            check(op.layout is not None, "B2 sheared lattice took B1")
+            k, E = op.kernel, space.n_elements
+            label = f"d={dim} k=1 q=2 {'sheared' if shear else 'box'}"
+            worst = max(worst, _compare(torch, label, E, kernel, plain))
+            routes = {r for key, (r, _) in k._plans.items()}
+            want = pt.STAGED if shear else pt.REGISTERS
+            print(f"  {label:44s} E={E:7d} laplacian_free "
+                  f"{k.laplacian_free}, routes taken {sorted(routes)}")
+            check(k.laplacian_free == (not shear) and routes == {want},
+                  f"{label}: routes {routes}, expected {want}")
+        # the entry point itself refuses REGISTERS on these tables
+        ue = torch.zeros(k.nc * k.nn, E, device=device)
+        up = torch.zeros(dim * k.nn, E, device=device)
+        fq = torch.zeros(dim * k.nq, E, device=device)
+        out = torch.empty_like(ue)
+        err = lk.get_build().lib.gls_lattice_launch(
+            dim, 1, 2, 1, ue.data_ptr(), ue.data_ptr(), up.data_ptr(),
+            fq.data_ptr(), k.tables.data_ptr(), k._host_tables_ptr,
+            out.data_ptr(), E, k.nu, k.h, 1.5, 20.0, 1, 1, 1, 0, 0, 0,
+            pt.REGISTERS, 1, pt.load_path(E, [ue.data_ptr()]),
+            int(k.laplacian_free), torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        print(f"  d={dim} sheared: a REGISTERS launch returns CUDA error "
+              f"{err}")
+        check(err == 1, f"d={dim}: REGISTERS on sheared tables returned "
+              f"{err}, not cudaErrorInvalidValue (1)")
+    return worst
+
+
+def phase_lattice_kernel(torch, device, parent=None) -> tuple[dict, float]:
     from softx_2020_200_tpu_torch.ops import lattice_kernel as lk
     print("== phase 3c: B2 parity (CUDA kernel vs plain PyTorch, float32, "
-          f"tolerance {KERNEL_RTOL:g} of the max-abs scale; every load "
-          "path and route), then parity and times at the main path's "
-          "shapes and levels (ms)")
+          f"tolerance {KERNEL_RTOL:g} of the max-abs scale; every route, "
+          "both load paths), a box and a sheared lattice, then parity and "
+          "times at the main path's shapes and levels (ms)")
     worst = 0.0
     for dim, degree, q1d, cells in B2_PARITY:
         space = _lattice(dim, degree, cells)
         for lsic in (False, True):
-            op, kernel, plain, _ = _variants(torch, space, device,
-                                             seed=dim * 10 + degree,
-                                             lsic=lsic, n_q1d=q1d)
+            op, kernel, plain, forced, _ = _variants(
+                torch, space, device, seed=dim * 10 + degree, lsic=lsic,
+                n_q1d=q1d)
             check(op.layout is not None, "B2 parity lattice took B1")
             label = f"d={dim} k={degree} q={q1d}{' lsic' if lsic else ''}"
             worst = max(worst, _check_settings(
-                torch, label, space.n_elements, kernel,
+                torch, label, space.n_elements, kernel, forced,
                 _outputs(torch, plain),
                 (dim, degree, q1d) in lk.REGISTER_SHAPES))
+    worst = max(worst, _sheared_lattices(torch, device))
     times = {}
     for label, dim, degree, q1d, cells in B2_SHAPES + B2_LEVELS:
         space = _lattice(dim, degree, cells, periodic=True)
-        op, kernel, plain, previous = _variants(torch, space, device, seed=5,
-                                                n_q1d=q1d)
+        op, kernel, plain, forced, parent_fns = _variants(
+            torch, space, device, seed=5, n_q1d=q1d, parent=parent)
         check(op.layout is not None, f"{label} took B1")
         E, q1 = space.n_elements, (dim, degree, q1d) in lk.REGISTER_SHAPES
         want = _outputs(torch, plain)
-        worst = max(worst, _check_settings(torch, label, E, kernel, want,
-                                           q1))
-        _compare_previous(torch, label, E, previous, want)
+        worst = max(worst, _check_settings(torch, label, E, kernel, forced,
+                                           want, q1))
+        _compare_parent(torch, label, E, parent_fns, want)
         del want
-        _time_variants(torch, label, E, kernel, plain, times, previous, q1)
-        del op, kernel, plain, previous
+        _time_variants(torch, label, E, kernel, plain, times, parent_fns,
+                       _settings(q1), forced)
+        del op, kernel, plain, forced, parent_fns
         torch.cuda.empty_cache()
     return times, worst
 
@@ -978,8 +1024,7 @@ def phase_gd_kernel(torch, device) -> tuple[dict, float]:
         check(op.layout_v is not None, f"{label} took the SoA path")
         E = op.space_v.n_elements
         worst = max(worst, _compare(torch, label, E, kernel, plain))
-        _time_variants(torch, label, E, kernel, plain, times,
-                       alternatives=False)
+        _time_variants(torch, label, E, kernel, plain, times)
         for what in kernel:
             b, by = _bound_gd(dim, what, E)
             print(f"  bound B3 {label:30s} {what:11s} {b:9.4f} ms ({by}); "
@@ -1317,8 +1362,8 @@ def _shape_keys(lattice: bool) -> dict:
 def _by_shape(times: dict, lattice: bool, launches: dict) -> list:
     """Per timed shape: its main-path launches per variant (``launches``
     maps (dim, degree, points per axis, E, variant) to a count) and, per
-    variant, the kernel's, its previous design's and the plain version's
-    times, the other settings' times and the bound."""
+    variant, the kernel's, the parent's (None without one) and the plain
+    version's times, the forced routes' times and the bound."""
     keys, out = _shape_keys(lattice), []
     for label, row in times.items():
         dim, degree, q1d = keys[label]
@@ -1329,7 +1374,7 @@ def _by_shape(times: dict, lattice: bool, launches: dict) -> list:
         for what in ("primal", "tangent", "node blocks"):
             r = row[what]
             b, by = _bound(dim, degree, what, E, lattice, q1d)
-            entry[what] = {"ms": r["ms"], "ms_parent": r["ms_parent"],
+            entry[what] = {"ms": r["ms"], "ms_parent": r.get("ms_parent"),
                            "plain_ms": r["plain_ms"], "bound_ms": b,
                            "bound_by": by, "call_ms": r["call_ms"],
                            "call_ms_parent": r.get("call_ms_parent"),
@@ -1339,13 +1384,35 @@ def _by_shape(times: dict, lattice: bool, launches: dict) -> list:
     return out
 
 
+def _device_seconds(by_shape: list, key: str, lattice: bool) -> float | None:
+    """Device seconds of one main-path run: the main-path launches of each
+    timed shape times the device time per launch (``key`` "ms" or
+    "ms_parent"; a probe launch is 1/(nn*c) of the node blocks' time).
+    None where a time is missing."""
+    total = 0.0
+    for entry in by_shape:
+        n = entry["launches"]
+        for mode, what in (("primal", "primal"), ("tangent", "tangent"),
+                           ("probe", "node blocks")):
+            ms = entry[what][key]
+            if ms is None:
+                return None
+            if mode == "probe":
+                dim, degree, _ = _shape_keys(lattice)[entry["label"]]
+                ms /= (degree + 1) ** dim * (dim + 1)
+            total += n[mode] * ms / 1e3
+    return total
+
+
 def _entry(name, source, replaces, runs, worst, row, bound, lattice=None,
            times=None):
     """One kernel's line: its tangent (the Krylov matvec, most of its
-    launches) at its main-path shape ``row``: kernel, previous design
-    (``ms_parent``) and plain times, and (bound ms, bound by); launches
-    in total and per (dim, degree, points per axis, E, variant) over the
-    main-path ``runs``; for B1 and B2 (``times``) every timed shape."""
+    launches) at its main-path shape ``row``: kernel and plain times, and
+    (bound ms, bound by); launches in total and per (dim, degree, points
+    per axis, E, variant) over the main-path ``runs``; for B1 and B2
+    (``times``) the parent's time (``ms_parent``, null without
+    ``--parent``), every timed shape and the device seconds of one
+    main-path run, the kernel's and the parent's."""
     bound_ms, bound_by = bound
     t = row["tangent"]
     per_shape = {}
@@ -1357,11 +1424,14 @@ def _entry(name, source, replaces, runs, worst, row, bound, lattice=None,
              "launches": sum(r["launches"][name] for r in runs),
              "max_abs_err": worst, "ms": t["ms"], "plain_ms": t["plain_ms"],
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
-             "ms_parent": t["ms_parent"],
              "launches_by_shape": {",".join(map(str, k)): n
                                    for k, n in sorted(per_shape.items())}}
     if times is not None:
+        entry["ms_parent"] = t.get("ms_parent")
         entry["by_shape"] = _by_shape(times, lattice, per_shape)
+        for key in ("ms", "ms_parent"):
+            entry[f"main_path_device_s{key[2:]}"] = _device_seconds(
+                entry["by_shape"], key, lattice)
     return entry
 
 
@@ -1371,10 +1441,12 @@ def _print_bounds(times: dict, lattice: bool) -> None:
         dim, degree, q1d = shapes[label]
         for what in ("primal", "tangent", "node blocks"):
             b, by = _bound(dim, degree, what, row["E"], lattice, q1d)
+            parent = row[what].get("ms_parent")
             print(f"  bound {'B2' if lattice else 'B1'} {label:32s} "
                   f"{what:11s} {b:9.4f} ms ({by}); kernel "
-                  f"{row[what]['ms']:9.4f} ms, previous "
-                  f"{row[what]['ms_parent']:9.4f} ms")
+                  f"{row[what]['ms']:9.4f} ms" + (
+                      f", parent {parent:9.4f} ms" if parent is not None
+                      else ""))
 
 
 PHASES = ("2", "3", "3b", "3c", "3d", "4", "5", "6", "7", "8", "9")
@@ -1388,6 +1460,10 @@ def main(argv=None) -> int:
                         help="run only these phases (comma-separated, "
                         "e.g. 2,3c; phase 1 always runs, and phase 2 with "
                         "any of 3-3c); prints no contract line")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="another checkout (a git archive of the parent "
+                        "commit): time its B1 and B2 through its own "
+                        "wrappers beside this one's (ms_parent)")
     args = parser.parse_args(argv)
     if args.write_decks:
         write_decks(args.write_decks)
@@ -1408,18 +1484,21 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     smi = phase_environment(torch)
+    parent = load_parent(args.parent) if args.parent else None
+    if parent is not None:
+        print(f"parent: softx_2020_200_tpu_torch from {parent.root}")
     if "2" in only:
-        phase_build()
+        phase_build(parent)
     worst_b1 = worst_b2 = 0.0
     times_b1 = times_b2 = {}
     if "3" in only:
         worst_b1 = phase_kernel_parity(torch, device)
     if "3b" in only:
-        times_b1, worst_at_scale = phase_kernel_times(torch, device)
+        times_b1, worst_at_scale = phase_kernel_times(torch, device, parent)
         worst_b1 = max(worst_b1, worst_at_scale)
         _print_bounds(times_b1, lattice=False)
     if "3c" in only:
-        times_b2, worst_b2 = phase_lattice_kernel(torch, device)
+        times_b2, worst_b2 = phase_lattice_kernel(torch, device, parent)
         _print_bounds(times_b2, lattice=True)
     if "3d" in only:
         times_b3, worst_b3 = phase_gd_kernel(torch, device)

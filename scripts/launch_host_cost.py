@@ -1,105 +1,111 @@
 #!/usr/bin/env python3
-"""Host cost of one launch of the GLS kernels B1 and B2 through their
-wrappers, on one NVIDIA GPU.
+"""Host cost of one call of the GLS kernels B1 and B2 through their
+wrappers, against another checkout's, on one NVIDIA GPU.
 
-    python3 scripts/launch_host_cost.py [--root DIR] [--calls N]
+    python3 scripts/launch_host_cost.py [--parent DIR] [--pairs N]
+                                        [--calls N]
 
-At a small main-path shape of each kernel (B1: the Taylor-Couette shell
-at refinement 3, 768 Q2 cells; B2: the TGV multigrid level 8^3, 512 Q1
-cells) the device finishes a launch in a few microseconds, faster than
-the host issues the next.  The script times N back-to-back tangent calls
-(the Krylov matvec's kernel call, output allocation and input checks
-included) on the host clock and prints microseconds per call, the least
-of 9 rounds (other work on the host only adds to a round), for each load
-path the wrapper offers.  ``--root`` imports
-``softx_2020_200_tpu_torch`` from DIR (a ``git archive`` of another
-commit, say) instead of this checkout, so two commits compare in one run.
+At main-path shapes of each kernel (B1: the Taylor-Couette shell at
+refinements 3 and 5; B2: the TGV lattice 32^3 and its multigrid level
+8^3) the script times N back-to-back tangent calls (the Krylov matvec's
+kernel call: input checks, launch plan, output allocation and launch) on
+the host clock and takes microseconds per call, the least of 5 rounds
+(other work on the host only adds to a round).  With ``--parent`` it
+builds DIR's wrapper of the same kernel on the same tables
+(``chip_smoke.load_parent``, a ``git archive`` of the parent commit, say)
+and times the two in ``--pairs`` alternating pairs (parent first in even
+pairs, second in odd ones), in one process on the same inputs, and
+prints each pair and the median difference.  The last line is one JSON
+object with every sample.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import statistics
 import sys
 import time
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
-def _operator(torch, space):
-    """The GLS operator on ``space`` and its kernel's tangent call on
-    seeded float32 inputs."""
-    from softx_2020_200_tpu_torch.solvers.gls import GLSOperator, StabFlags
-    op = GLSOperator(space, nu=0.01, stab=StabFlags(frozen_tau=True),
-                     dtype=torch.float32, device="cuda")
-    g = torch.Generator().manual_seed(0)
-
-    def rnd(*shape):
-        return torch.randn(*shape, generator=g,
-                           dtype=torch.float64).to("cuda", torch.float32)
-
-    N, c, d, E = op.n_nodes, op.nc, op.dim, space.n_elements
-    u, v, prev, fq = rnd(N, c), rnd(N, c), rnd(N, d), rnd(E, op.n_q, d)
-    k = op.kernel
-    if op.layout is None:
-        args = (op.xe_soa, op._soa(prev), op._fq_soa(fq), op.h, 1.5, 20.0)
-        ue, due = op._soa(u), op._soa(v)
-    else:
-        args = (op._rows(prev), op._fq_rows(fq), 1.5, 20.0)
-        ue, due = op._rows(u), op._rows(v)
-    return op, lambda: k.tangent(ue, due, *args)
+# (label, kind, dim, degree, cells): the shapes the main path launches
+SHAPES = (("B1 2D Q2 Taylor-Couette r3", "element", 2, 2, 3),
+          ("B1 2D Q2 Taylor-Couette r5", "element", 2, 2, 5),
+          ("B2 3D Q1 8^3 (TGV level 2)", "lattice", 3, 1, (8,) * 3),
+          ("B2 3D Q1 TGV 32^3", "lattice", 3, 1, (32,) * 3))
 
 
-def _us_per_call(torch, fn, calls: int) -> float:
-    fn()
-    torch.cuda.synchronize()
-    rounds = []
-    for _ in range(9):
+def _us_per_call(torch, fn, calls: int, rounds: int = 5) -> float:
+    best = float("inf")
+    for _ in range(rounds):
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         for _ in range(calls):
             fn()
-        rounds.append((time.perf_counter() - t0) / calls * 1e6)
+        best = min(best, (time.perf_counter() - t0) / calls * 1e6)
         torch.cuda.synchronize()
-    return min(rounds)
+    return best
 
 
 def main(argv=None) -> int:
-    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("--root", default=here,
-                        help="directory to import the package from")
+    parser.add_argument("--parent", metavar="DIR",
+                        help="another checkout to time against")
+    parser.add_argument("--pairs", type=int, default=12)
     parser.add_argument("--calls", type=int, default=200)
     args = parser.parse_args(argv)
-    sys.path.insert(0, os.path.abspath(args.root))
-
+    sys.path.insert(0, ROOT)
     import torch
     if not torch.cuda.is_available():
         print("launch_host_cost: needs CUDA", file=sys.stderr)
         return 1
-    from softx_2020_200_tpu_torch.fem import mesh as M
-    from softx_2020_200_tpu_torch.fem.dof import FESpace
-    from softx_2020_200_tpu_torch.ops import gls_kernel, lattice_kernel
-
-    shell = M.generate_mesh("hyper_shell", "0, 0 : 0.25 : 1 : 12 : true",
-                            dim=2, initial_refinement=3)
-    box = M.subdivided_hyper_rectangle([0.0] * 3, [1.0] * 3, [8] * 3, True,
-                                       dim=3)
-    print(f"package from {os.path.abspath(args.root)}; "
-          f"{torch.cuda.get_device_name(0)}")
-    for label, space, mod in (
-            ("B1 tangent, 2D Q2 Taylor-Couette r3", FESpace(shell, 2),
-             gls_kernel),
-            ("B2 tangent, 3D Q1 8^3", FESpace(box, 1), lattice_kernel)):
-        op, fn = _operator(torch, space)
-        assert (op.layout is None) == (mod is gls_kernel), label
-        loaders = ["tma", "cp.async"] if hasattr(mod, "LOADER") else [None]
-        for loader in loaders:
-            saved = getattr(mod, "LOADER", None)
-            if loader is not None:
-                mod.LOADER = loader
-            us = _us_per_call(torch, fn, args.calls)
-            if loader is not None:
-                mod.LOADER = saved
-            print(f"  {label:38s} E={space.n_elements:5d} "
-                  f"{loader or 'one path':9s} {us:8.2f} us per call")
+    import chip_smoke as cs
+    parent = cs.load_parent(args.parent) if args.parent else None
+    device = torch.device("cuda")
+    smi = cs.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                  "--format=csv,noheader"])
+    print(f"{torch.cuda.get_device_name(0)}; {smi}")
+    results = {}
+    for label, kind, dim, degree, cells in SHAPES:
+        space = (cs._space(dim, degree, cells, seed=7) if kind == "element"
+                 else cs._lattice(dim, degree, cells, periodic=True))
+        op, kernel, _, _, parent_fns = cs._variants(torch, space, device,
+                                                    seed=3, parent=parent)
+        assert (op.layout is not None) == (kind == "lattice"), label
+        fns = {"change": kernel["tangent"]}
+        if parent_fns is not None:
+            fns["parent"] = parent_fns["tangent"]
+        for fn in fns.values():
+            fn()
+        samples = {name: [] for name in fns}
+        for i in range(args.pairs if parent else 1):
+            order = ("parent", "change") if i % 2 == 0 else ("change",
+                                                             "parent")
+            for name in order:
+                if name in fns:
+                    samples[name].append(_us_per_call(torch, fns[name],
+                                                      args.calls))
+        results[label] = samples
+        E = space.n_elements
+        if parent is None:
+            print(f"  {label:30s} E={E:6d} {samples['change'][0]:8.2f} us "
+                  f"per call")
+            continue
+        deltas = [c - p for c, p in zip(samples["change"],
+                                        samples["parent"])]
+        for i, (p, c) in enumerate(zip(samples["parent"],
+                                       samples["change"])):
+            print(f"  {label:30s} E={E:6d} pair {i:2d}: parent {p:7.2f}, "
+                  f"change {c:7.2f} us per call")
+        print(f"  {label:30s} median parent "
+              f"{statistics.median(samples['parent']):.2f}, change "
+              f"{statistics.median(samples['change']):.2f}; change - parent "
+              f"median {statistics.median(deltas):+.2f} us (min "
+              f"{min(deltas):+.2f}, max {max(deltas):+.2f}; change lower in "
+              f"{sum(d < 0 for d in deltas)} of {len(deltas)} pairs)")
+    print(json.dumps({"us_per_call": results}))
     return 0
 
 

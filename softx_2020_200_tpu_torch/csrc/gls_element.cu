@@ -39,7 +39,8 @@
 // the shape and E (ops/gls_kernel.py):
 //   STAGED     every shape.  A block stages the tables once, then per tile
 //              of BE elements (32; 16 at 27 nodes) the rows arrive in a
-//              two-stage ring by TMA or cp.async while the previous tile
+//              two-stage ring by TMA (4-byte cp.async where the row pitch
+//              is not a multiple of 16 bytes) while the previous tile
 //              computes.  Phase A, one thread per (quadrature point,
 //              element): J, det J, J^-1 and Km = J^-1 J^-T, values,
 //              gradients and Laplacians (lap_phi[n] = Hs[q, n, :] . Km),
@@ -65,8 +66,8 @@
 // the ring has nothing to overlap; REGISTERS holds an element's rows and
 // accumulators in 200-odd registers, so an SM keeps only 4 blocks of 64
 // threads, each thread a long dependent chain over its points.  Both stay
-// about 4x over the 2D Q2 bound.  Measured times of both routes, load
-// paths and splits: PERF.md.
+// about 4x over the 2D Q2 bound.  Measured times of both routes and
+// splits: PERF.md.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -526,7 +527,9 @@ __global__ void __launch_bounds__(Shape<D, K, MODE>::THREADS)
 // where one thread per element would leave the card mostly idle.
 // Compiled where the state fits the registers (not 3D Q2), with SPLIT 1,
 // 2 or 4 in 2D and 1 in 3D (whose state fills the registers, and whose
-// meshes fill the card with one thread per element).
+// meshes fill the card with one thread per element).  At the
+// Taylor-Couette shape (2D Q2, 12,288 elements) the tangent takes 2, the
+// primal and the probe, with fewer registers, 4.
 template <int D, int K, int MODE, int SPLIT>
 __global__ void __launch_bounds__(REG_THREADS)
     gls_element_reg_kernel(const __grid_constant__ Params p) {
@@ -879,10 +882,9 @@ extern "C" int gls_element_config(int dim, int degree, int mode, int route,
 }
 
 // Launches one variant on `stream` with `grid` blocks, on route STAGED (0)
-// with load path `path` (tiles::LOAD_*; the 16-byte and TMA paths need
-// E % 4 == 0 and 16-byte aligned inputs) or REGISTERS (1) with `split`
-// threads per element (1, 2 or 4 in 2D, 1 in 3D; REG_THREADS / split
-// elements a block).  Returns
+// with load path `path` (tiles::LOAD_*; TMA needs E % 4 == 0 and 16-byte
+// aligned inputs) or REGISTERS (1) with `split` threads per element (1, 2
+// or 4 in 2D, 1 in 3D; REG_THREADS / split elements a block).  Returns
 // cudaGetLastError() after the launch (0 on success);
 // cudaErrorInvalidValue for a (dim, degree, mode, route) that is not
 // compiled.  Does not synchronise and allocates nothing.
@@ -894,7 +896,7 @@ extern "C" int gls_element_launch(
     int supg, int pspg, int gls_adjoint, int lsic,
     int probe_node, int probe_comp, int route, int split, int grid,
     int path, void* stream) {
-  if (path < tiles::LOAD_CP_ASYNC_4 || path > tiles::LOAD_TMA)
+  if (path != tiles::LOAD_CP_ASYNC_4 && path != tiles::LOAD_TMA)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
   p.in.ptr[0] = static_cast<const float*>(ue);

@@ -46,7 +46,8 @@
 // of at most occupancy x SMs blocks, walking element tiles):
 //   STAGED     every compiled shape.  A block stages the tables once, then
 //              per tile of BE elements (32; 16 when nq or nn is 27) the
-//              rows arrive in a two-stage ring by cp.async or TMA while the
+//              rows arrive in a two-stage ring by TMA (4-byte cp.async
+//              where the row pitch is not a multiple of 16 bytes) while the
 //              previous tile computes: thread (q, e) interpolates and
 //              evaluates the physics at point q into shared-memory
 //              coefficients (phase A), then thread (n, e) projects (phase
@@ -57,7 +58,8 @@
 //              __grid_constant__ kernel parameter so the unrolled products
 //              read them as constant operands (no shared memory at all);
 //              the Laplacian rows, zero for a multilinear basis on a box,
-//              are left out.
+//              are left out: the launch is refused unless the caller
+//              confirms they are zero (not on a sheared lattice).
 // STAGED loads each table entry once per point for every component
 // (one pass over the nodes) and each T_proj entry once per node for every
 // component, but its cost is still shared-memory traffic; REGISTERS moves
@@ -68,12 +70,14 @@
 // the first design's time too, now with the tables staged once per block
 // and the next tile's rows in flight; REGISTERS, at 3D Q1, occupancy (about
 // 170 registers a thread, 12 warps an SM) with the FMAs of the unrolled
-// products, about 2x over the byte bound.  Measured times of both routes
-// and load paths: PERF.md.
+// products, about 2x over the byte bound.  Measured times of both routes:
+// PERF.md.
 //
 // Build (plain C interface, loaded with ctypes):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
 //        -Xcompiler -fPIC -o libgls_lattice.so gls_lattice.cu
+
+#include <string.h>
 
 #include "persistent_tiles.cuh"
 
@@ -545,7 +549,7 @@ struct Launch {
   float* out;
   int64_t E;
   Physics ph;
-  int grid, path;
+  int grid, path, laplacian_free;
   cudaStream_t stream;
 };
 
@@ -625,12 +629,14 @@ cudaError_t reg_launch(const Launch& a) {
   p.ph = a.ph;
   // the tables travel in the kernel parameters, copied from the caller's
   // host copy (no device read, so the launch can be captured in a graph)
-  // (T_all's first MNL rows; T_proj's first MNL columns)
-  if (!a.host_tables) return cudaErrorInvalidValue;
-  for (int i = 0; i < S::MNL * S::NN; ++i) p.T[i] = a.host_tables[i];
+  // (T_all's first MNL rows; T_proj's first MNL columns).  The Laplacian
+  // rows left out must be zero, which the caller confirms
+  // (`laplacian_free`): refused otherwise
+  if (!a.host_tables || !a.laplacian_free) return cudaErrorInvalidValue;
+  memcpy(p.T, a.host_tables, sizeof(p.T));
   for (int n = 0; n < S::NN; ++n)
-    for (int r = 0; r < S::MNL; ++r)
-      p.P[n * S::MNL + r] = a.host_tables[S::M * S::NN + n * S::M + r];
+    memcpy(p.P + n * S::MNL, a.host_tables + S::M * S::NN + n * S::M,
+           sizeof(float) * S::MNL);
   gls_lattice_reg_kernel<D, MODE><<<a.grid, REG_THREADS, 0, a.stream>>>(p);
   return cudaGetLastError();
 }
@@ -687,13 +693,15 @@ extern "C" int gls_lattice_config(int dim, int degree, int n_q1d, int mode,
 }
 
 // Launches one variant on `stream` with `grid` blocks: route STAGED (0)
-// with load path `path` (tiles::LOAD_*; the 16-byte and TMA paths need
-// E % 4 == 0 and 16-byte aligned inputs) and the packed tables `tables`
-// on the card, or REGISTERS (1, Q1 with 2 points per axis) with the same
-// tables in host memory (`host_tables`).  Returns cudaGetLastError()
-// after the launch (0 on success); cudaErrorInvalidValue for a (dim, degree, points per axis,
-// mode, route) that is not compiled.  Does not synchronise and allocates
-// nothing.
+// with load path `path` (tiles::LOAD_*; TMA needs E % 4 == 0 and 16-byte
+// aligned inputs) and the packed tables `tables` on the card, or
+// REGISTERS (1, Q1 with 2 points per axis) with the same tables in host
+// memory (`host_tables`), whose Laplacian rows must be zero (a lattice of
+// boxes), as the caller confirms with `laplacian_free` = 1.  Returns
+// cudaGetLastError() after the launch (0 on success);
+// cudaErrorInvalidValue for a (dim, degree, points per axis, mode, route)
+// that is not compiled or REGISTERS without `laplacian_free`.  Does not
+// synchronise and allocates nothing.
 extern "C" int gls_lattice_launch(
     int dim, int degree, int n_q1d, int mode,
     const void* ue, const void* due, const void* up, const void* fq,
@@ -701,8 +709,8 @@ extern "C" int gls_lattice_launch(
     int64_t n_elements, float nu, float h, float alpha0, float sdt,
     int supg, int pspg, int gls_adjoint, int lsic,
     int probe_node, int probe_comp, int route, int grid, int path,
-    void* stream) {
-  if (path < tiles::LOAD_CP_ASYNC_4 || path > tiles::LOAD_TMA)
+    int laplacian_free, void* stream) {
+  if (path != tiles::LOAD_CP_ASYNC_4 && path != tiles::LOAD_TMA)
     return static_cast<int>(cudaErrorInvalidValue);
   Launch a{};
   a.ue = static_cast<const float*>(ue);
@@ -717,6 +725,7 @@ extern "C" int gls_lattice_launch(
                  probe_node, probe_comp};
   a.grid = grid;
   a.path = path;
+  a.laplacian_free = laplacian_free;
   a.stream = static_cast<cudaStream_t>(stream);
   int blocks, smem, threads;
   return static_cast<int>(dispatch_shape(dim, degree, n_q1d, mode, route,

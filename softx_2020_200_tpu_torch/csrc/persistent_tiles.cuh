@@ -8,16 +8,18 @@
 // walking element tiles of BE elements with a grid-stride loop.  A tile's
 // rows (an R x BE box of each input) are loaded asynchronously into a
 // ring of two shared-memory stages, so tile i+1 is in flight while tile i
-// computes.  Three load paths, chosen by the caller per launch:
-//   LOAD_CP_ASYNC_4   cp.async of 4 bytes per element (any row pitch);
-//   LOAD_CP_ASYNC_16  cp.async of 16 bytes (row pitch E % 4 == 0 and
-//                     16-byte aligned rows);
+// computes.  Two load paths, chosen by the caller per launch:
 //   LOAD_TMA          one cp.async.bulk.tensor per input and stage, issued
-//                     by one thread and completed on an mbarrier (same
-//                     alignment); the tensor maps are encoded on the host
-//                     per launch and passed as __grid_constant__.
-// A ragged last tile is zero-filled by every path (src-size 0 for
-// cp.async, out-of-bounds fill for TMA); nothing is padded in memory.
+//                     by one thread and completed on an mbarrier; needs a
+//                     row pitch E % 4 == 0 and 16-byte aligned rows.  The
+//                     tensor maps are encoded on the host, kept in a cache
+//                     keyed by (address, E, rows, box), and passed as
+//                     __grid_constant__;
+//   LOAD_CP_ASYNC_4   cp.async of 4 bytes per element, for any row pitch.
+// (A 16-byte cp.async path was measured against TMA and lost at 47 of 48
+// staged shape-variants: PERF.md.)  A ragged last tile is zero-filled by
+// both paths (src-size 0 for cp.async, out-of-bounds fill for TMA);
+// nothing is padded in memory.
 
 #pragma once
 
@@ -25,11 +27,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+
 namespace tiles {
 
 constexpr int LOAD_CP_ASYNC_4 = 0;
-constexpr int LOAD_CP_ASYNC_16 = 1;
-constexpr int LOAD_TMA = 2;
+constexpr int LOAD_TMA = 1;
 constexpr int STAGES = 2;
 constexpr int MAX_INPUTS = 6;
 
@@ -52,14 +55,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void cp_async4(float* dst, const float* src,
                                           int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_u32(dst)),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(bytes)
                : "memory");
@@ -156,22 +151,11 @@ struct Ring {
       const int R = in.rows[k];
       const float* src = in.ptr[k];
       float* d = dst + off[k];
-      if (path == LOAD_CP_ASYNC_16) {
-        constexpr int C4 = BE / 4;
-        for (int i = tid; i < R * C4; i += THREADS) {
-          const int r = i / C4, c = (i % C4) * 4;
-          const int64_t left = E - (e0 + c);
-          const int bytes = left >= 4 ? 16 : (left > 0 ? 4 * (int)left : 0);
-          cp_async16(d + r * BE + c,
-                     bytes > 0 ? src + (int64_t)r * E + e0 + c : src, bytes);
-        }
-      } else {
-        for (int i = tid; i < R * BE; i += THREADS) {
-          const int r = i / BE, c = i % BE;
-          const bool ok = e0 + c < E;
-          cp_async4(d + r * BE + c, ok ? src + (int64_t)r * E + e0 + c : src,
-                    ok ? 4 : 0);
-        }
+      for (int i = tid; i < R * BE; i += THREADS) {
+        const int r = i / BE, c = i % BE;
+        const bool ok = e0 + c < E;
+        cp_async4(d + r * BE + c, ok ? src + (int64_t)r * E + e0 + c : src,
+                  ok ? 4 : 0);
       }
     }
     cp_async_commit();
@@ -222,24 +206,58 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// Fills in.maps for the TMA path: each input [rows, E] f32 with row pitch
-// E * 4 bytes, box BE x rows.  Inputs with 0 rows are skipped.
-inline cudaError_t encode_inputs(Inputs& in, int n, int64_t E, int BE) {
+// The tensor map of one input [rows, E] f32 with row pitch E * 4 bytes
+// and box BE x rows.  A map depends on nothing else, so each is encoded
+// once and kept: the solver loops reuse a handful of addresses, and
+// encoding on every launch would add host time to every launch.  The
+// MAP_CACHE entries are replaced in turn.
+constexpr int MAP_CACHE = 64;
+
+inline cudaError_t tensor_map(CUtensorMap* map, const float* ptr, int64_t E,
+                              int rows, int box) {
+  struct Key {
+    const float* ptr;
+    int64_t E;
+    int rows, box;
+  };
+  static std::mutex mu;
+  static Key keys[MAP_CACHE];
+  static CUtensorMap maps[MAP_CACHE];
+  static int used = 0, next = 0;
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i)
+    if (keys[i].ptr == ptr && keys[i].E == E && keys[i].rows == rows &&
+        keys[i].box == box) {
+      *map = maps[i];
+      return cudaSuccess;
+    }
   EncodeTiled fn = encode_tiled();
   if (!fn) return cudaErrorNotSupported;
+  cuuint64_t dims[2] = {(cuuint64_t)E, (cuuint64_t)rows};
+  cuuint64_t strides[1] = {(cuuint64_t)E * sizeof(float)};
+  cuuint32_t boxdim[2] = {(cuuint32_t)box, (cuuint32_t)rows};
+  cuuint32_t elem[2] = {1, 1};
+  const CUresult r = fn(&maps[next], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+                        const_cast<float*>(ptr), dims, strides, boxdim, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_NONE,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+  keys[next] = Key{ptr, E, rows, box};
+  *map = maps[next];
+  next = (next + 1) % MAP_CACHE;
+  if (used < MAP_CACHE) ++used;
+  return cudaSuccess;
+}
+
+// Fills in.maps for the TMA path (inputs with 0 rows are skipped).
+inline cudaError_t encode_inputs(Inputs& in, int n, int64_t E, int BE) {
   for (int k = 0; k < n; ++k) {
     if (in.rows[k] == 0) continue;
-    cuuint64_t dims[2] = {(cuuint64_t)E, (cuuint64_t)in.rows[k]};
-    cuuint64_t strides[1] = {(cuuint64_t)E * sizeof(float)};
-    cuuint32_t box[2] = {(cuuint32_t)BE, (cuuint32_t)in.rows[k]};
-    cuuint32_t elem[2] = {1, 1};
-    const CUresult r = fn(&in.maps[k], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-                          const_cast<float*>(in.ptr[k]), dims, strides, box,
-                          elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                          CU_TENSOR_MAP_SWIZZLE_NONE,
-                          CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                          CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-    if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
+    const cudaError_t err =
+        tensor_map(&in.maps[k], in.ptr[k], E, in.rows[k], BE);
+    if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }

@@ -19,10 +19,11 @@ Dispatch is on the device of the tensors it is given:
 The kernel is compiled by ``nvcc`` from ``csrc/gls_element.cu`` at first
 use into ``build/`` next to this package, and loaded with ``ctypes``
 (``ops/cuda_build.py``).  A launch is a persistent grid
-(``ops/persistent_tiles.py``) on one of two routes: STAGED (tiles of
-rows through a shared-memory ring, one thread per quadrature point, then
-one per node) or REGISTERS (one thread per element, on the shapes whose
-state fits the registers); ``ROUTE`` says which.
+(``ops/persistent_tiles.py``) on one of two routes, chosen per launch
+from the shape and E (``route_for``): STAGED (tiles of rows through a
+shared-memory ring, one thread per quadrature point, then one per node)
+or REGISTERS (one, two or four threads per element, on the shapes whose
+state fits the registers).
 """
 
 from __future__ import annotations
@@ -48,22 +49,17 @@ SUPPORTED = {(2, 1), (2, 2), (3, 1), (3, 2)}
 # does not fit the registers), and its threads per block
 REGISTER_SHAPES = {(2, 1), (2, 2), (3, 1)}
 REG_THREADS = 64
-# the compiled threads per element of the REGISTERS route, per dim
+# the compiled threads per element of the REGISTERS route, per dim (a
+# launch takes the largest that fits the card at once,
+# ``persistent_tiles.split_for``: at the Taylor-Couette shape, 2 for the
+# tangent and 4 for the primal and the probe)
 REG_SPLITS = {2: (1, 2, 4), 3: (1,)}
-# the route ("auto", "staged" or "registers"; "auto" takes REGISTERS from
-# REG_MIN_PER_SM elements per SM on) and the tile ring's load path where
-# rows are 16-byte aligned ("cp.async" or "tma"), each chosen by
-# measurement (PERF.md); 4-byte cp.async wherever rows are not aligned
-ROUTE = "auto"
+# a launch takes REGISTERS from this many elements per SM on, STAGED
+# below (chosen by measurement: PERF.md)
 REG_MIN_PER_SM = 64
-LOADER = "tma"
-# REGISTERS: threads per element ("auto": the largest of REG_SPLITS that
-# fits the card at once, ``persistent_tiles.split_for``; or 1, 2, 4)
-REG_SPLIT = "auto"
 
 _BUILD: cuda_build.KernelBuild | None = None
 _CONFIG: dict = {}
-_PLANS: dict = {}
 
 
 def get_build() -> cuda_build.KernelBuild:
@@ -81,9 +77,12 @@ def get_build() -> cuda_build.KernelBuild:
     return _BUILD
 
 
-def route_for(dim: int, degree: int, n_elements: int, n_sms: int) -> int:
-    """The route of one launch (``ROUTE``, ``REG_MIN_PER_SM``)."""
-    return pt.choose_route(ROUTE, (dim, degree) in REGISTER_SHAPES,
+def route_for(dim: int, degree: int, n_elements: int, n_sms: int,
+              route: str = "auto") -> int:
+    """The route of one launch: ``route`` "auto" takes REGISTERS from
+    ``REG_MIN_PER_SM`` elements per SM on where the shape has it;
+    "staged" or "registers" forces one (``persistent_tiles.choose_route``)."""
+    return pt.choose_route(route, (dim, degree) in REGISTER_SHAPES,
                            n_elements, REG_MIN_PER_SM, n_sms)
 
 
@@ -170,6 +169,10 @@ class GLSElementKernel(nn.Module):
         self.register_buffer("tables", torch.as_tensor(
             packed, dtype=torch.float32, device=device))
         self._plain_cache = {}
+        self._plans = {}
+        self._flags = tuple(int(f) for f in (stab.supg, stab.pspg,
+                                              stab.gls_viscous_adjoint,
+                                              stab.lsic))
 
     # ------------------------------------------------------------------
     def plain(self, stab=None):
@@ -196,7 +199,7 @@ class GLSElementKernel(nn.Module):
         if not self._on_cuda(ue):
             return self.plain()(ue, xe, up, fq, h, alpha0, sdt)
         out = torch.empty_like(ue)
-        self._launch(_PRIMAL, ue, None, xe, up, fq, h, out, alpha0, sdt)
+        self._launch(_PRIMAL, ue, None, (xe, up, fq, h, alpha0, sdt), out)
         return out
 
     def tangent(self, ue, due, xe, up, fq, h, alpha0, sdt):
@@ -206,7 +209,7 @@ class GLSElementKernel(nn.Module):
             return tangent_batched(self.plain(), ue, due, xe, up, fq, h,
                                    alpha0, sdt)
         out = torch.empty_like(ue)
-        self._launch(_TANGENT, ue, due, xe, up, fq, h, out, alpha0, sdt)
+        self._launch(_TANGENT, ue, due, (xe, up, fq, h, alpha0, sdt), out)
         return out
 
     def node_blocks(self, ue, xe, up, fq, h, alpha0, sdt):
@@ -215,77 +218,81 @@ class GLSElementKernel(nn.Module):
         if not self._on_cuda(ue):
             return node_blocks_batched(self.plain(), ue, xe, up, fq, h,
                                        alpha0, sdt)
+        return self._call(_PROBE, ue, None, (xe, up, fq, h, alpha0, sdt))
+
+    # ------------------------------------------------------------------
+    def _call(self, mode, ue, due, args, route="auto", split=None):
+        """One variant on CUDA tensors, ``args`` = (xe, up, fq, h, alpha0,
+        sdt): out [nn, c, E], or for the probe the node blocks
+        [nn, c*c, E] from nn*c launches.  ``route`` and ``split`` force a
+        route and its threads per element (None: the largest that fits);
+        the solvers leave both to the launch plan."""
         nn, c, E = ue.shape
+        if mode != _PROBE:
+            out = torch.empty_like(ue)
+            self._launch(mode, ue, due, args, out, (0, 0), route, split)
+            return out
         out = ue.new_empty((nn, c * c, E))
         for n0 in range(nn):
             for j in range(c):
-                self._launch(_PROBE, ue, None, xe, up, fq, h, out, alpha0,
-                             sdt, probe=(n0, j))
+                self._launch(_PROBE, ue, None, args, out, (n0, j), route,
+                             split)
         return out
 
-    # ------------------------------------------------------------------
-    def _plan(self, mode, E, device):
+    def _plan(self, mode, E, device, route, split):
         """(route, split, grid) of a launch on E elements, cached per
-        variant, E, device and the module's settings: the host cost of a
-        launch is most of a small kernel's time."""
-        d, k = self.dim, self.degree
-        key = (d, k, mode, E, device.index, ROUTE, REG_SPLIT, REG_MIN_PER_SM)
-        if key in _PLANS:
-            return _PLANS[key]
-        n_sms = torch.cuda.get_device_properties(device).multi_processor_count
-        route = route_for(d, k, E, n_sms)
-        split = 1
-        if route == pt.REGISTERS and REG_SPLIT == "auto":
-            split = pt.split_for(
-                E, [(n, config_on_card(d, k, mode, route, n)[0])
-                    for n in REG_SPLITS[d]], n_sms, REG_THREADS)
-        elif route == pt.REGISTERS:
-            split = int(REG_SPLIT)
-        blocks_per_sm = config_on_card(d, k, mode, route, split)[0]
-        grid = pt.persistent_grid(E, tile_config(d, k, mode, route,
-                                                 split)["be"],
-                                  blocks_per_sm, n_sms)
-        _PLANS[key] = (route, split, grid)
-        return _PLANS[key]
+        variant, E and forced route (the device is the tables'): the host
+        cost of a launch is most of a small kernel's time."""
+        key = (mode, E, route, split)
+        if key not in self._plans:
+            d, k = self.dim, self.degree
+            if (d, k) not in SUPPORTED or self.nq != self.nn:
+                raise ValueError(
+                    f"CUDA GLS kernel: no variant for dim={d}, degree={k} "
+                    f"with {self.nq} quadrature points (compiled: Q1/Q2 in "
+                    f"2D/3D with degree+1 points per axis)")
+            n_sms = pt.sm_count(device)
+            r = route_for(d, k, E, n_sms, route)
+            n = 1
+            if r == pt.REGISTERS:
+                n = split or pt.split_for(
+                    E, [(s, config_on_card(d, k, mode, r, s)[0])
+                        for s in REG_SPLITS[d]], n_sms, REG_THREADS)
+            grid = pt.persistent_grid(E, tile_config(d, k, mode, r, n)["be"],
+                                      config_on_card(d, k, mode, r, n)[0],
+                                      n_sms)
+            self._plans[key] = (r, n, grid)
+        return self._plans[key]
 
-    def _launch(self, mode, ue, due, xe, up, fq, h, out, alpha0, sdt,
-                probe=(0, 0)):
+    def _launch(self, mode, ue, due, args, out, probe=(0, 0), route="auto",
+                split=None):
+        xe, up, fq, h, alpha0, sdt = args
         d, nn, nq, c = self.dim, self.nn, self.nq, self.nc
-        if (d, self.degree) not in SUPPORTED or nq != nn:
-            raise ValueError(
-                f"CUDA GLS kernel: no variant for dim={d}, degree="
-                f"{self.degree} with {nq} quadrature points (compiled: "
-                f"Q1/Q2 in 2D/3D with degree+1 points per axis)")
         E = ue.shape[-1]
         expect = [(ue, (nn, c, E)), (xe, (nn, d, E)), (up, (nn, d, E)),
                   (fq, (nq, d, E)), (h, (E,)), (out, out.shape),
                   (self.tables, self.tables.shape)]
         if due is not None:
             expect.append((due, (nn, c, E)))
-        dev = ue.device
+        dev = ue.get_device()
         for t, shape in expect:
             if (t.shape != shape or t.dtype != torch.float32
-                    or t.device != dev or not t.is_contiguous()):
+                    or t.get_device() != dev or not t.is_contiguous()):
                 raise ValueError(
                     "CUDA GLS kernel takes contiguous float32 tensors on "
                     f"{ue.device}: got {tuple(t.shape)} {t.dtype} on "
                     f"{t.device} where {shape} was expected")
-        lib = get_build().lib
-        route, split, grid = self._plan(mode, E, ue.device)
+        route, split, grid = self._plan(mode, E, dev, route, split)
         ptrs = [t.data_ptr() for t in (ue, xe, up, fq, h)]
         if due is not None:
             ptrs.append(due.data_ptr())
-        path = pt.load_path(E, ptrs, LOADER)
-        supg, pspg, adj, lsic = (int(self.stab.supg), int(self.stab.pspg),
-                                 int(self.stab.gls_viscous_adjoint),
-                                 int(self.stab.lsic))
-        stream = torch.cuda.current_stream(ue.device).cuda_stream
-        err = lib.gls_element_launch(
+        err = get_build().lib.gls_element_launch(
             d, self.degree, mode, ptrs[0],
             ptrs[5] if due is not None else None, *ptrs[1:5],
             self.tables.data_ptr(), out.data_ptr(), E, self.nu,
-            float(alpha0), float(sdt), supg, pspg, adj, lsic,
-            probe[0], probe[1], route, split, grid, path, stream)
+            float(alpha0), float(sdt), *self._flags, probe[0], probe[1],
+            route, split, grid, pt.load_path(E, ptrs),
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"GLS element kernel launch failed: CUDA "
                                f"error {err}")

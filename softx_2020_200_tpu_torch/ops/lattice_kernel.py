@@ -27,10 +27,11 @@ Dispatch is on the device of the tensors it is given:
   version.
 
 A launch is a persistent grid (``ops/persistent_tiles.py``) on one of two
-routes: STAGED (every shape: tiles of rows through a shared-memory ring,
-then one thread per point and one per node) or REGISTERS (Q1 with 2
-points per axis on a lattice of boxes: one thread per element, the tables
-in the kernel's parameters); ``ROUTE`` says which.
+routes, chosen per launch from the shape, E and the tables
+(``route_for``): STAGED (every shape: tiles of rows through a
+shared-memory ring, then one thread per point and one per node) or
+REGISTERS (Q1 with 2 points per axis on a lattice of boxes: one thread
+per element, the tables in the kernel's parameters).
 """
 
 from __future__ import annotations
@@ -57,17 +58,12 @@ SUPPORTED = {(2, 1, 2), (2, 2, 3), (3, 1, 2), (3, 2, 3), (2, 1, 3),
              (3, 1, 3)}
 # the shapes with a REGISTERS route: Q1 with 2 points per axis
 REGISTER_SHAPES = {(2, 1, 2), (3, 1, 2)}
-# the route ("auto", "staged" or "registers"; "auto" takes REGISTERS from
-# REG_MIN_PER_SM elements per SM on) and the tile ring's load path where
-# rows are 16-byte aligned ("cp.async" or "tma"), each chosen by
-# measurement (PERF.md)
-ROUTE = "auto"
+# a launch takes REGISTERS from this many elements per SM on, STAGED
+# below (chosen by measurement: PERF.md)
 REG_MIN_PER_SM = 128
-LOADER = "tma"
 
 _BUILD: cuda_build.KernelBuild | None = None
 _CONFIG: dict = {}
-_PLANS: dict = {}
 
 
 def get_build() -> cuda_build.KernelBuild:
@@ -78,7 +74,7 @@ def get_build() -> cuda_build.KernelBuild:
         _BUILD = cuda_build.load(
             SOURCE, "gls_lattice_launch",
             [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
-            + [ctypes.c_int64] + [ctypes.c_float] * 4 + [ctypes.c_int] * 9
+            + [ctypes.c_int64] + [ctypes.c_float] * 4 + [ctypes.c_int] * 10
             + [ctypes.c_void_p])
         _BUILD.lib.gls_lattice_config.restype = ctypes.c_int
         _BUILD.lib.gls_lattice_config.argtypes = (
@@ -87,12 +83,15 @@ def get_build() -> cuda_build.KernelBuild:
 
 
 def route_for(dim: int, degree: int, n_q1d: int, n_elements: int,
-              n_sms: int, laplacian_free: bool) -> int:
-    """The route of one launch (``ROUTE``, ``REG_MIN_PER_SM``).  The
+              n_sms: int, laplacian_free: bool, route: str = "auto") -> int:
+    """The route of one launch: ``route`` "auto" takes REGISTERS from
+    ``REG_MIN_PER_SM`` elements per SM on where the shape has it; "staged"
+    or "registers" forces one (``persistent_tiles.choose_route``).  The
     REGISTERS route leaves out the Laplacian rows of the tables, so it
-    needs them zero (``laplacian_free``: Q1 on a lattice of boxes)."""
+    needs them zero (``laplacian_free``: Q1 on a lattice of boxes, not on
+    a sheared one)."""
     return pt.choose_route(
-        ROUTE, (dim, degree, n_q1d) in REGISTER_SHAPES and laplacian_free,
+        route, (dim, degree, n_q1d) in REGISTER_SHAPES and laplacian_free,
         n_elements, REG_MIN_PER_SM, n_sms)
 
 
@@ -288,7 +287,7 @@ class LatticeGLSKernel(nn.Module):
         self.h = h
         # the basis Laplacians vanish, up to the rounding of J^-1 (Q1 on a
         # lattice of boxes; not on a sheared one): the REGISTERS route
-        # relies on it
+        # relies on it, and its launch is refused without it
         self.laplacian_free = bool(np.abs(T[(dim + 1) * self.nq:]).max()
                                    <= 1e-12 * np.abs(T).max())
         self.register_buffer("T_all", torch.as_tensor(T, dtype=dtype,
@@ -303,6 +302,12 @@ class LatticeGLSKernel(nn.Module):
         self.register_buffer("tables", torch.as_tensor(
             self._host_tables, device=device))
         self._plain_cache = {}
+        # launch plans: per kernel, since the route follows its tables
+        self._plans = {}
+        self._flags = tuple(int(f) for f in (stab.supg, stab.pspg,
+                                              stab.gls_viscous_adjoint,
+                                              stab.lsic))
+        self.q1d = round(self.nq ** (1 / dim))
 
     def plain(self, stab=None):
         """The plain PyTorch kernel on this module's device and dtype
@@ -328,7 +333,7 @@ class LatticeGLSKernel(nn.Module):
         if not self._on_cuda(ue):
             return self.plain()(ue, up, fq, alpha0, sdt)
         out = torch.empty_like(ue)
-        self._launch(_PRIMAL, ue, None, up, fq, out, alpha0, sdt)
+        self._launch(_PRIMAL, ue, None, (up, fq, alpha0, sdt), out)
         return out
 
     def tangent(self, ue, due, up, fq, alpha0, sdt):
@@ -338,7 +343,7 @@ class LatticeGLSKernel(nn.Module):
             return lattice_tangent(self.plain(), ue, due, up, fq, alpha0,
                                    sdt)
         out = torch.empty_like(ue)
-        self._launch(_TANGENT, ue, due, up, fq, out, alpha0, sdt)
+        self._launch(_TANGENT, ue, due, (up, fq, alpha0, sdt), out)
         return out
 
     def node_blocks(self, ue, up, fq, alpha0, sdt):
@@ -347,69 +352,74 @@ class LatticeGLSKernel(nn.Module):
         if not self._on_cuda(ue):
             return lattice_node_blocks(self.plain(), ue, up, fq, alpha0,
                                        sdt, self.nn)
+        return self._call(_PROBE, ue, None, (up, fq, alpha0, sdt))
+
+    # ------------------------------------------------------------------
+    def _call(self, mode, ue, due, args, route="auto"):
+        """One variant on CUDA tensors, ``args`` = (up, fq, alpha0, sdt):
+        out [c*nn, E], or for the probe the node blocks [nn, c*c, E] from
+        nn*c launches.  ``route`` forces a route; the solvers leave it to
+        the launch plan."""
+        if mode != _PROBE:
+            out = torch.empty_like(ue)
+            self._launch(mode, ue, due, args, out, (0, 0), route)
+            return out
         c, E = self.nc, ue.shape[-1]
         out = ue.new_empty((self.nn, c * c, E))
         for n0 in range(self.nn):
             for j in range(c):
-                self._launch(_PROBE, ue, None, up, fq, out, alpha0, sdt,
-                             probe=(n0, j))
+                self._launch(_PROBE, ue, None, args, out, (n0, j), route)
         return out
 
-    # ------------------------------------------------------------------
-    def _plan(self, mode, q1d, E, device):
-        """(route, grid) of a launch on E elements, cached per variant,
-        E, device and the module's settings: the host cost of a launch is
-        most of a small kernel's time."""
-        d, k = self.dim, self.degree
-        key = (d, k, q1d, mode, E, device.index, ROUTE, REG_MIN_PER_SM)
-        if key not in _PLANS:
-            n_sms = torch.cuda.get_device_properties(
-                device).multi_processor_count
-            route = route_for(d, k, q1d, E, n_sms, self.laplacian_free)
+    def _plan(self, mode, q1d, E, device, route):
+        """(route, grid) of a launch on E elements, cached per variant, E
+        and forced route (the device is the tables'): the host cost of a
+        launch is most of a small kernel's time."""
+        key = (mode, E, route)
+        if key not in self._plans:
+            d, k = self.dim, self.degree
+            if (d, k, q1d) not in SUPPORTED or q1d ** d != self.nq:
+                raise ValueError(
+                    f"CUDA GLS lattice kernel: no variant for dim={d}, "
+                    f"degree={k} with {self.nq} quadrature points "
+                    f"(compiled: Q1/Q2 in 2D/3D with degree+1 points per "
+                    f"axis, and Q1 with 3)")
+            n_sms = pt.sm_count(device)
+            r = route_for(d, k, q1d, E, n_sms, self.laplacian_free, route)
             grid = pt.persistent_grid(
-                E, tile_config(d, k, q1d, mode, route)["be"],
-                config_on_card(d, k, q1d, mode, route)[0], n_sms)
-            _PLANS[key] = (route, grid)
-        return _PLANS[key]
+                E, tile_config(d, k, q1d, mode, r)["be"],
+                config_on_card(d, k, q1d, mode, r)[0], n_sms)
+            self._plans[key] = (r, grid)
+        return self._plans[key]
 
-    def _launch(self, mode, ue, due, up, fq, out, alpha0, sdt,
-                probe=(0, 0)):
-        d, nn, nq, c = self.dim, self.nn, self.nq, self.nc
-        q1d = round(nq ** (1 / d))
-        if (d, self.degree, q1d) not in SUPPORTED or q1d ** d != nq:
-            raise ValueError(
-                f"CUDA GLS lattice kernel: no variant for dim={d}, degree="
-                f"{self.degree} with {nq} quadrature points (compiled: "
-                f"Q1/Q2 in 2D/3D with degree+1 points per axis, and Q1 "
-                f"with 3)")
+    def _launch(self, mode, ue, due, args, out, probe=(0, 0), route="auto"):
+        up, fq, alpha0, sdt = args
+        d, nn, nq, c, q1d = self.dim, self.nn, self.nq, self.nc, self.q1d
         E = ue.shape[-1]
         expect = [(ue, (c * nn, E)), (up, (d * nn, E)), (fq, (d * nq, E)),
                   (out, out.shape), (self.tables, self.tables.shape)]
         if due is not None:
             expect.append((due, (c * nn, E)))
-        dev = ue.device
+        dev = ue.get_device()
         for t, shape in expect:
             if (t.shape != shape or t.dtype != torch.float32
-                    or t.device != dev or not t.is_contiguous()):
+                    or t.get_device() != dev or not t.is_contiguous()):
                 raise ValueError(
                     "CUDA GLS lattice kernel takes contiguous float32 "
                     f"tensors on {ue.device}: got {tuple(t.shape)} "
                     f"{t.dtype} on {t.device} where {shape} was expected")
-        lib = get_build().lib
-        route, grid = self._plan(mode, q1d, E, ue.device)
+        route, grid = self._plan(mode, q1d, E, dev, route)
         ptrs = [t.data_ptr() for t in (ue, up, fq)]
         if due is not None:
             ptrs.append(due.data_ptr())
-        path = pt.load_path(E, ptrs, LOADER)
-        stream = torch.cuda.current_stream(ue.device).cuda_stream
-        err = lib.gls_lattice_launch(
+        err = get_build().lib.gls_lattice_launch(
             d, self.degree, q1d, mode, ptrs[0],
             ptrs[3] if due is not None else None, ptrs[1], ptrs[2],
             self.tables.data_ptr(), self._host_tables_ptr, out.data_ptr(), E,
-            self.nu, self.h, float(alpha0), float(sdt),
-            int(self.stab.supg), int(self.stab.pspg),
-            int(self.stab.gls_viscous_adjoint), int(self.stab.lsic),
-            probe[0], probe[1], route, grid, path, stream)
+            self.nu, self.h, float(alpha0), float(sdt), *self._flags,
+            probe[0], probe[1], route, grid, pt.load_path(E, ptrs),
+            int(self.laplacian_free),
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"GLS lattice kernel launch failed: CUDA "
                                f"error {err}")

@@ -6,19 +6,23 @@ A launch of ``csrc/gls_element.cu`` (B1) or ``csrc/gls_lattice.cu``
 (B2) is a persistent grid: at most as many blocks as fit on the card at
 once, each walking element tiles of ``be`` elements.  A tile's input
 rows ``[R, E]`` arrive in a ring of two shared-memory stages by one of
-three load paths, which need different row pitches:
+two load paths, which need different row pitches:
 
-- ``LOAD_TMA`` and ``LOAD_CP_ASYNC_16`` move 16 bytes at a time, so every
-  row must start on a 16-byte boundary: E % 4 == 0 and 16-byte aligned
-  base pointers (a TMA row pitch must be a multiple of 16 bytes);
+- ``LOAD_TMA`` needs every row to start on a 16-byte boundary: E % 4 == 0
+  and 16-byte aligned base pointers (a TMA row pitch must be a multiple
+  of 16 bytes);
 - ``LOAD_CP_ASYNC_4`` takes any pitch (E % 4 != 0, as on a lattice of
   195 elements, or a tensor that starts mid-row).
 """
 
 from __future__ import annotations
 
-LOAD_CP_ASYNC_4, LOAD_CP_ASYNC_16, LOAD_TMA = 0, 1, 2
-LOADERS = ("cp.async", "tma")
+import functools
+import operator
+
+import torch
+
+LOAD_CP_ASYNC_4, LOAD_TMA = 0, 1
 # the two routes of B1 and B2: STAGED (tiles through the ring, one thread
 # per point, then one per node) and REGISTERS (one thread per element, its
 # state in registers), on the shapes that compile it
@@ -57,18 +61,19 @@ def persistent_grid(n_elements: int, be: int, blocks_per_sm: int,
     return min(tiles, blocks_per_sm * n_sms)
 
 
-def load_path(n_elements: int, data_ptrs, loader: str) -> int:
-    """The load path for inputs ``[R, n_elements]`` at ``data_ptrs``:
-    TMA (``loader == "tma"``) or 16-byte ``cp.async`` when every row
-    starts on a 16-byte boundary, else 4-byte ``cp.async``."""
-    if loader not in LOADERS:
-        raise ValueError(f"unknown loader {loader!r} (one of {LOADERS})")
-    bits = 4 * n_elements              # the row pitch in bytes
-    for p in data_ptrs:
-        bits |= p
-    if bits & 15:
-        return LOAD_CP_ASYNC_4
-    return LOAD_TMA if loader == "tma" else LOAD_CP_ASYNC_16
+def sm_count(device) -> int:
+    """The SM count of a CUDA ``device`` (a device or its index)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def load_path(n_elements: int, data_ptrs) -> int:
+    """The load path for inputs ``[R, n_elements]`` at ``data_ptrs``: TMA
+    when every row starts on a 16-byte boundary, else 4-byte
+    ``cp.async``."""
+    # the row pitch in bytes and every base address, on 16 bytes
+    aligned = not functools.reduce(operator.or_, data_ptrs,
+                                   4 * n_elements) & 15
+    return LOAD_TMA if aligned else LOAD_CP_ASYNC_4
 
 
 def choose_route(route: str, has_registers: bool, n_elements: int,

@@ -311,16 +311,14 @@ def test_persistent_grid():
 
 def test_load_path():
     aligned = [0x7f0000000000, 0x7f0000000100]
-    assert pt.load_path(12288, aligned, "tma") == pt.LOAD_TMA
-    assert pt.load_path(12288, aligned, "cp.async") == pt.LOAD_CP_ASYNC_16
+    assert pt.load_path(12288, aligned) == pt.LOAD_TMA
+    assert pt.load_path(12, aligned) == pt.LOAD_TMA
     # a row pitch that is not a multiple of 16 bytes (E % 4 != 0)
     for E in (195, 210, 9):
-        assert pt.load_path(E, aligned, "tma") == pt.LOAD_CP_ASYNC_4
+        assert pt.load_path(E, aligned) == pt.LOAD_CP_ASYNC_4
     # a tensor that starts mid-row (a view with an offset)
-    assert pt.load_path(12288, aligned + [0x7f0000000104],
-                        "tma") == pt.LOAD_CP_ASYNC_4
-    with pytest.raises(ValueError, match="unknown loader"):
-        pt.load_path(16, aligned, "bulk")
+    assert pt.load_path(12288, aligned + [0x7f0000000104]) == \
+        pt.LOAD_CP_ASYNC_4
 
 
 def test_route_and_split_choice():
@@ -342,6 +340,8 @@ def test_route_and_split_choice():
     # the wrappers' rules on the card's 132 SMs
     assert gls_kernel.route_for(2, 2, 12288, 132) == REGISTERS
     assert gls_kernel.route_for(3, 2, 10 ** 6, 132) == STAGED
+    assert gls_kernel.route_for(2, 2, 768, 132, "registers") == REGISTERS
+    assert gls_kernel.route_for(2, 2, 12288, 132, "staged") == STAGED
     assert lattice_kernel.route_for(3, 1, 2, 32768, 132, True) == REGISTERS
     assert lattice_kernel.route_for(3, 1, 2, 4096, 132, True) == STAGED
     assert lattice_kernel.route_for(2, 2, 3, 10 ** 6, 132, True) == STAGED
@@ -349,26 +349,50 @@ def test_route_and_split_choice():
     assert lattice_kernel.route_for(3, 1, 2, 32768, 132, False) == STAGED
 
 
+def _lattice_kernel(dim, degree, shear):
+    """B2's wrapper on a lattice of translates of a box (``shear`` 0) or a
+    sheared box."""
+    from softx_2020_200_tpu_torch.fem.basis import TensorBasis
+    basis = TensorBasis(dim, degree)
+    _, w, B, G, H = basis.quadrature(degree + 1)
+    A = np.diag([0.5, 0.25, 0.75][:dim])
+    A[0, 1] = shear
+    return lattice_kernel.LatticeGLSKernel(
+        dim=dim, degree=degree, B=B, G=G, H=H, w=w, xe0=basis.nodes @ A.T,
+        nu=NU, stab=StabFlags(), dtype=torch.float64, device="cpu")
+
+
 @pytest.mark.parametrize("dim", [2, 3])
 def test_lattice_laplacian_rows_vanish_only_for_q1_boxes(dim):
     """B2's REGISTERS route leaves out the Laplacian rows of T_all: zero
     for Q1 on a box lattice (the route's shapes), not for Q2 or for Q1 on
     a sheared lattice of translates."""
-    from softx_2020_200_tpu_torch.fem.basis import TensorBasis
 
     def kernel(degree, shear):
-        basis = TensorBasis(dim, degree)
-        _, w, B, G, H = basis.quadrature(degree + 1)
-        A = np.diag([0.5, 0.25, 0.75][:dim])
-        A[0, 1] = shear
-        return lattice_kernel.LatticeGLSKernel(
-            dim=dim, degree=degree, B=B, G=G, H=H, w=w,
-            xe0=basis.nodes @ A.T, nu=NU, stab=StabFlags(),
-            dtype=torch.float64, device="cpu")
+        return _lattice_kernel(dim, degree, shear)
 
     assert kernel(1, 0.0).laplacian_free
     assert not kernel(1, 0.2).laplacian_free
     assert not kernel(2, 0.0).laplacian_free
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_lattice_launch_plan_follows_each_kernels_tables(dim, monkeypatch):
+    """The launch plan of B2 is per kernel: a sheared lattice planned
+    after a box lattice of the same shape and E stays STAGED, where the
+    box takes REGISTERS (a plan shared between them would hand the
+    sheared lattice a route without its Laplacian terms)."""
+    monkeypatch.setattr(pt, "sm_count", lambda device: 132)
+    monkeypatch.setattr(lattice_kernel, "config_on_card",
+                        lambda *variant: (4, 0, 128))
+    E = 128 * 132 + 512                      # REGISTERS for a box lattice
+    device = torch.device("cuda", 0)
+    box, sheared = _lattice_kernel(dim, 1, 0.0), _lattice_kernel(dim, 1, 0.2)
+    for mode in range(3):
+        assert box._plan(mode, 2, E, device, "auto")[0] == pt.REGISTERS
+        assert sheared._plan(mode, 2, E, device, "auto")[0] == pt.STAGED
+        assert sheared._plan(mode, 2, E, device, "registers")[0] == \
+            pt.STAGED
 
 
 def _b1_variants():
