@@ -4,7 +4,7 @@ NVIDIA GPU.
 
     python3 chip_smoke.py                  # all phases, needs CUDA
     python3 chip_smoke.py --phases 2,3c    # only these (no contract line)
-    python3 chip_smoke.py --parent DIR     # and time DIR's B1 and B2 too
+    python3 chip_smoke.py --parent DIR     # and time DIR's B1-B3 too
     python3 chip_smoke.py --write-decks D  # write the main-path decks
 
 Phases (each prints its own lines; any failed check raises):
@@ -15,10 +15,11 @@ Phases (each prints its own lines; any failed check raises):
    ``csrc/gls_element.cu``), the GLS lattice kernel (B2,
    ``csrc/gls_lattice.cu``) and the grad-div (GD) lattice kernel (B3,
    ``csrc/gd_lattice.cu``) of ``softx_2020_200_tpu_torch`` (and, with
-   ``--parent``, B1 and B2 of that checkout), one process each, in
+   ``--parent``, the three of that checkout), one process each, in
    parallel; prints ptxas's registers and spills and fails on a spill in
-   any B1 or B2 variant; holds each B1 and B2 variant's shared memory to
-   the Python mirror the CPU tests check (``tile_config``);
+   any B1, B2 or B3 variant; holds each variant's shared memory, threads
+   and blocks per SM to the Python mirror the CPU tests check
+   (``tile_config``);
 3. B1 against its plain PyTorch version (primal, frozen-tau tangent,
    node-block probes) for Q1/Q2 in 2D/3D on non-affine geometry, without
    and with LSIC, on each route (STAGED; REGISTERS with each of its
@@ -31,10 +32,12 @@ Phases (each prints its own lines; any failed check raises):
    a box and then a sheared lattice of the same size (the sheared one
    must stay STAGED, and its REGISTERS launch is refused), then at B2's
    main-path shapes and every multigrid level of phases 6 and 7, each
-   timed; 3d:
-   B3 (primal, exact tangent) against its plain version on bounded and
-   periodic parity lattices with a ragged tail, then at its main-path
-   shapes (2D 256^2, 3D 16^3 and 32^3) with times;
+   timed; 3d: B3 (primal, exact tangent) against its plain version on
+   every route (STAGED; REGISTERS in 2D) and both load paths, on bounded
+   and periodic parity lattices with a ragged tail, with E % 4 == 0 and
+   below one tile, and on a sheared 3D lattice (a full J^-1), then at its
+   main-path shapes (2D 256^2, 3D 16^3 and 32^3) and 2D 128^2, each
+   timed as B2 (with the parent's B3 through its own wrapper);
 4. main path, 2D steady, B1: Taylor-Couette (Q2 on a curved shell) at
    refinements 3 and 5 (12,288 cells) through ``gls_navier_stokes_2d``;
 5. main path, 3D transient, B2: the Taylor-Green vortex on a periodic
@@ -318,8 +321,9 @@ PARENT_PACKAGE = "parent_softx_2020_200_tpu_torch"
 
 
 def load_parent(root: str):
-    """B1's and B2's wrappers (``ops/gls_kernel.py``,
-    ``ops/lattice_kernel.py``) of the ``softx_2020_200_tpu_torch`` in
+    """B1's, B2's and B3's wrappers (``ops/gls_kernel.py``,
+    ``ops/lattice_kernel.py``, ``ops/lattice_gd_kernel.py``) of the
+    ``softx_2020_200_tpu_torch`` in
     another checkout ``root`` (a ``git archive`` of the parent commit),
     imported beside this one under another package name; they build
     their kernels from that checkout's sources into its own ``build/``."""
@@ -337,7 +341,9 @@ def load_parent(root: str):
         root=os.path.abspath(root),
         cuda_build=importlib.import_module(f"{ops}.cuda_build"),
         gls_kernel=importlib.import_module(f"{ops}.gls_kernel"),
-        lattice_kernel=importlib.import_module(f"{ops}.lattice_kernel"))
+        lattice_kernel=importlib.import_module(f"{ops}.lattice_kernel"),
+        lattice_gd_kernel=importlib.import_module(
+            f"{ops}.lattice_gd_kernel"))
 
 
 def phase_build(parent=None) -> None:
@@ -350,12 +356,13 @@ def phase_build(parent=None) -> None:
                lattice_gd_kernel.SOURCE]
     parent_builds, failed = {}, []
     if parent is not None:
-        # the parent's B1 and B2, compiled by its own cuda_build into its
-        # own build/, while this checkout's compile
+        # the parent's B1, B2 and B3, compiled by its own cuda_build into
+        # its own build/, while this checkout's compile
         def build_parent():
             try:
                 parent_builds.update(parent.cuda_build.compile_sources(
-                    [parent.gls_kernel.SOURCE, parent.lattice_kernel.SOURCE]))
+                    [parent.gls_kernel.SOURCE, parent.lattice_kernel.SOURCE,
+                     parent.lattice_gd_kernel.SOURCE]))
             except RuntimeError as exc:
                 failed.append(exc)
         thread = threading.Thread(target=build_parent)
@@ -370,13 +377,14 @@ def phase_build(parent=None) -> None:
                   f"({build.seconds:.2f} s)")
         parent.gls_kernel.get_build()
         parent.lattice_kernel.get_build()
+        parent.lattice_gd_kernel.get_build()
     print(f"all {len(sources) + len(parent_builds)} built in "
           f"{time.perf_counter() - t0:.2f} s")
     modes = {"0": "primal", "1": "tangent", "2": "probe"}
     spills = []
     for source, build in builds.items():
         name = os.path.splitext(os.path.basename(source))[0]
-        current = source in (gls_kernel.SOURCE, lattice_kernel.SOURCE)
+        current = source in sources
         print(f" {os.path.relpath(source, ROOT)} -> "
               f"{os.path.relpath(build.path, ROOT)} ({build.seconds:.2f} s)")
         # ptxas reports each template instance <dim, [degree, points per
@@ -400,8 +408,8 @@ def phase_build(parent=None) -> None:
                               r"loads", line)
                 if current and m and (int(m.group(1)) or int(m.group(2))):
                     spills.append(f"{entry}: {line.strip()}")
-    check(not spills, "ptxas spills in B1/B2: " + "; ".join(spills))
-    print("  no spill in any B1 or B2 variant")
+    check(not spills, "ptxas spills: " + "; ".join(spills))
+    print("  no spill in any B1, B2 or B3 variant")
     gls_kernel.get_build()
     lattice_kernel.get_build()
     lattice_gd_kernel.get_build()
@@ -425,6 +433,19 @@ def phase_build(parent=None) -> None:
                 check(smem == cfg["smem_bytes"] and threads == cfg["threads"]
                       and blocks >= 1,
                       f"{name} {shape} {mode} {route}: {smem} B, {threads} "
+                      f"threads (mirror {cfg}), {blocks} blocks per SM")
+    gk = lattice_gd_kernel
+    for dim in (2, 3):
+        for route in (0, 1) if dim in gk.REGISTER_DIMS else (0,):
+            for mode in range(2):
+                blocks, smem, threads = gk.config_on_card(dim, mode, route)
+                cfg = gk.tile_config(dim, mode, route)
+                print(f"  B3 d={dim} {gk.ROUTE_NAMES[route]:9s} "
+                      f"{gk.MODES[mode]:7s}: {threads} threads, {smem} B "
+                      f"shared memory, {blocks} blocks per SM")
+                check(smem == cfg["smem_bytes"] and threads == cfg["threads"]
+                      and blocks >= 1,
+                      f"B3 d={dim} {mode} {route}: {smem} B, {threads} "
                       f"threads (mirror {cfg}), {blocks} blocks per SM")
 
 
@@ -936,49 +957,97 @@ def _bound_of(ops: float, words: float, E: int):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-def _bound_gd(dim: int, variant: str, E: int):
-    """(bound_ms, bound_by) for one call of B3 (Q2-Q1, 3 Gauss points
-    per axis) on E elements, counted as ``_bound`` counts: the velocity
-    contractions Tv @ u_i and Pv @ coefficients (and Tv's value rows @
-    u_prev in the primal), the pressure's Tp @ p and Pp @ div, and the
-    pointwise physics as the kernel writes it (3d^2 + 6d + 2 a point in
-    the primal, 5d^2 + 4d + 2 in the tangent)."""
+def _gd_ops(dim: int, variant: str, dense: bool = False) -> int:
+    """Operations of one element of B3's function (Q2-Q1, 3 Gauss points
+    per axis), 2 per multiply-add, plus the pointwise physics as the
+    kernel writes it (3d^2 + 6d + 2 a point in the primal, 5d^2 + 4d + 2
+    in the tangent).
+
+    Sum-factorized (the default): values and the d reference gradients of
+    a velocity component in d passes of 3-term products over 3^(d-1)
+    pencils (pass k makes k + 1 fields: 135 multiply-adds in 2D, 729 in
+    3D), values alone in d passes (54, 243), the pressure in 2-term
+    passes (30, 114); J^-1 on each component's reference gradients and
+    on each component's gradient coefficients (d^2 a point each); the
+    transposed passes cost what the forward ones do.  The primal
+    interpolates u with gradients, p, and u_prev's values, the tangent u
+    and du with gradients and dp.  Per element: 2D primal 1,938, tangent
+    2,442; 3D primal 14,847, tangent 19,545.
+
+    ``dense``: the same function as products of the dense tables (Tv @ u
+    and Pv @ coefficients, Tp @ p and Pp @ div; u_prev through Tv's
+    value rows), as counted before the kernel was sum-factorized."""
     d = dim
     nnv, nnp, nq = 3 ** d, 2 ** d, 3 ** d
-    rows, mv = d * nnv + nnp, (d + 1) * nq
-    proj = 2 * d * nnv * mv + 2 * nnp * nq
+    mv = (d + 1) * nq
+    if dense:
+        proj = 2 * d * nnv * mv + 2 * nnp * nq
+        if variant == "primal":
+            return (2 * d * mv * nnv + 2 * nq * nnp + 2 * d * nq * nnv
+                    + proj + nq * (3 * d * d + 6 * d + 2))
+        return (4 * d * mv * nnv + 2 * nq * nnp + proj
+                + nq * (5 * d * d + 4 * d + 2))
+    pencils = 3 ** (d - 1)
+    grad = sum(pencils * (k + 1) * 9 for k in range(1, d + 1))
+    value = d * pencils * 9
+    pres = sum(6 * 3 ** (k - 1) * 2 ** (d - k) for k in range(1, d + 1))
+    maps = nq * d * d
     if variant == "primal":
-        ops = (2 * d * mv * nnv + 2 * nq * nnp + 2 * d * nq * nnv + proj
-               + nq * (3 * d * d + 6 * d + 2))
-        words = 2 * rows + d * nnv + d * nq       # ue, vpe, fq; out
-    else:
-        ops = (4 * d * mv * nnv + 2 * nq * nnp + proj
-               + nq * (5 * d * d + 4 * d + 2))
-        words = 3 * rows                          # ue, due; out
-    return _bound_of(ops, words, E)
+        fma = d * grad + pres + d * value + 2 * d * maps + d * grad + pres
+        return 2 * fma + nq * (3 * d * d + 6 * d + 2)
+    fma = 2 * d * grad + pres + 3 * d * maps + d * grad + pres
+    return 2 * fma + nq * (5 * d * d + 4 * d + 2)
+
+
+def _bound_gd(dim: int, variant: str, E: int, dense: bool = False):
+    """(bound_ms, bound_by) for one call of B3 on E elements: the bytes
+    it must move (ue, vpe, fq in, out in the primal; ue, due in, out in
+    the tangent; f32) against the operations of its function
+    (``_gd_ops``; ``dense`` counts them as dense products)."""
+    d = dim
+    rows = d * 3 ** d + 2 ** d
+    words = (2 * rows + 2 * d * 3 ** d if variant == "primal"
+             else 3 * rows)
+    return _bound_of(_gd_ops(dim, variant, dense), words, E)
 
 
 # ----------------------------------------------------------------------
 # phase 3d: B3
 # ----------------------------------------------------------------------
-# B3 parity lattices (dim, cells): 195 and 210 cells, several blocks (32
-# elements in 2D, 16 in 3D) and a ragged tail; each bounded and periodic
-B3_PARITY = ((2, (15, 13)), (3, (7, 6, 5)))
+# B3 parity lattices (dim, cells, periodic): 195 and 210 cells (E % 4 !=
+# 0: 4-byte loads), several 32-element tiles and a ragged tail, each
+# bounded and periodic; 108 and 60 cells (E % 4 == 0, a ragged tile: a
+# partial TMA box); 9 and 12 cells (below one tile)
+B3_PARITY = ((2, (15, 13), False), (2, (15, 13), True),
+             (3, (7, 6, 5), False), (3, (7, 6, 5), True),
+             (2, (12, 9), False), (3, (5, 4, 3), False),
+             (2, (3, 3), False), (3, (2, 2, 3), False))
+# a sheared 3D lattice (x moved by B2_SHEAR times y) that the GD operator
+# still takes as a lattice of translates: J^-1 is not diagonal
+B3_SHEARED = (3, (8, 8, 5))
 # B3's main-path shapes (label, dim, cells): the GD cavity of phase 8,
-# the GD Taylor-Green deck of phase 9 and the example's own 32^3
+# the GD Taylor-Green deck of phase 9 and the example's own 32^3; and 2D
+# 128^2 (124 elements per SM on 132 SMs), just below where the default
+# route turns to REGISTERS, timed on both routes
 B3_SHAPES = (("2D Q2-Q1 256^2 (GD cavity)", 2, (256,) * 2),
              ("3D Q2-Q1 16^3 (GD TGV)", 3, (16,) * 3),
-             ("3D Q2-Q1 32^3", 3, (32,) * 3))
+             ("3D Q2-Q1 32^3", 3, (32,) * 3),
+             ("2D Q2-Q1 128^2", 2, (128,) * 2))
 
 
-def _gd_variants(torch, dim, cells, periodic, device, seed):
-    """(operator, kernel calls, plain calls) of B3 on a box lattice with
-    seeded float32 state: the primal residual and the exact tangent (the
-    plain tangent by forward-mode AD)."""
+def _gd_variants(torch, dim, cells, periodic, device, seed, shear=0.0,
+                 parent=None):
+    """(operator, kernel calls, plain calls, forced, parent's calls) of
+    B3 on a lattice with seeded float32 state: the primal residual and
+    the exact tangent (the plain tangent by forward-mode AD);
+    ``forced(route)`` gives the kernel's calls on a forced route; the
+    parent's calls (its own wrapper on the same tables and inputs) are
+    None without ``parent``."""
     from softx_2020_200_tpu_torch.fem import mesh as M
     from softx_2020_200_tpu_torch.solvers.gd import GDOperator
     m = M.subdivided_hyper_rectangle([0.0] * dim, [1.0, 0.7, 1.3][:dim],
                                      list(cells), True, dim=dim)
+    m.vertices[:, 0] += shear * m.vertices[:, 1]
     if periodic:
         m.periodic += [(2 * a, 2 * a + 1, a) for a in range(dim)]
     op = GDOperator(m, nu=0.01, gamma=0.8, dtype=torch.float32,
@@ -1001,35 +1070,86 @@ def _gd_variants(torch, dim, cells, periodic, device, seed):
     ref = {"primal": lambda: plain(ue, vpe, fq, a0),
            "tangent": lambda: torch.func.jvp(
                lambda v: plain(v, None, None, a0), (ue,), (due,))[1]}
-    return op, kernel, ref
+
+    def forced(route, split=None):
+        return {"primal": lambda: k._call(0, ue, None, vpe, fq, a0, route),
+                "tangent": lambda: k._call(1, ue, due, None, None, a0,
+                                           route)}
+
+    parent_fns = None
+    if parent is not None and op.layout_v is not None:
+        _, w, Bv, Gv, _ = op.space_v.basis.quadrature(3)
+        _, _, Bp, _, _ = op.space_p.basis.quadrature(3)
+        pk = parent.lattice_gd_kernel.LatticeGDKernel(
+            dim=dim, degree_pressure=1, Bv=Bv, Gv=Gv, Bp=Bp, w=w,
+            xe0=op.layout_v.elem_coords_grid_order()[0], nu=k.nu,
+            gamma=k.gamma, dtype=torch.float32, device=device)
+        parent_fns = {"primal": lambda: pk.residual(ue, vpe, fq, a0),
+                      "tangent": lambda: pk.tangent(ue, due, a0)}
+    return op, kernel, ref, forced, parent_fns
 
 
-def phase_gd_kernel(torch, device) -> tuple[dict, float]:
+def phase_gd_kernel(torch, device, parent=None) -> tuple[dict, float]:
+    import numpy as np
+    from softx_2020_200_tpu_torch.ops import lattice_gd_kernel as gk
+    from softx_2020_200_tpu_torch.ops import persistent_tiles as pt
     print("== phase 3d: B3 parity (CUDA kernel vs plain PyTorch, float32, "
-          f"tolerance {KERNEL_RTOL:g} of the max-abs scale), then parity "
-          "and times at the main path's shapes (ms)")
+          f"tolerance {KERNEL_RTOL:g} of the max-abs scale; every route, "
+          "both load paths), a sheared lattice, then parity and times at "
+          "the main path's shapes (ms)")
     worst = 0.0
-    for dim, cells in B3_PARITY:
-        for periodic in (False, True):
-            op, kernel, plain = _gd_variants(torch, dim, cells, periodic,
-                                             device, seed=dim)
-            check(op.layout_v is not None, "B3 parity lattice took SoA")
-            label = f"d={dim} Q2-Q1{' periodic' if periodic else ''}"
-            worst = max(worst, _compare(torch, label, op.space_v.n_elements,
-                                        kernel, plain))
+    for dim, cells, periodic in B3_PARITY:
+        op, kernel, plain, forced, _ = _gd_variants(torch, dim, cells,
+                                                    periodic, device, seed=dim)
+        check(op.layout_v is not None, "B3 parity lattice took SoA")
+        label = f"d={dim} Q2-Q1{' periodic' if periodic else ''}"
+        worst = max(worst, _check_settings(
+            torch, label, op.space_v.n_elements, kernel, forced,
+            _outputs(torch, plain), dim in gk.REGISTER_DIMS))
+    dim, cells = B3_SHEARED
+    op, kernel, plain, forced, _ = _gd_variants(
+        torch, dim, cells, False, device, seed=4, shear=B2_SHEAR)
+    check(op.layout_v is not None, "B3 sheared lattice took SoA")
+    Jinv = op.kernel.geometry[0]
+    off_diag = float(np.abs(Jinv - np.diag(np.diag(Jinv))).max())
+    print(f"  d={dim} sheared lattice: off-diagonal |J^-1| {off_diag:.3e}")
+    check(off_diag > 0, "B3 sheared lattice has a diagonal J^-1")
+    worst = max(worst, _check_settings(
+        torch, f"d={dim} Q2-Q1 sheared", op.space_v.n_elements, kernel,
+        forced, _outputs(torch, plain), False))
+    # the entry point refuses a route that is not compiled (REGISTERS in
+    # 3D) with cudaErrorInvalidValue, and the launch never runs
+    k, E = op.kernel, op.space_v.n_elements
+    ue = torch.zeros(k.rows, E, device=device)
+    out = torch.empty_like(ue)
+    err = gk.get_build().lib.gd_lattice_launch(
+        dim, 1, 1, ue.data_ptr(), ue.data_ptr(), None, None,
+        k._host_tables.ctypes.data, out.data_ptr(), E, k.nu, k.gamma, 1.5,
+        pt.REGISTERS, 1, pt.load_path(E, [ue.data_ptr()]),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    print(f"  d={dim}: a REGISTERS launch returns CUDA error {err}")
+    check(err == 1, f"d={dim}: REGISTERS launch returned {err}, not "
+          "cudaErrorInvalidValue (1)")
     times = {}
     for label, dim, cells in B3_SHAPES:
-        op, kernel, plain = _gd_variants(torch, dim, cells, True, device,
-                                         seed=5)
+        op, kernel, plain, forced, parent_fns = _gd_variants(
+            torch, dim, cells, True, device, seed=5, parent=parent)
         check(op.layout_v is not None, f"{label} took the SoA path")
         E = op.space_v.n_elements
-        worst = max(worst, _compare(torch, label, E, kernel, plain))
-        _time_variants(torch, label, E, kernel, plain, times)
-        for what in kernel:
-            b, by = _bound_gd(dim, what, E)
-            print(f"  bound B3 {label:30s} {what:11s} {b:9.4f} ms ({by}); "
-                  f"kernel {times[label][what]['ms']:9.4f} ms")
-        del op, kernel, plain
+        want = _outputs(torch, plain)
+        worst = max(worst, _check_settings(torch, label, E, kernel, forced,
+                                           want, dim in gk.REGISTER_DIMS))
+        _compare_parent(torch, label, E, parent_fns, want)
+        del want
+        _time_variants(torch, label, E, kernel, plain, times, parent_fns,
+                       _settings(dim in gk.REGISTER_DIMS), forced)
+        routes = {gk.ROUTE_NAMES[r] for (_, _, route), (r, _) in
+                  op.kernel._plans.items() if route == "auto"}
+        times[label]["routes"] = sorted(routes)
+        print(f"  {label:32s} E={E:7d} default route {sorted(routes)} "
+              f"({pt.sm_count(device)} SMs)")
+        del op, kernel, plain, forced, parent_fns
         torch.cuda.empty_cache()
     return times, worst
 
@@ -1351,40 +1471,68 @@ def phase_gd_tgv(torch) -> dict:
 
 
 # ----------------------------------------------------------------------
-def _shape_keys(lattice: bool) -> dict:
-    """label -> (dim, degree, points per axis) of B1's or B2's timed
-    shapes."""
-    if lattice:
+# the variants of each kernel's timed shapes, as _time_variants names
+# them, and the launch variant each one's time is per launch of
+VARIANTS = {"gls_element": ("primal", "tangent", "node blocks"),
+            "gls_lattice": ("primal", "tangent", "node blocks"),
+            "gd_lattice": ("primal", "tangent")}
+LAUNCH_MODE = {"primal": "primal", "tangent": "tangent",
+               "node blocks": "probe"}
+
+
+def _shape_keys(kernel: str) -> dict:
+    """label -> (dim, degree, points per axis) of a kernel's timed shapes
+    (B3: the velocity degree)."""
+    if kernel == "gls_lattice":
         return {s[0]: s[1:4] for s in B2_SHAPES + B2_LEVELS}
+    if kernel == "gd_lattice":
+        return {s[0]: (s[1], 2, 3) for s in B3_SHAPES}
     return {s[0]: (s[1], s[2], s[2] + 1) for s in B1_SHAPES}
 
 
-def _by_shape(times: dict, lattice: bool, launches: dict) -> list:
+def _shape_bound(kernel: str, label: str, what: str, E: int):
+    dim, degree, q1d = _shape_keys(kernel)[label]
+    if kernel == "gd_lattice":
+        return _bound_gd(dim, what, E)
+    return _bound(dim, degree, what, E, kernel == "gls_lattice", q1d)
+
+
+def _by_shape(times: dict, kernel: str, launches: dict) -> list:
     """Per timed shape: its main-path launches per variant (``launches``
-    maps (dim, degree, points per axis, E, variant) to a count) and, per
-    variant, the kernel's, the parent's (None without one) and the plain
-    version's times, the forced routes' times and the bound."""
-    keys, out = _shape_keys(lattice), []
+    maps (dim, degree, points per axis, E, variant[, route]) to a count,
+    summed over routes) and, per variant, the kernel's, the parent's
+    (None without one) and the plain version's times, the forced routes'
+    times and the bound."""
+    keys, out = _shape_keys(kernel), []
     for label, row in times.items():
         dim, degree, q1d = keys[label]
         E = row["E"]
+        counts = {}
+        for key, n in launches.items():
+            if tuple(key[:4]) == (dim, degree, q1d, E):
+                counts[key[4]] = counts.get(key[4], 0) + n
         entry = {"label": label, "E": E, "launches": {
-            mode: launches.get((dim, degree, q1d, E, mode), 0)
-            for mode in ("primal", "tangent", "probe")}}
-        for what in ("primal", "tangent", "node blocks"):
+            LAUNCH_MODE[what]: counts.get(LAUNCH_MODE[what], 0)
+            for what in VARIANTS[kernel]}}
+        if "routes" in row:
+            entry["routes"] = row["routes"]
+        for what in VARIANTS[kernel]:
             r = row[what]
-            b, by = _bound(dim, degree, what, E, lattice, q1d)
+            b, by = _shape_bound(kernel, label, what, E)
             entry[what] = {"ms": r["ms"], "ms_parent": r.get("ms_parent"),
                            "plain_ms": r["plain_ms"], "bound_ms": b,
                            "bound_by": by, "call_ms": r["call_ms"],
                            "call_ms_parent": r.get("call_ms_parent"),
                            "settings": {n: t for n, (t, _) in
                                         r["settings"].items()}}
+            if kernel == "gd_lattice":
+                entry[what]["bound_ms_dense"] = _bound_gd(dim, what, E,
+                                                          dense=True)[0]
         out.append(entry)
     return out
 
 
-def _device_seconds(by_shape: list, key: str, lattice: bool) -> float | None:
+def _device_seconds(by_shape: list, key: str, kernel: str) -> float | None:
     """Device seconds of one main-path run: the main-path launches of each
     timed shape times the device time per launch (``key`` "ms" or
     "ms_parent"; a probe launch is 1/(nn*c) of the node blocks' time).
@@ -1392,25 +1540,24 @@ def _device_seconds(by_shape: list, key: str, lattice: bool) -> float | None:
     total = 0.0
     for entry in by_shape:
         n = entry["launches"]
-        for mode, what in (("primal", "primal"), ("tangent", "tangent"),
-                           ("probe", "node blocks")):
+        for what in VARIANTS[kernel]:
+            mode = LAUNCH_MODE[what]
             ms = entry[what][key]
             if ms is None:
                 return None
             if mode == "probe":
-                dim, degree, _ = _shape_keys(lattice)[entry["label"]]
+                dim, degree, _ = _shape_keys(kernel)[entry["label"]]
                 ms /= (degree + 1) ** dim * (dim + 1)
             total += n[mode] * ms / 1e3
     return total
 
 
-def _entry(name, source, replaces, runs, worst, row, bound, lattice=None,
-           times=None):
+def _entry(name, source, replaces, runs, worst, row, bound, times=None):
     """One kernel's line: its tangent (the Krylov matvec, most of its
     launches) at its main-path shape ``row``: kernel and plain times, and
     (bound ms, bound by); launches in total and per (dim, degree, points
-    per axis, E, variant) over the main-path ``runs``; for B1 and B2
-    (``times``) the parent's time (``ms_parent``, null without
+    per axis, E, variant[, route]) over the main-path ``runs``; with
+    ``times`` the parent's time (``ms_parent``, null without
     ``--parent``), every timed shape and the device seconds of one
     main-path run, the kernel's and the parent's."""
     bound_ms, bound_by = bound
@@ -1428,22 +1575,26 @@ def _entry(name, source, replaces, runs, worst, row, bound, lattice=None,
                                    for k, n in sorted(per_shape.items())}}
     if times is not None:
         entry["ms_parent"] = t.get("ms_parent")
-        entry["by_shape"] = _by_shape(times, lattice, per_shape)
+        entry["by_shape"] = _by_shape(times, name, per_shape)
         for key in ("ms", "ms_parent"):
             entry[f"main_path_device_s{key[2:]}"] = _device_seconds(
-                entry["by_shape"], key, lattice)
+                entry["by_shape"], key, name)
     return entry
 
 
-def _print_bounds(times: dict, lattice: bool) -> None:
-    shapes = _shape_keys(lattice)
+def _print_bounds(times: dict, kernel: str) -> None:
+    tag = {"gls_element": "B1", "gls_lattice": "B2", "gd_lattice": "B3"}
     for label, row in times.items():
-        dim, degree, q1d = shapes[label]
-        for what in ("primal", "tangent", "node blocks"):
-            b, by = _bound(dim, degree, what, row["E"], lattice, q1d)
+        for what in VARIANTS[kernel]:
+            b, by = _shape_bound(kernel, label, what, row["E"])
             parent = row[what].get("ms_parent")
-            print(f"  bound {'B2' if lattice else 'B1'} {label:32s} "
-                  f"{what:11s} {b:9.4f} ms ({by}); kernel "
+            dense = ""
+            if kernel == "gd_lattice":
+                d = _shape_keys(kernel)[label][0]
+                dense = (f" (dense count "
+                         f"{_bound_gd(d, what, row['E'], True)[0]:.4f} ms)")
+            print(f"  bound {tag[kernel]} {label:32s} "
+                  f"{what:11s} {b:9.4f} ms ({by}){dense}; kernel "
                   f"{row[what]['ms']:9.4f} ms" + (
                       f", parent {parent:9.4f} ms" if parent is not None
                       else ""))
@@ -1459,7 +1610,7 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", metavar="LIST",
                         help="run only these phases (comma-separated, "
                         "e.g. 2,3c; phase 1 always runs, and phase 2 with "
-                        "any of 3-3c); prints no contract line")
+                        "any of 3-3d); prints no contract line")
     parser.add_argument("--parent", metavar="DIR",
                         help="another checkout (a git archive of the parent "
                         "commit): time its B1 and B2 through its own "
@@ -1470,7 +1621,7 @@ def main(argv=None) -> int:
         return 0
     only = set(args.phases.split(",")) if args.phases else set(PHASES)
     check(only <= set(PHASES), f"unknown phases {only - set(PHASES)}")
-    if only & {"3", "3b", "3c"}:
+    if only & {"3", "3b", "3c", "3d"}:
         only.add("2")
 
     import torch
@@ -1496,12 +1647,13 @@ def main(argv=None) -> int:
     if "3b" in only:
         times_b1, worst_at_scale = phase_kernel_times(torch, device, parent)
         worst_b1 = max(worst_b1, worst_at_scale)
-        _print_bounds(times_b1, lattice=False)
+        _print_bounds(times_b1, "gls_element")
     if "3c" in only:
         times_b2, worst_b2 = phase_lattice_kernel(torch, device, parent)
-        _print_bounds(times_b2, lattice=True)
+        _print_bounds(times_b2, "gls_lattice")
     if "3d" in only:
-        times_b3, worst_b3 = phase_gd_kernel(torch, device)
+        times_b3, worst_b3 = phase_gd_kernel(torch, device, parent)
+        _print_bounds(times_b3, "gd_lattice")
     b1_runs = phase_couette(torch) if "4" in only else []
     b2_runs = [phase(torch) for name, phase in (("5", phase_tgv),
                                             ("6", phase_tgv_gmg),
@@ -1521,14 +1673,14 @@ def main(argv=None) -> int:
     entries = [
         _entry("gls_element", gls_kernel.SOURCE,
                "softx_2020_200_tpu/ops/pallas_gls.py:218", b1_runs, worst_b1,
-               b1, _bound(2, 2, "tangent", b1["E"], False), False, times_b1),
+               b1, _bound(2, 2, "tangent", b1["E"], False), times_b1),
         _entry("gls_lattice", lattice_kernel.SOURCE,
                "softx_2020_200_tpu/ops/pallas_lattice.py:103", b2_runs,
-               worst_b2, b2, _bound(3, 1, "tangent", b2["E"], True), True,
+               worst_b2, b2, _bound(3, 1, "tangent", b2["E"], True),
                times_b2),
         _entry("gd_lattice", lattice_gd_kernel.SOURCE,
                "softx_2020_200_tpu/ops/pallas_lattice_gd.py:59", b3_runs,
-               worst_b3, b3, _bound_gd(2, "tangent", b3["E"])),
+               worst_b3, b3, _bound_gd(2, "tangent", b3["E"]), times_b3),
     ]
     print(smi)
     print(json.dumps({"kernels": entries}))

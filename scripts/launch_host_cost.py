@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Host cost of one call of the GLS kernels B1 and B2 through their
+"""Host cost of one call of the kernels B1, B2 and B3 through their
 wrappers, against another checkout's, on one NVIDIA GPU.
 
     python3 scripts/launch_host_cost.py [--parent DIR] [--pairs N]
@@ -7,7 +7,7 @@ wrappers, against another checkout's, on one NVIDIA GPU.
 
 At main-path shapes of each kernel (B1: the Taylor-Couette shell at
 refinements 3 and 5; B2: the TGV lattice 32^3 and its multigrid level
-8^3) the script times N back-to-back tangent calls (the Krylov matvec's
+8^3; B3: the GD cavity's 256^2 and the GD TGV's 16^3) the script times N back-to-back tangent calls (the Krylov matvec's
 kernel call: input checks, launch plan, output allocation and launch) on
 the host clock and takes microseconds per call, the least of 5 rounds
 (other work on the host only adds to a round).  With ``--parent`` it
@@ -34,7 +34,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = (("B1 2D Q2 Taylor-Couette r3", "element", 2, 2, 3),
           ("B1 2D Q2 Taylor-Couette r5", "element", 2, 2, 5),
           ("B2 3D Q1 8^3 (TGV level 2)", "lattice", 3, 1, (8,) * 3),
-          ("B2 3D Q1 TGV 32^3", "lattice", 3, 1, (32,) * 3))
+          ("B2 3D Q1 TGV 32^3", "lattice", 3, 1, (32,) * 3),
+          ("B3 2D Q2-Q1 256^2 (GD cavity)", "gd", 2, 2, (256,) * 2),
+          ("B3 3D Q2-Q1 16^3 (GD TGV)", "gd", 3, 2, (16,) * 3))
 
 
 def _us_per_call(torch, fn, calls: int, rounds: int = 5) -> float:
@@ -69,11 +71,19 @@ def main(argv=None) -> int:
     print(f"{torch.cuda.get_device_name(0)}; {smi}")
     results = {}
     for label, kind, dim, degree, cells in SHAPES:
-        space = (cs._space(dim, degree, cells, seed=7) if kind == "element"
-                 else cs._lattice(dim, degree, cells, periodic=True))
-        op, kernel, _, _, parent_fns = cs._variants(torch, space, device,
-                                                    seed=3, parent=parent)
-        assert (op.layout is not None) == (kind == "lattice"), label
+        if kind == "gd":
+            op, kernel, _, _, parent_fns = cs._gd_variants(
+                torch, dim, cells, True, device, seed=3, parent=parent)
+            assert op.layout_v is not None, label
+            E = op.space_v.n_elements
+        else:
+            space = (cs._space(dim, degree, cells, seed=7)
+                     if kind == "element"
+                     else cs._lattice(dim, degree, cells, periodic=True))
+            op, kernel, _, _, parent_fns = cs._variants(
+                torch, space, device, seed=3, parent=parent)
+            assert (op.layout is not None) == (kind == "lattice"), label
+            E = space.n_elements
         fns = {"change": kernel["tangent"]}
         if parent_fns is not None:
             fns["parent"] = parent_fns["tangent"]
@@ -88,7 +98,6 @@ def main(argv=None) -> int:
                     samples[name].append(_us_per_call(torch, fns[name],
                                                       args.calls))
         results[label] = samples
-        E = space.n_elements
         if parent is None:
             print(f"  {label:30s} E={E:6d} {samples['change'][0]:8.2f} us "
                   f"per call")

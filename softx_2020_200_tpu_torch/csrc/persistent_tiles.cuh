@@ -1,11 +1,13 @@
-// The skeleton shared by the GLS element kernel (gls_element.cu) and the
-// GLS lattice kernel (gls_lattice.cu) on Hopper (sm_90a).
+// The skeleton shared by the GLS element kernel (gls_element.cu), the
+// GLS lattice kernel (gls_lattice.cu) and the GD lattice kernel
+// (gd_lattice.cu) on Hopper (sm_90a).
 //
-// Both read row blocks [R, E] (element index fastest) and write [R', E].
+// Each reads row blocks [R, E] (element index fastest) and writes [R', E].
 // A launch is a persistent grid: at most as many blocks as fit on the
 // card at once (the occupancy times the SM count, sized by the caller),
-// each loading its constant tables into shared memory once and then
-// walking element tiles of BE elements with a grid-stride loop.  A tile's
+// each loading its constant tables into shared memory once (B3 takes its
+// tables in the kernel parameters) and then walking element tiles of BE
+// elements with a grid-stride loop.  A tile's
 // rows (an R x BE box of each input) are loaded asynchronously into a
 // ring of two shared-memory stages, so tile i+1 is in flight while tile i
 // computes.  Two load paths, chosen by the caller per launch:

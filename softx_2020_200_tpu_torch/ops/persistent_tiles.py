@@ -1,12 +1,13 @@
-"""Host side of the persistent-tile skeleton of the GLS kernels
+"""Host side of the persistent-tile skeleton of the kernels
 (``csrc/persistent_tiles.cuh``): the grid size, the load path per launch
 and the shared-memory budget, in Python so that the CPU tests reach them.
 
-A launch of ``csrc/gls_element.cu`` (B1) or ``csrc/gls_lattice.cu``
-(B2) is a persistent grid: at most as many blocks as fit on the card at
-once, each walking element tiles of ``be`` elements.  A tile's input
-rows ``[R, E]`` arrive in a ring of two shared-memory stages by one of
-two load paths, which need different row pitches:
+A launch of ``csrc/gls_element.cu`` (B1), ``csrc/gls_lattice.cu`` (B2)
+or ``csrc/gd_lattice.cu`` (B3) is a persistent grid: at most as many
+blocks as fit on the card at once, each walking element tiles of ``be``
+elements.  A tile's input rows ``[R, E]`` arrive in a ring of two
+shared-memory stages by one of two load paths, which need different row
+pitches:
 
 - ``LOAD_TMA`` needs every row to start on a 16-byte boundary: E % 4 == 0
   and 16-byte aligned base pointers (a TMA row pitch must be a multiple
@@ -23,9 +24,10 @@ import operator
 import torch
 
 LOAD_CP_ASYNC_4, LOAD_TMA = 0, 1
-# the two routes of B1 and B2: STAGED (tiles through the ring, one thread
-# per point, then one per node) and REGISTERS (one thread per element, its
-# state in registers), on the shapes that compile it
+# the two routes of B1, B2 and B3: STAGED (tiles through the ring; B1 and
+# B2 one thread per point, then one per node; B3 one per pencil of its
+# sum-factorized passes) and REGISTERS (one thread per element, its state
+# in registers), on the shapes that compile it
 STAGED, REGISTERS = 0, 1
 ROUTES = ("auto", "staged", "registers")
 STAGES = 2
