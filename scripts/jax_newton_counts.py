@@ -13,6 +13,13 @@ The deck runs through the solver's own ``solve()``, so what the app
 prints (forces, KE and enstrophy) is printed too.  ``chip_smoke.py``
 holds the PyTorch package's FGMRES iterations per Newton iteration
 against the total this prints.
+
+``--pallas-interpret`` runs a GLS deck's operator through the JAX
+package's Pallas kernels in interpret mode (``enable_pallas(interpret=
+True)``) with the deck's ``jacobian state precision``: how the JAX
+package computes a bf16 Jacobian state on a CPU (its CPU path otherwise
+ignores the key).  ``chip_smoke.py`` holds the bf16 Taylor-Couette run's
+Newton count against the count this prints.
 """
 
 import sys
@@ -22,7 +29,8 @@ import numpy as np
 from softx_2020_200_tpu.core.parameters import SimulationParameters
 
 
-def main(deck: str, dim: int, solver: str = "gls") -> None:
+def main(deck: str, dim: int, solver: str = "gls",
+         pallas_interpret: bool = False) -> None:
     if solver == "gd":
         from softx_2020_200_tpu.solvers.gd import GDNavierStokesSolver as cls
     else:
@@ -46,7 +54,16 @@ def main(deck: str, dim: int, solver: str = "gls") -> None:
 
     cls.solve_transient_step = counting(cls.solve_transient_step)
     cls.solve_steady = counting(cls.solve_steady)
-    s = cls(SimulationParameters.from_file(deck, dim=dim))
+    prm = SimulationParameters.from_file(deck, dim=dim)
+    s = cls(prm)
+    if pallas_interpret:
+        import jax.numpy as jnp
+        bf16 = prm.linear_solver.jacobian_state_precision == "bf16"
+        s.op.enable_pallas(interpret=True,
+                           state_dtype=jnp.bfloat16 if bf16 else None)
+        s._rejit()
+        print(f"Pallas kernels in interpret mode, state "
+              f"{'bf16' if bf16 else 'full precision'}", flush=True)
     levels = getattr(s, "_mg_levels", None) or getattr(s, "mg_levels", None)
     print(f"preconditioner {s.precond_kind}"
           + (f" ({len(levels)} levels)" if levels else ""), flush=True)
@@ -58,4 +75,7 @@ def main(deck: str, dim: int, solver: str = "gls") -> None:
 
 
 if __name__ == "__main__":
-    main(sys.argv[1], int(sys.argv[2]), *sys.argv[3:4])
+    flag = "--pallas-interpret"
+    args = [a for a in sys.argv[1:] if a != flag]
+    main(args[0], int(args[1]), *args[2:3],
+         pallas_interpret=flag in sys.argv[1:])

@@ -80,7 +80,7 @@ def main(argv=None) -> int:
             space = (cs._space(dim, degree, cells, seed=7)
                      if kind == "element"
                      else cs._lattice(dim, degree, cells, periodic=True))
-            op, kernel, _, _, parent_fns = cs._variants(
+            op, kernel, _, _, parent_fns, _ = cs._variants(
                 torch, space, device, seed=3, parent=parent)
             assert (op.layout is not None) == (kind == "lattice"), label
             E = space.n_elements

@@ -411,6 +411,7 @@ __global__ void __launch_bounds__(Shape<D, MODE>::THREADS)
   float* s1 = s0 + S::S0 * BE;
   const tiles::Ring<BE, S::THREADS, 4> ring{stages, S::STAGE, bars, p.path};
   constexpr int off[4] = {S::O_UE, S::O_DUE, S::O_VPE, S::O_FQ};
+  constexpr int esz[4] = {4, 4, 4, 4};           // f32 rows only
 
   const int tid = threadIdx.x;
   const int el = tid % BE;
@@ -420,13 +421,15 @@ __global__ void __launch_bounds__(Shape<D, MODE>::THREADS)
 
   ring.init(tid);
   int64_t t = blockIdx.x;
-  if (t < ntiles) ring.issue(p.in, off, S::STAGE_BYTES, E, t * BE, 0, tid);
+  if (t < ntiles)
+    ring.issue(p.in, off, esz, S::STAGE_BYTES, E, t * BE, 0, tid);
   __syncthreads();
   for (int it = 0; t < ntiles; ++it, t += gridDim.x) {
     const int s = it % tiles::STAGES;
     const int64_t next = t + gridDim.x;
     if (next < ntiles)
-      ring.issue(p.in, off, S::STAGE_BYTES, E, next * BE, s ^ 1, tid);
+      ring.issue(p.in, off, esz, S::STAGE_BYTES, E, next * BE, s ^ 1,
+                 tid);
     else
       ring.skip();
     ring.wait(it);
@@ -746,7 +749,8 @@ cudaError_t staged_launch(const Launch& a) {
   p.path = a.path;
   memcpy(&p.tab, a.host_tables, sizeof(Tables));
   if (p.path == tiles::LOAD_TMA) {
-    err = tiles::encode_inputs(p.in, 4, a.E, BE);
+    const int esz[4] = {4, 4, 4, 4};
+    err = tiles::encode_inputs(p.in, 4, a.E, BE, esz);
     if (err != cudaSuccess) return err;
   }
   gd_lattice_kernel<D, MODE><<<a.grid, S::THREADS, smem, a.stream>>>(p);

@@ -25,6 +25,16 @@
 // G[nq][nn][d], Hs[nq][nn][d(d+1)/2] (the symmetric reference Hessians,
 // off-diagonal pairs summed) and w[nq].
 //
+// State type (SE, bytes per element): the tangent and the probe are also
+// compiled for a bf16 state (SE = 2), B1's state_dtype=bfloat16
+// (pallas_gls.py:287-295, :451-455): ue, xe, up, fq and h arrive as bf16
+// rows at an even row pitch (the caller's, padded to 8 elements so TMA
+// takes them), stay bf16 in the ring stage (half its bytes) or go straight
+// to registers, and are widened to f32 where they are read; due, the
+// arithmetic and out stay f32.  At the Taylor-Couette shape the tangent's
+// bytes fall from 136 to 95 f32-word equivalents per element, which puts
+// its bound on the operations (1.6 us) rather than the bytes (1.4 us).
+//
 // What bounds it on an H100 (3.35 TB/s; 67 TFLOP/s f32 without tensor
 // cores): at the Taylor-Couette shape (2D Q2, E = 12,288) the tangent moves
 // 136 words per element (2.0 us) against about 9 kFLOP (1.7 us): bytes,
@@ -86,7 +96,7 @@ constexpr int REG_THREADS = 64;
 
 using tiles::pad32;
 
-template <int D, int K, int MODE>
+template <int D, int K, int MODE, int SE = 4>
 struct Shape {
   static constexpr int N1 = K + 1;
   static constexpr int NN = (D == 2) ? N1 * N1 : N1 * N1 * N1;
@@ -103,17 +113,20 @@ struct Shape {
   // apg_ref[D], a_p, a_lap[D], Km (symmetric)[NH]
   static constexpr int AV = 0, AG = D, APG = D + D * D, AP = APG + D,
                        ALAP = AP + 1, KM = ALAP + D, NCOEF = KM + NH;
-  // inputs: ue, due, xe, up, fq, h
+  // inputs: ue, due, xe, up, fq, h; due is f32, the others (the frozen
+  // state and the geometry) SE-byte elements: f32, or bf16 in the
+  // bf16-state tangent and probe
   static constexpr int R_UE = NN * C, R_DUE = MODE == TANGENT ? NN * C : 0,
                        R_XE = NN * D, R_UP = NN * D, R_FQ = NQ * D, R_H = 1;
-  static constexpr int O_UE = 0, O_DUE = O_UE + pad32(R_UE * BE),
-                       O_XE = O_DUE + pad32(R_DUE * BE),
-                       O_UP = O_XE + pad32(R_XE * BE),
-                       O_FQ = O_UP + pad32(R_UP * BE),
-                       O_H = O_FQ + pad32(R_FQ * BE),
-                       STAGE = O_H + pad32(R_H * BE);
+  static constexpr int O_UE = 0,
+                       O_DUE = O_UE + tiles::box_words(R_UE, BE, SE),
+                       O_XE = O_DUE + tiles::box_words(R_DUE, BE, 4),
+                       O_UP = O_XE + tiles::box_words(R_XE, BE, SE),
+                       O_FQ = O_UP + tiles::box_words(R_UP, BE, SE),
+                       O_H = O_FQ + tiles::box_words(R_FQ, BE, SE),
+                       STAGE = O_H + tiles::box_words(R_H, BE, SE);
   static constexpr int STAGE_BYTES =
-      4 * BE * (R_UE + R_DUE + R_XE + R_UP + R_FQ + R_H);
+      BE * (SE * (R_UE + R_XE + R_UP + R_FQ + R_H) + 4 * R_DUE);
   static constexpr int SMEM_FLOATS =
       pad32(TABLES) + tiles::STAGES * STAGE + NQ * NCOEF * BE;
 };
@@ -269,12 +282,13 @@ __device__ __forceinline__ void metric(const float (&Ji)[D][D],
 // ------------------------------------------------------------- STAGED --
 // Phase A: point q of element el of the staged tile `st`; writes the
 // point's NCOEF coefficients to cq[k * BE].
-template <int D, int K, int MODE>
+template <int D, int K, int MODE, int SE>
 __device__ __forceinline__ void point_coefficients(const Params& p,
                                                    const float* tab,
                                                    const float* st, int q,
                                                    int el, float* cq) {
-  using S = Shape<D, K, MODE>;
+  using S = Shape<D, K, MODE, SE>;
+  using T = tiles::state_t<SE>;
   constexpr int NN = S::NN, C = S::C, BE = S::BE, NH = S::NH;
   constexpr bool TAN = MODE == TANGENT;
   // at 27 nodes the node loops unroll by 9: fully unrolled, the loads
@@ -295,7 +309,7 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
   for (int n = 0; n < NN; ++n)
 #pragma unroll
     for (int i = 0; i < D; ++i) {
-      const float x = st[S::O_XE + (n * D + i) * BE + el];
+      const float x = tiles::ld<T>(st + S::O_XE, (n * D + i) * BE + el);
 #pragma unroll
       for (int j = 0; j < D; ++j) J[i][j] += x * sG[(q * NN + n) * D + j];
     }
@@ -335,7 +349,7 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
     for (int k = 0; k < NH; ++k) lp += sH[(q * NN + n) * NH + k] * Ks[k];
 #pragma unroll
     for (int k = 0; k < C; ++k) {
-      const float u = st[S::O_UE + (n * C + k) * BE + el];
+      const float u = tiles::ld<T>(st + S::O_UE, (n * C + k) * BE + el);
       v[k] += bn * u;
 #pragma unroll
       for (int a = 0; a < D; ++a) dref[k][a] += g[a] * u;
@@ -350,7 +364,7 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
     }
 #pragma unroll
     for (int i = 0; i < D; ++i)
-      upq[i] += bn * st[S::O_UP + (n * D + i) * BE + el];
+      upq[i] += bn * tiles::ld<T>(st + S::O_UP, (n * D + i) * BE + el);
   }
 
   // physical gradients: reference gradients times J^-1
@@ -370,7 +384,8 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
       if constexpr (TAN) dgrad[k][i] = t;
     }
 #pragma unroll
-  for (int i = 0; i < D; ++i) f[i] = st[S::O_FQ + (q * D + i) * BE + el];
+  for (int i = 0; i < D; ++i)
+    f[i] = tiles::ld<T>(st + S::O_FQ, (q * D + i) * BE + el);
   if constexpr (TAN) {
 #pragma unroll
     for (int k = 0; k < C; ++k) duq[k] = dv[k];
@@ -392,8 +407,8 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
                        dlap);
   }
   float a_v[D], a_g[D][D], a_p, a_pg[D], a_lap[D];
-  weak_form<D, MODE>(p, st[S::O_H + el], scale, v, grad, lap, upq, f, duq,
-                     dgrad, dlap, a_v, a_g, a_p, a_pg, a_lap);
+  weak_form<D, MODE>(p, tiles::ld<T>(st + S::O_H, el), scale, v, grad, lap,
+                     upq, f, duq, dgrad, dlap, a_v, a_g, a_p, a_pg, a_lap);
 
   // stage the reference-frame coefficients: ag_ref = a_g J^-T,
   // apg_ref = J^-1 a_pg
@@ -459,10 +474,10 @@ __device__ __forceinline__ void node_contraction(const float* tab,
   }
 }
 
-template <int D, int K, int MODE>
-__global__ void __launch_bounds__(Shape<D, K, MODE>::THREADS)
+template <int D, int K, int MODE, int SE>
+__global__ void __launch_bounds__(Shape<D, K, MODE, SE>::THREADS)
     gls_element_kernel(const __grid_constant__ Params p) {
-  using S = Shape<D, K, MODE>;
+  using S = Shape<D, K, MODE, SE>;
   constexpr int BE = S::BE, C = S::C;
 
   extern __shared__ __align__(128) float smem[];
@@ -473,6 +488,7 @@ __global__ void __launch_bounds__(Shape<D, K, MODE>::THREADS)
   const tiles::Ring<BE, S::THREADS, 6> ring{stages, S::STAGE, bars, p.path};
   constexpr int off[6] = {S::O_UE, S::O_DUE, S::O_XE, S::O_UP, S::O_FQ,
                           S::O_H};
+  constexpr int esz[6] = {SE, 4, SE, SE, SE, SE};
 
   const int tid = threadIdx.x;
   const int el = tid % BE;
@@ -484,7 +500,8 @@ __global__ void __launch_bounds__(Shape<D, K, MODE>::THREADS)
   // two latencies overlap
   ring.init(tid);
   int64_t t = blockIdx.x;
-  if (t < ntiles) ring.issue(p.in, off, S::STAGE_BYTES, E, t * BE, 0, tid);
+  if (t < ntiles)
+    ring.issue(p.in, off, esz, S::STAGE_BYTES, E, t * BE, 0, tid);
   for (int i = tid; i < S::TABLES; i += S::THREADS) tab[i] = p.tables[i];
   __syncthreads();
 
@@ -492,13 +509,14 @@ __global__ void __launch_bounds__(Shape<D, K, MODE>::THREADS)
     const int s = it % tiles::STAGES;
     const int64_t next = t + gridDim.x;
     if (next < ntiles)
-      ring.issue(p.in, off, S::STAGE_BYTES, E, next * BE, s ^ 1, tid);
+      ring.issue(p.in, off, esz, S::STAGE_BYTES, E, next * BE, s ^ 1,
+                 tid);
     else
       ring.skip();
     ring.wait(it);
     __syncthreads();
 
-    point_coefficients<D, K, MODE>(p, tab, ring.stage(s), slot, el,
+    point_coefficients<D, K, MODE, SE>(p, tab, ring.stage(s), slot, el,
                                    coef + slot * S::NCOEF * BE + el);
     __syncthreads();
 
@@ -530,10 +548,11 @@ __global__ void __launch_bounds__(Shape<D, K, MODE>::THREADS)
 // meshes fill the card with one thread per element).  At the
 // Taylor-Couette shape (2D Q2, 12,288 elements) the tangent takes 2, the
 // primal and the probe, with fewer registers, 4.
-template <int D, int K, int MODE, int SPLIT>
+template <int D, int K, int MODE, int SPLIT, int SE>
 __global__ void __launch_bounds__(REG_THREADS)
     gls_element_reg_kernel(const __grid_constant__ Params p) {
-  using S = Shape<D, K, MODE>;
+  using S = Shape<D, K, MODE, SE>;
+  using T = tiles::state_t<SE>;
   constexpr int NN = S::NN, NQ = S::NQ, C = S::C, NH = S::NH;
   constexpr bool TAN = MODE == TANGENT;
   extern __shared__ __align__(128) float smem[];
@@ -546,12 +565,14 @@ __global__ void __launch_bounds__(REG_THREADS)
   __syncthreads();
 
   const int64_t E = p.E;
-  const float* gue = p.in.ptr[0];
-  const float* gdue = p.in.ptr[1];
-  const float* gxe = p.in.ptr[2];
-  const float* gup = p.in.ptr[3];
-  const float* gfq = p.in.ptr[4];
-  const float* gh = p.in.ptr[5];
+  // the state rows' pitch: E for f32, the caller's for bf16
+  const int64_t P = SE == 4 ? E : p.in.narrow_pitch;
+  const T* gue = static_cast<const T*>(p.in.ptr[0]);
+  const float* gdue = static_cast<const float*>(p.in.ptr[1]);
+  const T* gxe = static_cast<const T*>(p.in.ptr[2]);
+  const T* gup = static_cast<const T*>(p.in.ptr[3]);
+  const T* gfq = static_cast<const T*>(p.in.ptr[4]);
+  const T* gh = static_cast<const T*>(p.in.ptr[5]);
   const int n0 = p.probe_node, j0 = p.probe_comp;
   constexpr int split = SPLIT, per_block = REG_THREADS / SPLIT;
   const int part = threadIdx.x % split;
@@ -565,17 +586,17 @@ __global__ void __launch_bounds__(REG_THREADS)
     const int64_t ec = live ? e : E - 1;
     float ue[NN * C], xe[NN * D], up[NN * D], due[TAN ? NN * C : 1];
 #pragma unroll
-    for (int r = 0; r < NN * C; ++r) ue[r] = __ldg(gue + r * E + ec);
+    for (int r = 0; r < NN * C; ++r) ue[r] = tiles::ldg(gue + r * P + ec);
 #pragma unroll
     for (int r = 0; r < NN * D; ++r) {
-      xe[r] = __ldg(gxe + r * E + ec);
-      up[r] = __ldg(gup + r * E + ec);
+      xe[r] = tiles::ldg(gxe + r * P + ec);
+      up[r] = tiles::ldg(gup + r * P + ec);
     }
     if constexpr (TAN) {
 #pragma unroll
       for (int r = 0; r < NN * C; ++r) due[r] = __ldg(gdue + r * E + ec);
     }
-    const float h = __ldg(gh + ec);
+    const float h = tiles::ldg(gh + ec);
     constexpr int NACC = MODE == PROBE ? C : NN * C;
     float acc[NACC];
 #pragma unroll
@@ -655,7 +676,7 @@ __global__ void __launch_bounds__(REG_THREADS)
         lap[i] = s;
         upq[i] = t;
         if constexpr (TAN) dlap[i] = ds;
-        f[i] = __ldg(gfq + (int64_t)(q * D + i) * E + ec);
+        f[i] = tiles::ldg(gfq + (int64_t)(q * D + i) * P + ec);
       }
       float gn[D], lpn = 0.0f, bn0 = 0.0f;
       if constexpr (MODE == PROBE) {
@@ -749,13 +770,13 @@ constexpr bool has_split(int split) {
 }
 
 // (blocks per SM, shared-memory bytes, threads) of one variant, cached
-template <int D, int K, int MODE, int SPLIT>
+template <int D, int K, int MODE, int SPLIT, int SE>
 cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
-  constexpr size_t smem = sizeof(float) * Shape<D, K, MODE>::TABLES;
+  constexpr size_t smem = sizeof(float) * Shape<D, K, MODE, SE>::TABLES;
   static int cached = 0;
   if (!cached) {
     const cudaError_t err = tiles::occupancy(
-        gls_element_reg_kernel<D, K, MODE, SPLIT>, REG_THREADS, smem,
+        gls_element_reg_kernel<D, K, MODE, SPLIT, SE>, REG_THREADS, smem,
         &cached);
     if (err != cudaSuccess) return err;
   }
@@ -765,14 +786,14 @@ cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
   return cudaSuccess;
 }
 
-template <int D, int K, int MODE>
+template <int D, int K, int MODE, int SE>
 cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
-  using S = Shape<D, K, MODE>;
+  using S = Shape<D, K, MODE, SE>;
   constexpr size_t smem = sizeof(float) * S::SMEM_FLOATS;
   static int cached = 0;
   if (!cached) {
-    const cudaError_t err = tiles::occupancy(gls_element_kernel<D, K, MODE>,
-                                             S::THREADS, smem, &cached);
+    const cudaError_t err = tiles::occupancy(
+        gls_element_kernel<D, K, MODE, SE>, S::THREADS, smem, &cached);
     if (err != cudaSuccess) return err;
   }
   *blocks = cached;
@@ -781,13 +802,14 @@ cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
   return cudaSuccess;
 }
 
-template <int D, int K, int MODE, int SPLIT>
+template <int D, int K, int MODE, int SPLIT, int SE>
 cudaError_t reg_run(bool query, const Params& p, int grid, cudaStream_t s,
                     int* blocks, int* smem, int* threads) {
   if constexpr (has_split<D, K>(SPLIT)) {
-    cudaError_t err = reg_config<D, K, MODE, SPLIT>(blocks, smem, threads);
+    cudaError_t err = reg_config<D, K, MODE, SPLIT, SE>(blocks, smem,
+                                                        threads);
     if (err != cudaSuccess || query || p.E == 0 || grid <= 0) return err;
-    gls_element_reg_kernel<D, K, MODE, SPLIT>
+    gls_element_reg_kernel<D, K, MODE, SPLIT, SE>
         <<<grid, REG_THREADS, *smem, s>>>(p);
     return cudaGetLastError();
   } else {
@@ -795,20 +817,20 @@ cudaError_t reg_run(bool query, const Params& p, int grid, cudaStream_t s,
   }
 }
 
-template <int D, int K, int MODE>
+template <int D, int K, int MODE, int SE>
 cudaError_t run(int route, int split, bool query, Params& p, int grid,
                 cudaStream_t s, int* blocks, int* smem, int* threads) {
-  using S = Shape<D, K, MODE>;
+  using S = Shape<D, K, MODE, SE>;
   if (route == REGISTERS) {
     switch (split) {
-      case 1: return reg_run<D, K, MODE, 1>(query, p, grid, s, blocks, smem, threads);
-      case 2: return reg_run<D, K, MODE, 2>(query, p, grid, s, blocks, smem, threads);
-      case 4: return reg_run<D, K, MODE, 4>(query, p, grid, s, blocks, smem, threads);
+      case 1: return reg_run<D, K, MODE, 1, SE>(query, p, grid, s, blocks, smem, threads);
+      case 2: return reg_run<D, K, MODE, 2, SE>(query, p, grid, s, blocks, smem, threads);
+      case 4: return reg_run<D, K, MODE, 4, SE>(query, p, grid, s, blocks, smem, threads);
       default: return cudaErrorInvalidValue;
     }
   }
   if (route != STAGED) return cudaErrorInvalidValue;
-  cudaError_t err = staged_config<D, K, MODE>(blocks, smem, threads);
+  cudaError_t err = staged_config<D, K, MODE, SE>(blocks, smem, threads);
   if (err != cudaSuccess || query || p.E == 0 || grid <= 0) return err;
   p.in.rows[0] = S::R_UE;
   p.in.rows[1] = S::R_DUE;
@@ -817,49 +839,58 @@ cudaError_t run(int route, int split, bool query, Params& p, int grid,
   p.in.rows[4] = S::R_FQ;
   p.in.rows[5] = S::R_H;
   if (p.path == tiles::LOAD_TMA) {
-    err = tiles::encode_inputs(p.in, 6, p.E, S::BE);
+    const int esz[6] = {SE, 4, SE, SE, SE, SE};
+    err = tiles::encode_inputs(p.in, 6, p.E, S::BE, esz);
     if (err != cudaSuccess) return err;
   }
-  gls_element_kernel<D, K, MODE><<<grid, S::THREADS, *smem, s>>>(p);
+  gls_element_kernel<D, K, MODE, SE><<<grid, S::THREADS, *smem, s>>>(p);
   return cudaGetLastError();
 }
 
+// the primal reads f32 state only; the tangent and the probe, f32 or
+// bf16 state (`state_bytes` 4 or 2)
 template <int D, int K>
-cudaError_t dispatch(int mode, int route, int split, bool query, Params& p,
-                     int grid, cudaStream_t s, int* blocks, int* smem,
-                     int* threads) {
-  switch (mode) {
-    case PRIMAL:
-      return run<D, K, PRIMAL>(route, split, query, p, grid, s, blocks, smem,
-                               threads);
-    case TANGENT:
-      return run<D, K, TANGENT>(route, split, query, p, grid, s, blocks,
-                                smem, threads);
-    case PROBE:
-      return run<D, K, PROBE>(route, split, query, p, grid, s, blocks, smem,
-                              threads);
+cudaError_t dispatch(int mode, int state_bytes, int route, int split,
+                     bool query, Params& p, int grid, cudaStream_t s,
+                     int* blocks, int* smem, int* threads) {
+  switch (mode * 10 + state_bytes) {
+    case PRIMAL * 10 + 4:
+      return run<D, K, PRIMAL, 4>(route, split, query, p, grid, s, blocks,
+                                  smem, threads);
+    case TANGENT * 10 + 4:
+      return run<D, K, TANGENT, 4>(route, split, query, p, grid, s, blocks,
+                                   smem, threads);
+    case PROBE * 10 + 4:
+      return run<D, K, PROBE, 4>(route, split, query, p, grid, s, blocks,
+                                 smem, threads);
+    case TANGENT * 10 + 2:
+      return run<D, K, TANGENT, 2>(route, split, query, p, grid, s, blocks,
+                                   smem, threads);
+    case PROBE * 10 + 2:
+      return run<D, K, PROBE, 2>(route, split, query, p, grid, s, blocks,
+                                 smem, threads);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t dispatch_shape(int dim, int degree, int mode, int route,
-                           int split, bool query, Params& p, int grid,
-                           cudaStream_t s, int* blocks, int* smem,
+cudaError_t dispatch_shape(int dim, int degree, int mode, int state_bytes,
+                           int route, int split, bool query, Params& p,
+                           int grid, cudaStream_t s, int* blocks, int* smem,
                            int* threads) {
   switch (dim * 10 + degree) {
     case 21:
-      return dispatch<2, 1>(mode, route, split, query, p, grid, s, blocks,
-                            smem, threads);
+      return dispatch<2, 1>(mode, state_bytes, route, split, query, p, grid,
+                            s, blocks, smem, threads);
     case 22:
-      return dispatch<2, 2>(mode, route, split, query, p, grid, s, blocks,
-                            smem, threads);
+      return dispatch<2, 2>(mode, state_bytes, route, split, query, p, grid,
+                            s, blocks, smem, threads);
     case 31:
-      return dispatch<3, 1>(mode, route, split, query, p, grid, s, blocks,
-                            smem, threads);
+      return dispatch<3, 1>(mode, state_bytes, route, split, query, p, grid,
+                            s, blocks, smem, threads);
     case 32:
-      return dispatch<3, 2>(mode, route, split, query, p, grid, s, blocks,
-                            smem, threads);
+      return dispatch<3, 2>(mode, state_bytes, route, split, query, p, grid,
+                            s, blocks, smem, threads);
     default:
       return cudaErrorInvalidValue;
   }
@@ -869,42 +900,49 @@ cudaError_t dispatch_shape(int dim, int degree, int mode, int route,
 
 // The variant's blocks per SM (after opting it in to its dynamic shared
 // memory), shared-memory bytes and threads per block on route STAGED (0)
-// or REGISTERS (1, with `split` threads per element); the caller sizes
-// the persistent grid from them.  Returns a CUDA error code
+// or REGISTERS (1, with `split` threads per element), with state rows of
+// `state_bytes` (4: f32; 2: bf16, tangent and probe only); the caller
+// sizes the persistent grid from them.  Returns a CUDA error code
 // (cudaErrorInvalidValue for a variant that is not compiled).
-extern "C" int gls_element_config(int dim, int degree, int mode, int route,
-                                  int split, int* blocks_per_sm,
-                                  int* smem_bytes, int* threads) {
+extern "C" int gls_element_config(int dim, int degree, int mode,
+                                  int state_bytes, int route, int split,
+                                  int* blocks_per_sm, int* smem_bytes,
+                                  int* threads) {
   Params p{};
-  return static_cast<int>(dispatch_shape(dim, degree, mode, route, split,
-                                         true, p, 0, nullptr, blocks_per_sm,
-                                         smem_bytes, threads));
+  return static_cast<int>(dispatch_shape(dim, degree, mode, state_bytes,
+                                         route, split, true, p, 0, nullptr,
+                                         blocks_per_sm, smem_bytes, threads));
 }
 
 // Launches one variant on `stream` with `grid` blocks, on route STAGED (0)
-// with load path `path` (tiles::LOAD_*; TMA needs E % 4 == 0 and 16-byte
-// aligned inputs) or REGISTERS (1) with `split` threads per element (1, 2
-// or 4 in 2D, 1 in 3D; REG_THREADS / split elements a block).  Returns
-// cudaGetLastError() after the launch (0 on success);
-// cudaErrorInvalidValue for a (dim, degree, mode, route) that is not
-// compiled.  Does not synchronise and allocates nothing.
+// with load path `path` (tiles::LOAD_*; TMA needs every row pitch a
+// multiple of 16 bytes and 16-byte aligned inputs) or REGISTERS (1) with
+// `split` threads per element (1, 2 or 4 in 2D, 1 in 3D; REG_THREADS /
+// split elements a block).  The state rows ue, xe, up, fq and h are f32
+// (`state_bytes` 4, row pitch E) or, for the tangent and the probe, bf16
+// (2, row pitch `state_pitch`, even, and 4-byte aligned rows); due and out
+// are f32 with row pitch E.  Returns cudaGetLastError() after the launch
+// (0 on success); cudaErrorInvalidValue for a (dim, degree, mode, state
+// type, route) that is not compiled.  Does not synchronise and allocates
+// nothing.
 extern "C" int gls_element_launch(
-    int dim, int degree, int mode,
+    int dim, int degree, int mode, int state_bytes,
     const void* ue, const void* due, const void* xe, const void* up,
     const void* fq, const void* h, const void* tables, void* out,
-    int64_t n_elements, float nu, float alpha0, float sdt,
-    int supg, int pspg, int gls_adjoint, int lsic,
+    int64_t n_elements, int64_t state_pitch, float nu, float alpha0,
+    float sdt, int supg, int pspg, int gls_adjoint, int lsic,
     int probe_node, int probe_comp, int route, int split, int grid,
     int path, void* stream) {
   if (path != tiles::LOAD_CP_ASYNC_4 && path != tiles::LOAD_TMA)
     return static_cast<int>(cudaErrorInvalidValue);
   Params p{};
-  p.in.ptr[0] = static_cast<const float*>(ue);
-  p.in.ptr[1] = static_cast<const float*>(due);
-  p.in.ptr[2] = static_cast<const float*>(xe);
-  p.in.ptr[3] = static_cast<const float*>(up);
-  p.in.ptr[4] = static_cast<const float*>(fq);
-  p.in.ptr[5] = static_cast<const float*>(h);
+  p.in.ptr[0] = ue;
+  p.in.ptr[1] = due;
+  p.in.ptr[2] = xe;
+  p.in.ptr[3] = up;
+  p.in.ptr[4] = fq;
+  p.in.ptr[5] = h;
+  p.in.narrow_pitch = state_pitch;
   p.tables = static_cast<const float*>(tables);
   p.out = static_cast<float*>(out);
   p.E = n_elements;
@@ -919,8 +957,8 @@ extern "C" int gls_element_launch(
   p.probe_comp = probe_comp;
   p.path = path;
   int blocks, smem, threads;
-  return static_cast<int>(dispatch_shape(dim, degree, mode, route, split,
-                                         false, p, grid,
+  return static_cast<int>(dispatch_shape(dim, degree, mode, state_bytes,
+                                         route, split, false, p, grid,
                                          static_cast<cudaStream_t>(stream),
                                          &blocks, &smem, &threads));
 }

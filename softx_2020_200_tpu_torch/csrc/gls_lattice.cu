@@ -32,6 +32,16 @@
 // which the Q1 levels of a Q2 deck's multigrid hierarchy use (as in the
 // JAX package).
 //
+// State type (SE, bytes per element): the tangent and the probe are also
+// compiled for a bf16 state (SE = 2), B2's state_dtype=bfloat16
+// (pallas_lattice.py:357-360, :421-424): ue, up and fq arrive as bf16 rows
+// at an even row pitch, stay bf16 in the ring stage or go straight to
+// registers, and are widened to f32 where they are read; the products with
+// T_all and T_proj, due and out stay f32 (B2's one-pass bf16 matrix-unit
+// product under state_dtype is a rate trick of the TPU and is not
+// ported).  At TGV 32^3 the tangent's bytes fall from 144 to 104 f32-word
+// equivalents per element (bytes 4.1 us, operations 4.4 us).
+//
 // What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 without tensor
 // cores): at 3D Q1 an element moves 448 B in the primal and 576 B in the
 // tangent against about 5.7 and 8.6 kFLOP: memory-bound (5.6 us for the
@@ -92,7 +102,7 @@ constexpr int REG_THREADS = 128;
 
 using tiles::pad32;
 
-template <int D, int K, int Q, int MODE>
+template <int D, int K, int Q, int MODE, int SE = 4>
 struct Shape {
   static constexpr int N1 = K + 1;
   static constexpr int NN = (D == 2) ? N1 * N1 : N1 * N1 * N1;
@@ -105,14 +115,17 @@ struct Shape {
   static constexpr int THREADS = SLOTS * BE;
   static constexpr int TABLES = 2 * M * NN;
   static constexpr int CROWS = D * M + MNL;   // staged coefficients per element
-  // inputs: ue, due, up, fq
+  // inputs: ue, due, up, fq; due is f32, the frozen state ue, up and fq
+  // SE-byte elements: f32, or bf16 in the bf16-state tangent and probe
   static constexpr int R_UE = C * NN, R_DUE = MODE == TANGENT ? C * NN : 0,
                        R_UP = D * NN, R_FQ = D * NQ;
-  static constexpr int O_UE = 0, O_DUE = O_UE + pad32(R_UE * BE),
-                       O_UP = O_DUE + pad32(R_DUE * BE),
-                       O_FQ = O_UP + pad32(R_UP * BE),
-                       STAGE = O_FQ + pad32(R_FQ * BE);
-  static constexpr int STAGE_BYTES = 4 * BE * (R_UE + R_DUE + R_UP + R_FQ);
+  static constexpr int O_UE = 0,
+                       O_DUE = O_UE + tiles::box_words(R_UE, BE, SE),
+                       O_UP = O_DUE + tiles::box_words(R_DUE, BE, 4),
+                       O_FQ = O_UP + tiles::box_words(R_UP, BE, SE),
+                       STAGE = O_FQ + tiles::box_words(R_FQ, BE, SE);
+  static constexpr int STAGE_BYTES =
+      BE * (SE * (R_UE + R_UP + R_FQ) + 4 * R_DUE);
   static constexpr int SMEM_FLOATS =
       pad32(TABLES) + tiles::STAGES * STAGE + CROWS * BE;
 };
@@ -228,11 +241,12 @@ struct Point {
 // coefficient rows sC [CROWS][BE]: row (i*M + b*NQ + q) for velocity
 // component i and block b (value, gradients, Laplacian); row
 // (D*M + b*NQ + q) for the pressure
-template <int D, int K, int Q, int MODE>
+template <int D, int K, int Q, int MODE, int SE>
 __device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
                                             const float* st, int q, int el,
                                             float* sC) {
-  using S = Shape<D, K, Q, MODE>;
+  using S = Shape<D, K, Q, MODE, SE>;
+  using T = tiles::state_t<SE>;
   constexpr int NN = S::NN, NQ = S::NQ, M = S::M, BE = S::BE, C = S::C;
   constexpr bool TAN = MODE == TANGENT;
   // one pass over the nodes, each table entry T_all[b*NQ + q, n] loaded
@@ -255,7 +269,7 @@ __device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
     for (int b = 0; b < D + 2; ++b) t[b] = sT[(b * NQ + q) * NN + n];
 #pragma unroll
     for (int k = 0; k < C; ++k) {
-      const float u = st[S::O_UE + (k * NN + n) * BE + el];
+      const float u = tiles::ld<T>(st + S::O_UE, (k * NN + n) * BE + el);
 #pragma unroll
       for (int b = 0; b < D + 2; ++b) a[k][b] += t[b] * u;
       if constexpr (TAN) {
@@ -266,7 +280,7 @@ __device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
     }
 #pragma unroll
     for (int i = 0; i < D; ++i)
-      upv[i] += t[0] * st[S::O_UP + (i * NN + n) * BE + el];
+      upv[i] += t[0] * tiles::ld<T>(st + S::O_UP, (i * NN + n) * BE + el);
   }
 
   Point<D, MODE> pt;
@@ -274,7 +288,7 @@ __device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
   for (int k = 0; k < D; ++k) {
     pt.vel[k] = a[k][0];
     pt.lap[k] = a[k][D + 1];
-    pt.s[k] = upv[k] - st[S::O_FQ + (k * NQ + q) * BE + el];
+    pt.s[k] = upv[k] - tiles::ld<T>(st + S::O_FQ, (k * NQ + q) * BE + el);
 #pragma unroll
     for (int j = 0; j < D; ++j) pt.gvel[k][j] = a[k][1 + j];
   }
@@ -314,10 +328,10 @@ __device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
   for (int j = 0; j < D; ++j) cq[(D * M + (1 + j) * NQ) * BE] = a_pg[j];
 }
 
-template <int D, int K, int Q, int MODE>
-__global__ void __launch_bounds__(Shape<D, K, Q, MODE>::THREADS)
+template <int D, int K, int Q, int MODE, int SE>
+__global__ void __launch_bounds__(Shape<D, K, Q, MODE, SE>::THREADS)
     gls_lattice_kernel(const __grid_constant__ Params p) {
-  using S = Shape<D, K, Q, MODE>;
+  using S = Shape<D, K, Q, MODE, SE>;
   constexpr int NN = S::NN, NQ = S::NQ, C = S::C, M = S::M, MNL = S::MNL,
                 BE = S::BE;
 
@@ -329,6 +343,7 @@ __global__ void __launch_bounds__(Shape<D, K, Q, MODE>::THREADS)
   float* sC = stages + tiles::STAGES * S::STAGE;   // coefficients
   const tiles::Ring<BE, S::THREADS, 4> ring{stages, S::STAGE, bars, p.path};
   constexpr int off[4] = {S::O_UE, S::O_DUE, S::O_UP, S::O_FQ};
+  constexpr int esz[4] = {SE, 4, SE, SE};
 
   const int tid = threadIdx.x;
   const int el = tid % BE;
@@ -340,21 +355,24 @@ __global__ void __launch_bounds__(Shape<D, K, Q, MODE>::THREADS)
   // two latencies overlap
   ring.init(tid);
   int64_t t = blockIdx.x;
-  if (t < ntiles) ring.issue(p.in, off, S::STAGE_BYTES, E, t * BE, 0, tid);
+  if (t < ntiles)
+    ring.issue(p.in, off, esz, S::STAGE_BYTES, E, t * BE, 0, tid);
   for (int i = tid; i < S::TABLES; i += S::THREADS) sT[i] = p.tables[i];
   __syncthreads();
   for (int it = 0; t < ntiles; ++it, t += gridDim.x) {
     const int s = it % tiles::STAGES;
     const int64_t next = t + gridDim.x;
     if (next < ntiles)
-      ring.issue(p.in, off, S::STAGE_BYTES, E, next * BE, s ^ 1, tid);
+      ring.issue(p.in, off, esz, S::STAGE_BYTES, E, next * BE, s ^ 1,
+                 tid);
     else
       ring.skip();
     ring.wait(it);
     __syncthreads();
 
     if (slot < NQ)
-      stage_point<D, K, Q, MODE>(p.ph, sT, ring.stage(s), slot, el, sC);
+      stage_point<D, K, Q, MODE, SE>(p.ph, sT, ring.stage(s), slot, el,
+                                     sC);
     __syncthreads();
 
     // phase B: node n of element el
@@ -402,31 +420,33 @@ struct RegShape {
   static constexpr int MNL = (D + 1) * NQ;    // its value + gradient rows
 };
 
-template <int D>
+template <int D, int SE>
 struct RegParams {
-  const float* ue;
+  const tiles::state_t<SE>* ue;
   const float* due;
-  const float* up;
-  const float* fq;
+  const tiles::state_t<SE>* up;
+  const tiles::state_t<SE>* fq;
   float* out;
   int64_t E;
+  int64_t pitch;      // row pitch of ue, up and fq (E for f32)
   Physics ph;
   float T[RegShape<D>::MNL * RegShape<D>::NN];   // T_all [MNL][NN]
   float P[RegShape<D>::NN * RegShape<D>::MNL];   // T_proj [NN][MNL]
 };
 
-template <int D, int MODE>
+template <int D, int MODE, int SE>
 __global__ void __launch_bounds__(REG_THREADS)
-    gls_lattice_reg_kernel(const __grid_constant__ RegParams<D> p) {
+    gls_lattice_reg_kernel(const __grid_constant__ RegParams<D, SE> p) {
   using S = RegShape<D>;
   constexpr int NN = S::NN, NQ = S::NQ, C = S::C, M = S::MNL;
   const int64_t E = p.E;
+  const int64_t P = SE == 4 ? E : p.pitch;
   const int n0 = p.ph.probe_node, j0 = p.ph.probe_comp;
   for (int64_t e = (int64_t)blockIdx.x * REG_THREADS + threadIdx.x; e < E;
        e += (int64_t)gridDim.x * REG_THREADS) {
     float u[C * NN], du[MODE == TANGENT ? C * NN : 1];
 #pragma unroll
-    for (int r = 0; r < C * NN; ++r) u[r] = __ldg(p.ue + r * E + e);
+    for (int r = 0; r < C * NN; ++r) u[r] = tiles::ldg(p.ue + r * P + e);
     if constexpr (MODE == TANGENT) {
 #pragma unroll
       for (int r = 0; r < C * NN; ++r) du[r] = __ldg(p.due + r * E + e);
@@ -462,10 +482,10 @@ __global__ void __launch_bounds__(REG_THREADS)
         if (k < D) {
           pt.vel[k] = a[0];
           pt.lap[k] = 0.0f;
-          float s = -__ldg(p.fq + (k * NQ + q) * E + e);
+          float s = -tiles::ldg(p.fq + (k * NQ + q) * P + e);
 #pragma unroll
           for (int n = 0; n < NN; ++n)
-            s += p.T[q * NN + n] * __ldg(p.up + (k * NN + n) * E + e);
+            s += p.T[q * NN + n] * tiles::ldg(p.up + (k * NN + n) * P + e);
           pt.s[k] = s;
 #pragma unroll
           for (int j = 0; j < D; ++j) pt.gvel[k][j] = a[1 + j];
@@ -540,27 +560,27 @@ __global__ void __launch_bounds__(REG_THREADS)
 
 // ----------------------------------------------------------- dispatch --
 struct Launch {
-  const float* ue;
+  const void* ue;
   const float* due;
-  const float* up;
-  const float* fq;
+  const void* up;
+  const void* fq;
   const float* tables;
   const float* host_tables;
   float* out;
-  int64_t E;
+  int64_t E, pitch;
   Physics ph;
   int grid, path, laplacian_free;
   cudaStream_t stream;
 };
 
-template <int D, int K, int Q, int MODE>
+template <int D, int K, int Q, int MODE, int SE>
 cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
-  using S = Shape<D, K, Q, MODE>;
+  using S = Shape<D, K, Q, MODE, SE>;
   constexpr size_t smem = sizeof(float) * S::SMEM_FLOATS;
   static int cached = 0;
   if (!cached) {
-    const cudaError_t err = tiles::occupancy(gls_lattice_kernel<D, K, Q, MODE>,
-                                             S::THREADS, smem, &cached);
+    const cudaError_t err = tiles::occupancy(
+        gls_lattice_kernel<D, K, Q, MODE, SE>, S::THREADS, smem, &cached);
     if (err != cudaSuccess) return err;
   }
   *blocks = cached;
@@ -569,11 +589,12 @@ cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
   return cudaSuccess;
 }
 
-template <int D, int K, int Q, int MODE>
+template <int D, int K, int Q, int MODE, int SE>
 cudaError_t staged_launch(const Launch& a) {
-  using S = Shape<D, K, Q, MODE>;
+  using S = Shape<D, K, Q, MODE, SE>;
   int blocks, smem, threads;
-  cudaError_t err = staged_config<D, K, Q, MODE>(&blocks, &smem, &threads);
+  cudaError_t err = staged_config<D, K, Q, MODE, SE>(&blocks, &smem,
+                                                     &threads);
   if (err != cudaSuccess) return err;
   if (a.E == 0 || a.grid <= 0) return cudaSuccess;
   Params p{};
@@ -585,25 +606,28 @@ cudaError_t staged_launch(const Launch& a) {
   p.in.rows[1] = S::R_DUE;
   p.in.rows[2] = S::R_UP;
   p.in.rows[3] = S::R_FQ;
+  p.in.narrow_pitch = a.pitch;
   p.tables = a.tables;
   p.out = a.out;
   p.E = a.E;
   p.ph = a.ph;
   p.path = a.path;
   if (p.path == tiles::LOAD_TMA) {
-    err = tiles::encode_inputs(p.in, 4, a.E, S::BE);
+    const int esz[4] = {SE, 4, SE, SE};
+    err = tiles::encode_inputs(p.in, 4, a.E, S::BE, esz);
     if (err != cudaSuccess) return err;
   }
-  gls_lattice_kernel<D, K, Q, MODE><<<a.grid, S::THREADS, smem, a.stream>>>(p);
+  gls_lattice_kernel<D, K, Q, MODE, SE>
+      <<<a.grid, S::THREADS, smem, a.stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, int MODE>
+template <int D, int MODE, int SE>
 cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
   static int cached = 0;
   if (!cached) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &cached, gls_lattice_reg_kernel<D, MODE>, REG_THREADS, 0);
+        &cached, gls_lattice_reg_kernel<D, MODE, SE>, REG_THREADS, 0);
     if (err != cudaSuccess) return err;
   }
   *blocks = cached;
@@ -612,20 +636,22 @@ cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
   return cudaSuccess;
 }
 
-template <int D, int MODE>
+template <int D, int MODE, int SE>
 cudaError_t reg_launch(const Launch& a) {
   using S = RegShape<D>;
+  using T = tiles::state_t<SE>;
   int blocks, smem, threads;
-  cudaError_t err = reg_config<D, MODE>(&blocks, &smem, &threads);
+  cudaError_t err = reg_config<D, MODE, SE>(&blocks, &smem, &threads);
   if (err != cudaSuccess) return err;
   if (a.E == 0 || a.grid <= 0) return cudaSuccess;
-  RegParams<D> p{};
-  p.ue = a.ue;
+  RegParams<D, SE> p{};
+  p.ue = static_cast<const T*>(a.ue);
   p.due = a.due;
-  p.up = a.up;
-  p.fq = a.fq;
+  p.up = static_cast<const T*>(a.up);
+  p.fq = static_cast<const T*>(a.fq);
   p.out = a.out;
   p.E = a.E;
+  p.pitch = a.pitch;
   p.ph = a.ph;
   // the tables travel in the kernel parameters, copied from the caller's
   // host copy (no device read, so the launch can be captured in a graph)
@@ -637,43 +663,50 @@ cudaError_t reg_launch(const Launch& a) {
   for (int n = 0; n < S::NN; ++n)
     memcpy(p.P + n * S::MNL, a.host_tables + S::M * S::NN + n * S::M,
            sizeof(float) * S::MNL);
-  gls_lattice_reg_kernel<D, MODE><<<a.grid, REG_THREADS, 0, a.stream>>>(p);
+  gls_lattice_reg_kernel<D, MODE, SE><<<a.grid, REG_THREADS, 0, a.stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, int K, int Q>
-cudaError_t dispatch(int mode, int route, bool query, const Launch& a,
-                     int* blocks, int* smem, int* threads) {
+// one variant: the primal reads f32 state only; the tangent and the probe,
+// f32 or bf16 state (SE 4 or 2)
+template <int D, int K, int Q, int MODE, int SE>
+cudaError_t variant(int route, bool query, const Launch& a, int* blocks,
+                    int* smem, int* threads) {
   if (route == REGISTERS) {
-    if constexpr (K == 1 && Q == 2) {
-      switch (mode) {
-        case PRIMAL: return query ? reg_config<D, PRIMAL>(blocks, smem, threads) : reg_launch<D, PRIMAL>(a);
-        case TANGENT: return query ? reg_config<D, TANGENT>(blocks, smem, threads) : reg_launch<D, TANGENT>(a);
-        case PROBE: return query ? reg_config<D, PROBE>(blocks, smem, threads) : reg_launch<D, PROBE>(a);
-        default: return cudaErrorInvalidValue;
-      }
-    }
+    if constexpr (K == 1 && Q == 2)
+      return query ? reg_config<D, MODE, SE>(blocks, smem, threads)
+                   : reg_launch<D, MODE, SE>(a);
     return cudaErrorInvalidValue;
   }
   if (route != STAGED) return cudaErrorInvalidValue;
-  switch (mode) {
-    case PRIMAL: return query ? staged_config<D, K, Q, PRIMAL>(blocks, smem, threads) : staged_launch<D, K, Q, PRIMAL>(a);
-    case TANGENT: return query ? staged_config<D, K, Q, TANGENT>(blocks, smem, threads) : staged_launch<D, K, Q, TANGENT>(a);
-    case PROBE: return query ? staged_config<D, K, Q, PROBE>(blocks, smem, threads) : staged_launch<D, K, Q, PROBE>(a);
+  return query ? staged_config<D, K, Q, MODE, SE>(blocks, smem, threads)
+               : staged_launch<D, K, Q, MODE, SE>(a);
+}
+
+template <int D, int K, int Q>
+cudaError_t dispatch(int mode, int state_bytes, int route, bool query,
+                     const Launch& a, int* blocks, int* smem, int* threads) {
+  switch (mode * 10 + state_bytes) {
+    case PRIMAL * 10 + 4: return variant<D, K, Q, PRIMAL, 4>(route, query, a, blocks, smem, threads);
+    case TANGENT * 10 + 4: return variant<D, K, Q, TANGENT, 4>(route, query, a, blocks, smem, threads);
+    case PROBE * 10 + 4: return variant<D, K, Q, PROBE, 4>(route, query, a, blocks, smem, threads);
+    case TANGENT * 10 + 2: return variant<D, K, Q, TANGENT, 2>(route, query, a, blocks, smem, threads);
+    case PROBE * 10 + 2: return variant<D, K, Q, PROBE, 2>(route, query, a, blocks, smem, threads);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t dispatch_shape(int dim, int degree, int n_q1d, int mode, int route,
-                           bool query, const Launch& a, int* blocks,
-                           int* smem, int* threads) {
+cudaError_t dispatch_shape(int dim, int degree, int n_q1d, int mode,
+                           int state_bytes, int route, bool query,
+                           const Launch& a, int* blocks, int* smem,
+                           int* threads) {
   switch (dim * 100 + degree * 10 + n_q1d) {
-    case 212: return dispatch<2, 1, 2>(mode, route, query, a, blocks, smem, threads);
-    case 213: return dispatch<2, 1, 3>(mode, route, query, a, blocks, smem, threads);
-    case 223: return dispatch<2, 2, 3>(mode, route, query, a, blocks, smem, threads);
-    case 312: return dispatch<3, 1, 2>(mode, route, query, a, blocks, smem, threads);
-    case 313: return dispatch<3, 1, 3>(mode, route, query, a, blocks, smem, threads);
-    case 323: return dispatch<3, 2, 3>(mode, route, query, a, blocks, smem, threads);
+    case 212: return dispatch<2, 1, 2>(mode, state_bytes, route, query, a, blocks, smem, threads);
+    case 213: return dispatch<2, 1, 3>(mode, state_bytes, route, query, a, blocks, smem, threads);
+    case 223: return dispatch<2, 2, 3>(mode, state_bytes, route, query, a, blocks, smem, threads);
+    case 312: return dispatch<3, 1, 2>(mode, state_bytes, route, query, a, blocks, smem, threads);
+    case 313: return dispatch<3, 1, 3>(mode, state_bytes, route, query, a, blocks, smem, threads);
+    case 323: return dispatch<3, 2, 3>(mode, state_bytes, route, query, a, blocks, smem, threads);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -681,46 +714,52 @@ cudaError_t dispatch_shape(int dim, int degree, int n_q1d, int mode, int route,
 }  // namespace
 
 // The variant's blocks per SM (after opting it in to its dynamic shared
-// memory), shared-memory bytes and threads per block; the caller sizes
-// the persistent grid from them.  Returns a CUDA error code.
+// memory), shared-memory bytes and threads per block, with state rows of
+// `state_bytes` (4: f32; 2: bf16, tangent and probe only); the caller
+// sizes the persistent grid from them.  Returns a CUDA error code.
 extern "C" int gls_lattice_config(int dim, int degree, int n_q1d, int mode,
-                                  int route, int* blocks_per_sm,
-                                  int* smem_bytes, int* threads) {
+                                  int state_bytes, int route,
+                                  int* blocks_per_sm, int* smem_bytes,
+                                  int* threads) {
   Launch a{};
-  return static_cast<int>(dispatch_shape(dim, degree, n_q1d, mode, route,
-                                         true, a, blocks_per_sm, smem_bytes,
-                                         threads));
+  return static_cast<int>(dispatch_shape(dim, degree, n_q1d, mode,
+                                         state_bytes, route, true, a,
+                                         blocks_per_sm, smem_bytes, threads));
 }
 
 // Launches one variant on `stream` with `grid` blocks: route STAGED (0)
-// with load path `path` (tiles::LOAD_*; TMA needs E % 4 == 0 and 16-byte
-// aligned inputs) and the packed tables `tables` on the card, or
-// REGISTERS (1, Q1 with 2 points per axis) with the same tables in host
-// memory (`host_tables`), whose Laplacian rows must be zero (a lattice of
-// boxes), as the caller confirms with `laplacian_free` = 1.  Returns
-// cudaGetLastError() after the launch (0 on success);
-// cudaErrorInvalidValue for a (dim, degree, points per axis, mode, route)
-// that is not compiled or REGISTERS without `laplacian_free`.  Does not
-// synchronise and allocates nothing.
+// with load path `path` (tiles::LOAD_*; TMA needs every row pitch a
+// multiple of 16 bytes and 16-byte aligned inputs) and the packed tables
+// `tables` on the card, or REGISTERS (1, Q1 with 2 points per axis) with
+// the same tables in host memory (`host_tables`), whose Laplacian rows must
+// be zero (a lattice of boxes), as the caller confirms with
+// `laplacian_free` = 1.  The state rows ue, up and fq are f32
+// (`state_bytes` 4, row pitch E) or, for the tangent and the probe, bf16
+// (2, row pitch `state_pitch`, even, and 4-byte aligned rows); due and out
+// are f32 with row pitch E.  Returns cudaGetLastError() after the launch
+// (0 on success); cudaErrorInvalidValue for a (dim, degree, points per
+// axis, mode, state type, route) that is not compiled or REGISTERS without
+// `laplacian_free`.  Does not synchronise and allocates nothing.
 extern "C" int gls_lattice_launch(
-    int dim, int degree, int n_q1d, int mode,
+    int dim, int degree, int n_q1d, int mode, int state_bytes,
     const void* ue, const void* due, const void* up, const void* fq,
     const void* tables, const void* host_tables, void* out,
-    int64_t n_elements, float nu, float h, float alpha0, float sdt,
-    int supg, int pspg, int gls_adjoint, int lsic,
+    int64_t n_elements, int64_t state_pitch, float nu, float h, float alpha0,
+    float sdt, int supg, int pspg, int gls_adjoint, int lsic,
     int probe_node, int probe_comp, int route, int grid, int path,
     int laplacian_free, void* stream) {
   if (path != tiles::LOAD_CP_ASYNC_4 && path != tiles::LOAD_TMA)
     return static_cast<int>(cudaErrorInvalidValue);
   Launch a{};
-  a.ue = static_cast<const float*>(ue);
+  a.ue = ue;
   a.due = static_cast<const float*>(due);
-  a.up = static_cast<const float*>(up);
-  a.fq = static_cast<const float*>(fq);
+  a.up = up;
+  a.fq = fq;
   a.tables = static_cast<const float*>(tables);
   a.host_tables = static_cast<const float*>(host_tables);
   a.out = static_cast<float*>(out);
   a.E = n_elements;
+  a.pitch = state_pitch;
   a.ph = Physics{nu, h, alpha0, sdt, supg, pspg, gls_adjoint, lsic,
                  probe_node, probe_comp};
   a.grid = grid;
@@ -728,6 +767,7 @@ extern "C" int gls_lattice_launch(
   a.laplacian_free = laplacian_free;
   a.stream = static_cast<cudaStream_t>(stream);
   int blocks, smem, threads;
-  return static_cast<int>(dispatch_shape(dim, degree, n_q1d, mode, route,
-                                         false, a, &blocks, &smem, &threads));
+  return static_cast<int>(dispatch_shape(dim, degree, n_q1d, mode,
+                                         state_bytes, route, false, a,
+                                         &blocks, &smem, &threads));
 }

@@ -12,9 +12,19 @@ Dispatch is on the device of the tensors it is given:
   with tangents by ``torch.func.jvp`` (exact tau, or frozen tau when the
   stabilization flags say so, like the JAX package's XLA path);
 - CUDA tensors launch the hand-written kernel, whose tangent is the
-  frozen-tau linearization (as B1's); float32 only;
+  frozen-tau linearization (as B1's); float32, and for the tangent and
+  the probes also bf16 state rows (see below);
 - anything else raises.  There is no fallback from CUDA to the plain
   version.
+
+The tangent and the node-block probes take the frozen state (ue, xe, up,
+fq, h) in float32 or in bf16 (``jacobian state precision = bf16``, rows
+from ``persistent_tiles.state_rows``), as B1 does with
+``state_dtype=bfloat16``: the rows are stored rounded, every element is
+widened to float32 where it is read, and the direction, the arithmetic
+and the output stay float32.  On the CPU a bf16 state is widened to the
+compute dtype and differentiated with tau frozen, which is what B1
+computes (``pallas_gls.py:287-295``).
 
 The kernel is compiled by ``nvcc`` from ``csrc/gls_element.cu`` at first
 use into ``build/`` next to this package, and loaded with ``ctypes``
@@ -29,6 +39,7 @@ state fits the registers).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 
 import numpy as np
@@ -44,6 +55,8 @@ SOURCE = os.path.join(cuda_build.CSRC, "gls_element.cu")
 
 _PRIMAL, _TANGENT, _PROBE = 0, 1, 2
 MODES = ("primal", "tangent", "probe")
+# the variants that take bf16 state rows
+BF16_MODES = (_TANGENT, _PROBE)
 SUPPORTED = {(2, 1), (2, 2), (3, 1), (3, 2)}
 # the shapes with a REGISTERS route (one thread per element; 3D Q2's state
 # does not fit the registers), and its threads per block
@@ -68,12 +81,12 @@ def get_build() -> cuda_build.KernelBuild:
     if _BUILD is None:
         _BUILD = cuda_build.load(
             SOURCE, "gls_element_launch",
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 8
-            + [ctypes.c_int64] + [ctypes.c_float] * 3 + [ctypes.c_int] * 10
-            + [ctypes.c_void_p])
+            [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
+            + [ctypes.c_int64] * 2 + [ctypes.c_float] * 3
+            + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         _BUILD.lib.gls_element_config.restype = ctypes.c_int
         _BUILD.lib.gls_element_config.argtypes = (
-            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3)
+            [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3)
     return _BUILD
 
 
@@ -87,12 +100,14 @@ def route_for(dim: int, degree: int, n_elements: int, n_sms: int,
 
 
 def tile_config(dim: int, degree: int, mode: int,
-                route: int = pt.STAGED, split: int = 1) -> dict:
+                route: int = pt.STAGED, split: int = 1,
+                state_bytes: int = 4) -> dict:
     """The shape of one variant's launch, as ``csrc/gls_element.cu``
     computes it: elements per tile ``be`` (per block on the REGISTERS
     route, with ``split`` threads per element), threads per block (one
     per (point, element) on the STAGED route), the input rows of a ring
-    stage (ue, due, xe, up, fq, h) and the shared-memory bytes (STAGED:
+    stage (ue, due, xe, up, fq, h), their bytes per element (the state's
+    ``state_bytes``; due f32) and the shared-memory bytes (STAGED:
     tables, two stages, the staged coefficients of every point;
     REGISTERS: the tables)."""
     nn = (degree + 1) ** dim
@@ -100,26 +115,32 @@ def tile_config(dim: int, degree: int, mode: int,
     tables = nq * nn * (1 + dim + nh) + nq
     rows = (nn * c, nn * c if mode == _TANGENT else 0, nn * dim, nn * dim,
             nq * dim, 1)
+    sb = state_bytes
+    elem_bytes = (sb, 4, sb, sb, sb, sb)
     if route == pt.REGISTERS:
         return dict(be=REG_THREADS // split, threads=REG_THREADS,
-                    rows=rows, smem_bytes=4 * tables)
+                    rows=rows, elem_bytes=elem_bytes, smem_bytes=4 * tables)
     be = 32 if nn * 32 <= 512 else 16
     ncoef = 3 * dim + dim * dim + 1 + nh
-    floats = (pt.pad32(tables) + pt.STAGES * pt.stage_floats(rows, be)
+    floats = (pt.pad32(tables)
+              + pt.STAGES * pt.stage_floats(rows, be, elem_bytes)
               + nq * ncoef * be)
-    return dict(be=be, threads=nn * be, rows=rows, smem_bytes=4 * floats)
+    return dict(be=be, threads=nn * be, rows=rows, elem_bytes=elem_bytes,
+                smem_bytes=4 * floats)
 
 
 def config_on_card(dim: int, degree: int, mode: int, route: int,
-                   split: int = 1) -> tuple[int, int, int]:
+                   split: int = 1, state_bytes: int = 4
+                   ) -> tuple[int, int, int]:
     """(blocks per SM, shared-memory bytes, threads) of one variant (with
-    ``split`` threads per element on the REGISTERS route), from the
-    compiled library (cached)."""
-    key = (dim, degree, mode, route, split)
+    ``split`` threads per element on the REGISTERS route, and state rows
+    of ``state_bytes``), from the compiled library (cached)."""
+    key = (dim, degree, mode, route, split, state_bytes)
     if key not in _CONFIG:
         out = [ctypes.c_int() for _ in range(3)]
         err = get_build().lib.gls_element_config(
-            *key, *(ctypes.byref(o) for o in out))
+            dim, degree, mode, state_bytes, route, split,
+            *(ctypes.byref(o) for o in out))
         if err != 0:
             raise RuntimeError(f"GLS element kernel {key}: CUDA error {err}")
         _CONFIG[key] = tuple(o.value for o in out)
@@ -143,7 +164,8 @@ class GLSElementKernel(nn.Module):
 
     ``launches`` counts CUDA kernel launches (class-wide), and
     ``launches_by_shape`` the same per (dim, degree, points per axis, E,
-    variant); the plain version on CPU tensors does not count.
+    variant: "tangent_bf16" and "probe_bf16" for bf16 state); the plain
+    version on CPU tensors does not count.
     """
 
     launches = 0
@@ -193,6 +215,15 @@ class GLSElementKernel(nn.Module):
             raise ValueError(f"no GLS element kernel for device {ue.device}")
         return True
 
+    def _plain_state(self, state):
+        """The plain kernel and the state rows it reads on the CPU: a bf16
+        state widened to the compute dtype, with tau frozen (B1's
+        linearization of a bf16 state)."""
+        if state[0].dtype != torch.bfloat16:
+            return self.plain(), state
+        frozen = dataclasses.replace(self.stab, frozen_tau=True)
+        return self.plain(frozen), [t.to(self.B.dtype) for t in state]
+
     # ------------------------------------------------------------------
     def residual(self, ue, xe, up, fq, h, alpha0, sdt):
         """r[nn, c, E]: the element residuals (full tau)."""
@@ -204,11 +235,12 @@ class GLSElementKernel(nn.Module):
 
     def tangent(self, ue, due, xe, up, fq, h, alpha0, sdt):
         """dr[nn, c, E] along ``due``: exact or frozen tau per the flags
-        on CPU; frozen tau on CUDA."""
+        on CPU (frozen for a bf16 state); frozen tau on CUDA."""
         if not self._on_cuda(ue):
-            return tangent_batched(self.plain(), ue, due, xe, up, fq, h,
+            kernel, state = self._plain_state((ue, xe, up, fq, h))
+            return tangent_batched(kernel, state[0], due, *state[1:],
                                    alpha0, sdt)
-        out = torch.empty_like(ue)
+        out = torch.empty_like(due)
         self._launch(_TANGENT, ue, due, (xe, up, fq, h, alpha0, sdt), out)
         return out
 
@@ -216,8 +248,8 @@ class GLSElementKernel(nn.Module):
         """Element node-diagonal Jacobian blocks [nn, c*c, E] (row-major
         (i, j)): on CUDA one probe launch per (node, component)."""
         if not self._on_cuda(ue):
-            return node_blocks_batched(self.plain(), ue, xe, up, fq, h,
-                                       alpha0, sdt)
+            kernel, state = self._plain_state((ue, xe, up, fq, h))
+            return node_blocks_batched(kernel, *state, alpha0, sdt)
         return self._call(_PROBE, ue, None, (xe, up, fq, h, alpha0, sdt))
 
     # ------------------------------------------------------------------
@@ -229,21 +261,23 @@ class GLSElementKernel(nn.Module):
         the solvers leave both to the launch plan."""
         nn, c, E = ue.shape
         if mode != _PROBE:
-            out = torch.empty_like(ue)
+            out = ue.new_empty(ue.shape, dtype=torch.float32)
             self._launch(mode, ue, due, args, out, (0, 0), route, split)
             return out
-        out = ue.new_empty((nn, c * c, E))
+        out = ue.new_empty((nn, c * c, E), dtype=torch.float32)
         for n0 in range(nn):
             for j in range(c):
                 self._launch(_PROBE, ue, None, args, out, (n0, j), route,
                              split)
         return out
 
-    def _plan(self, mode, E, device, route, split):
+    def _plan(self, mode, E, device, route, split, sb=4):
         """(route, split, grid) of a launch on E elements, cached per
-        variant, E and forced route (the device is the tables'): the host
-        cost of a launch is most of a small kernel's time."""
-        key = (mode, E, route, split)
+        variant, state bytes ``sb``, E and forced route (the device is
+        the tables'): the host cost of a launch is most of a small
+        kernel's time, and the bf16 variants have their own registers,
+        shared memory and occupancy."""
+        key = (mode, E, route, split, sb)
         if key not in self._plans:
             d, k = self.dim, self.degree
             if (d, k) not in SUPPORTED or self.nq != self.nn:
@@ -256,11 +290,11 @@ class GLSElementKernel(nn.Module):
             n = 1
             if r == pt.REGISTERS:
                 n = split or pt.split_for(
-                    E, [(s, config_on_card(d, k, mode, r, s)[0])
+                    E, [(s, config_on_card(d, k, mode, r, s, sb)[0])
                         for s in REG_SPLITS[d]], n_sms, REG_THREADS)
-            grid = pt.persistent_grid(E, tile_config(d, k, mode, r, n)["be"],
-                                      config_on_card(d, k, mode, r, n)[0],
-                                      n_sms)
+            grid = pt.persistent_grid(
+                E, tile_config(d, k, mode, r, n, sb)["be"],
+                config_on_card(d, k, mode, r, n, sb)[0], n_sms)
             self._plans[key] = (r, n, grid)
         return self._plans[key]
 
@@ -269,34 +303,35 @@ class GLSElementKernel(nn.Module):
         xe, up, fq, h, alpha0, sdt = args
         d, nn, nq, c = self.dim, self.nn, self.nq, self.nc
         E = ue.shape[-1]
-        expect = [(ue, (nn, c, E)), (xe, (nn, d, E)), (up, (nn, d, E)),
-                  (fq, (nq, d, E)), (h, (E,)), (out, out.shape),
-                  (self.tables, self.tables.shape)]
+        sb = pt.state_bytes(ue)
+        if sb != 4 and mode not in BF16_MODES:
+            raise ValueError("CUDA GLS kernel: bf16 state rows are taken by "
+                             "the tangent and the probes only")
+        f32 = [(out, out.shape), (self.tables, self.tables.shape)]
         if due is not None:
-            expect.append((due, (nn, c, E)))
+            f32.append((due, (nn, c, E)))
         dev = ue.get_device()
-        for t, shape in expect:
-            if (t.shape != shape or t.dtype != torch.float32
-                    or t.get_device() != dev or not t.is_contiguous()):
-                raise ValueError(
-                    "CUDA GLS kernel takes contiguous float32 tensors on "
-                    f"{ue.device}: got {tuple(t.shape)} {t.dtype} on "
-                    f"{t.device} where {shape} was expected")
-        route, split, grid = self._plan(mode, E, dev, route, split)
+        pitch = pt.check_rows(
+            "GLS", dev, [(ue, (nn, c, E)), (xe, (nn, d, E)),
+                         (up, (nn, d, E)), (fq, (nq, d, E)), (h, (E,))], f32)
+        route, split, grid = self._plan(mode, E, dev, route, split, sb)
         ptrs = [t.data_ptr() for t in (ue, xe, up, fq, h)]
+        pitch_bytes = [sb * pitch]
         if due is not None:
             ptrs.append(due.data_ptr())
+            pitch_bytes.append(4 * E)
         err = get_build().lib.gls_element_launch(
-            d, self.degree, mode, ptrs[0],
+            d, self.degree, mode, sb, ptrs[0],
             ptrs[5] if due is not None else None, *ptrs[1:5],
-            self.tables.data_ptr(), out.data_ptr(), E, self.nu,
+            self.tables.data_ptr(), out.data_ptr(), E, pitch, self.nu,
             float(alpha0), float(sdt), *self._flags, probe[0], probe[1],
-            route, split, grid, pt.load_path(E, ptrs),
+            route, split, grid, pt.load_path(E, ptrs, pitch_bytes),
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"GLS element kernel launch failed: CUDA "
                                f"error {err}")
         cls = GLSElementKernel
         cls.launches += 1
-        key = (d, self.degree, self.degree + 1, E, MODES[mode])
+        key = (d, self.degree, self.degree + 1, E,
+               MODES[mode] + ("_bf16" if sb == 2 else ""))
         cls.launches_by_shape[key] = cls.launches_by_shape.get(key, 0) + 1

@@ -22,9 +22,20 @@ Dispatch is on the device of the tensors it is given:
   by ``torch.func.jvp`` (exact tau, or tau and the LSIC coefficient
   frozen when the stabilization flags say so);
 - CUDA tensors launch the hand-written kernel (float32; its tangent is
-  the frozen-tau linearization, as B2's);
+  the frozen-tau linearization, as B2's; the tangent and the probes also
+  take bf16 state rows, see below);
 - anything else raises.  There is no fallback from CUDA to the plain
   version.
+
+The tangent and the node-block probes take the frozen state (ue, up, fq)
+in float32 or in bf16 (``jacobian state precision = bf16``, rows from
+``persistent_tiles.state_rows``), as B2 does with
+``state_dtype=bfloat16``: the rows are stored rounded, every element is
+widened to float32 where it is read, and the contractions with T_all and
+T_proj, the direction and the output stay float32 (B2's one-pass bf16
+product on the TPU's matrix unit is a rate trick of that chip, not
+ported).  On the CPU a bf16 state is widened to the compute dtype and
+differentiated with tau frozen, as B2 computes it.
 
 A launch is a persistent grid (``ops/persistent_tiles.py``) on one of two
 routes, chosen per launch from the shape, E and the tables
@@ -37,6 +48,7 @@ per element, the tables in the kernel's parameters).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import math
 import os
 
@@ -51,6 +63,8 @@ SOURCE = os.path.join(cuda_build.CSRC, "gls_lattice.cu")
 
 _PRIMAL, _TANGENT, _PROBE = 0, 1, 2
 MODES = ("primal", "tangent", "probe")
+# the variants that take bf16 state rows
+BF16_MODES = (_TANGENT, _PROBE)
 REG_THREADS = 128          # REGISTERS: one thread per element
 # (dim, degree, Gauss points per axis): Q1/Q2 with degree + 1 points, and
 # Q1 with 3, which the Q1 multigrid levels of a Q2 deck use
@@ -73,12 +87,12 @@ def get_build() -> cuda_build.KernelBuild:
     if _BUILD is None:
         _BUILD = cuda_build.load(
             SOURCE, "gls_lattice_launch",
-            [ctypes.c_int] * 4 + [ctypes.c_void_p] * 7
-            + [ctypes.c_int64] + [ctypes.c_float] * 4 + [ctypes.c_int] * 10
-            + [ctypes.c_void_p])
+            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
+            + [ctypes.c_int64] * 2 + [ctypes.c_float] * 4
+            + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         _BUILD.lib.gls_lattice_config.restype = ctypes.c_int
         _BUILD.lib.gls_lattice_config.argtypes = (
-            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3)
+            [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3)
     return _BUILD
 
 
@@ -96,35 +110,41 @@ def route_for(dim: int, degree: int, n_q1d: int, n_elements: int,
 
 
 def tile_config(dim: int, degree: int, n_q1d: int, mode: int,
-                route: int = pt.STAGED) -> dict:
-    """The shape of one variant's launch, as ``Shape<D, K, Q, MODE>`` in
-    ``csrc/gls_lattice.cu`` computes it: elements per tile ``be`` (per
+                route: int = pt.STAGED, state_bytes: int = 4) -> dict:
+    """The shape of one variant's launch, as ``Shape<D, K, Q, MODE, SE>``
+    in ``csrc/gls_lattice.cu`` computes it: elements per tile ``be`` (per
     block on the REGISTERS route), threads per block, the input rows of a
-    ring stage (ue, due, up, fq) and the shared-memory bytes (tables, two
+    ring stage (ue, due, up, fq), their bytes per element (the state's
+    ``state_bytes``; due f32) and the shared-memory bytes (tables, two
     stages, the staged coefficients); REGISTERS uses none."""
     nn, nq = (degree + 1) ** dim, n_q1d ** dim
     c = dim + 1
     rows = (c * nn, c * nn if mode == _TANGENT else 0, dim * nn, dim * nq)
+    sb = state_bytes
+    elem_bytes = (sb, 4, sb, sb)
     if route == pt.REGISTERS:
         return dict(be=REG_THREADS, threads=REG_THREADS, rows=rows,
-                    smem_bytes=0)
+                    elem_bytes=elem_bytes, smem_bytes=0)
     M, Mnl = (dim + 2) * nq, (dim + 1) * nq
     slots = max(nq, nn)
     be = 32 if slots * 32 <= 512 else 16
-    floats = (pt.pad32(2 * M * nn) + pt.STAGES * pt.stage_floats(rows, be)
+    floats = (pt.pad32(2 * M * nn)
+              + pt.STAGES * pt.stage_floats(rows, be, elem_bytes)
               + (dim * M + Mnl) * be)
-    return dict(be=be, threads=slots * be, rows=rows, smem_bytes=4 * floats)
+    return dict(be=be, threads=slots * be, rows=rows, elem_bytes=elem_bytes,
+                smem_bytes=4 * floats)
 
 
 def config_on_card(dim: int, degree: int, n_q1d: int, mode: int,
-                   route: int) -> tuple[int, int, int]:
-    """(blocks per SM, shared-memory bytes, threads) of one variant, from
-    the compiled library (cached)."""
-    key = (dim, degree, n_q1d, mode, route)
+                   route: int, state_bytes: int = 4) -> tuple[int, int, int]:
+    """(blocks per SM, shared-memory bytes, threads) of one variant with
+    state rows of ``state_bytes``, from the compiled library (cached)."""
+    key = (dim, degree, n_q1d, mode, route, state_bytes)
     if key not in _CONFIG:
         out = [ctypes.c_int() for _ in range(3)]
         err = get_build().lib.gls_lattice_config(
-            *key, *(ctypes.byref(o) for o in out))
+            dim, degree, n_q1d, mode, state_bytes, route,
+            *(ctypes.byref(o) for o in out))
         if err != 0:
             raise RuntimeError(f"GLS lattice kernel {key}: CUDA error {err}")
         _CONFIG[key] = tuple(o.value for o in out)
@@ -265,7 +285,8 @@ class LatticeGLSKernel(nn.Module):
 
     ``launches`` counts CUDA kernel launches (class-wide), and
     ``launches_by_shape`` the same per (dim, degree, points per axis, E,
-    variant); the plain version on CPU tensors does not count.
+    variant: "tangent_bf16" and "probe_bf16" for bf16 state); the plain
+    version on CPU tensors does not count.
     """
 
     launches = 0
@@ -327,6 +348,15 @@ class LatticeGLSKernel(nn.Module):
             raise ValueError(f"no GLS lattice kernel for device {ue.device}")
         return True
 
+    def _plain_state(self, state):
+        """The plain kernel and the state rows it reads on the CPU: a bf16
+        state widened to the compute dtype, with tau frozen (B2's
+        linearization of a bf16 state)."""
+        if state[0].dtype != torch.bfloat16:
+            return self.plain(), state
+        frozen = dataclasses.replace(self.stab, frozen_tau=True)
+        return self.plain(frozen), [t.to(self.T_all.dtype) for t in state]
+
     # ------------------------------------------------------------------
     def residual(self, ue, up, fq, alpha0, sdt):
         """r[c*nn, E]: the element residuals (full tau)."""
@@ -338,11 +368,11 @@ class LatticeGLSKernel(nn.Module):
 
     def tangent(self, ue, due, up, fq, alpha0, sdt):
         """dr[c*nn, E] along ``due``: exact or frozen tau per the flags on
-        CPU; frozen tau on CUDA."""
+        CPU (frozen for a bf16 state); frozen tau on CUDA."""
         if not self._on_cuda(ue):
-            return lattice_tangent(self.plain(), ue, due, up, fq, alpha0,
-                                   sdt)
-        out = torch.empty_like(ue)
+            kernel, (ue, up, fq) = self._plain_state((ue, up, fq))
+            return lattice_tangent(kernel, ue, due, up, fq, alpha0, sdt)
+        out = torch.empty_like(due)
         self._launch(_TANGENT, ue, due, (up, fq, alpha0, sdt), out)
         return out
 
@@ -350,8 +380,9 @@ class LatticeGLSKernel(nn.Module):
         """Element node-diagonal Jacobian blocks [nn, c*c, E] (row-major
         (i, j)): on CUDA one probe launch per (node, component)."""
         if not self._on_cuda(ue):
-            return lattice_node_blocks(self.plain(), ue, up, fq, alpha0,
-                                       sdt, self.nn)
+            kernel, (ue, up, fq) = self._plain_state((ue, up, fq))
+            return lattice_node_blocks(kernel, ue, up, fq, alpha0, sdt,
+                                       self.nn)
         return self._call(_PROBE, ue, None, (up, fq, alpha0, sdt))
 
     # ------------------------------------------------------------------
@@ -361,21 +392,23 @@ class LatticeGLSKernel(nn.Module):
         nn*c launches.  ``route`` forces a route; the solvers leave it to
         the launch plan."""
         if mode != _PROBE:
-            out = torch.empty_like(ue)
+            out = ue.new_empty(ue.shape, dtype=torch.float32)
             self._launch(mode, ue, due, args, out, (0, 0), route)
             return out
         c, E = self.nc, ue.shape[-1]
-        out = ue.new_empty((self.nn, c * c, E))
+        out = ue.new_empty((self.nn, c * c, E), dtype=torch.float32)
         for n0 in range(self.nn):
             for j in range(c):
                 self._launch(_PROBE, ue, None, args, out, (n0, j), route)
         return out
 
-    def _plan(self, mode, q1d, E, device, route):
-        """(route, grid) of a launch on E elements, cached per variant, E
-        and forced route (the device is the tables'): the host cost of a
-        launch is most of a small kernel's time."""
-        key = (mode, E, route)
+    def _plan(self, mode, q1d, E, device, route, sb=4):
+        """(route, grid) of a launch on E elements, cached per variant,
+        state bytes ``sb``, E and forced route (the device is the
+        tables'): the host cost of a launch is most of a small kernel's
+        time, and the bf16 variants have their own registers, shared
+        memory and occupancy."""
+        key = (mode, E, route, sb)
         if key not in self._plans:
             d, k = self.dim, self.degree
             if (d, k, q1d) not in SUPPORTED or q1d ** d != self.nq:
@@ -387,8 +420,8 @@ class LatticeGLSKernel(nn.Module):
             n_sms = pt.sm_count(device)
             r = route_for(d, k, q1d, E, n_sms, self.laplacian_free, route)
             grid = pt.persistent_grid(
-                E, tile_config(d, k, q1d, mode, r)["be"],
-                config_on_card(d, k, q1d, mode, r)[0], n_sms)
+                E, tile_config(d, k, q1d, mode, r, sb)["be"],
+                config_on_card(d, k, q1d, mode, r, sb)[0], n_sms)
             self._plans[key] = (r, grid)
         return self._plans[key]
 
@@ -396,34 +429,36 @@ class LatticeGLSKernel(nn.Module):
         up, fq, alpha0, sdt = args
         d, nn, nq, c, q1d = self.dim, self.nn, self.nq, self.nc, self.q1d
         E = ue.shape[-1]
-        expect = [(ue, (c * nn, E)), (up, (d * nn, E)), (fq, (d * nq, E)),
-                  (out, out.shape), (self.tables, self.tables.shape)]
+        sb = pt.state_bytes(ue)
+        if sb != 4 and mode not in BF16_MODES:
+            raise ValueError("CUDA GLS lattice kernel: bf16 state rows are "
+                             "taken by the tangent and the probes only")
+        f32 = [(out, out.shape), (self.tables, self.tables.shape)]
         if due is not None:
-            expect.append((due, (c * nn, E)))
+            f32.append((due, (c * nn, E)))
         dev = ue.get_device()
-        for t, shape in expect:
-            if (t.shape != shape or t.dtype != torch.float32
-                    or t.get_device() != dev or not t.is_contiguous()):
-                raise ValueError(
-                    "CUDA GLS lattice kernel takes contiguous float32 "
-                    f"tensors on {ue.device}: got {tuple(t.shape)} "
-                    f"{t.dtype} on {t.device} where {shape} was expected")
-        route, grid = self._plan(mode, q1d, E, dev, route)
+        pitch = pt.check_rows(
+            "GLS lattice", dev, [(ue, (c * nn, E)), (up, (d * nn, E)),
+                                 (fq, (d * nq, E))], f32)
+        route, grid = self._plan(mode, q1d, E, dev, route, sb)
         ptrs = [t.data_ptr() for t in (ue, up, fq)]
+        pitch_bytes = [sb * pitch]
         if due is not None:
             ptrs.append(due.data_ptr())
+            pitch_bytes.append(4 * E)
         err = get_build().lib.gls_lattice_launch(
-            d, self.degree, q1d, mode, ptrs[0],
+            d, self.degree, q1d, mode, sb, ptrs[0],
             ptrs[3] if due is not None else None, ptrs[1], ptrs[2],
             self.tables.data_ptr(), self._host_tables_ptr, out.data_ptr(), E,
-            self.nu, self.h, float(alpha0), float(sdt), *self._flags,
-            probe[0], probe[1], route, grid, pt.load_path(E, ptrs),
-            int(self.laplacian_free),
+            pitch, self.nu, self.h, float(alpha0), float(sdt), *self._flags,
+            probe[0], probe[1], route, grid,
+            pt.load_path(E, ptrs, pitch_bytes), int(self.laplacian_free),
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"GLS lattice kernel launch failed: CUDA "
                                f"error {err}")
         cls = LatticeGLSKernel
         cls.launches += 1
-        key = (d, self.degree, q1d, E, MODES[mode])
+        key = (d, self.degree, q1d, E,
+               MODES[mode] + ("_bf16" if sb == 2 else ""))
         cls.launches_by_shape[key] = cls.launches_by_shape.get(key, 0) + 1

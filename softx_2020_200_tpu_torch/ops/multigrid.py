@@ -117,8 +117,10 @@ def build_hierarchy(solver, min_elems: int = 256) -> list[Level]:
     prev_space = space
 
     def add_level(cspace, n_q1d):
+        # the coarse levels store the Jacobian state as the fine one does
         cop = GLSOperator(cspace, solver.op.nu, n_q1d=n_q1d,
-                          stab=solver.op.stab, **kw)
+                          stab=solver.op.stab,
+                          state_dtype=solver.op.state_dtype, **kw)
         cbh = BoundaryHandler(cspace, solver.prm.boundary_conditions, **kw)
         masters, weights, inject = _transfer_maps(prev_space, cspace)
         levels.append(Level(

@@ -124,8 +124,6 @@ class GLSNavierStokesSolver:
         pc = prm.linear_solver.preconditioner
         if pc == "additive_schwarz":
             raise _not_ported("preconditioner = additive_schwarz", "D3")
-        if prm.linear_solver.jacobian_state_precision == "bf16":
-            raise _not_ported("jacobian state precision = bf16", "D4")
 
     def setup(self, mesh: Mesh | None = None) -> None:
         """read_mesh + setup_dofs + operator/BC construction."""
@@ -161,7 +159,10 @@ class GLSNavierStokesSolver:
             frozen_tau=prm.stabilization.frozen_tau_jacobian)
         self.op = GLSOperator(
             self.space, prm.physical_properties.kinematic_viscosity,
-            n_q1d=prm.fem.n_quadrature_points_1d, stab=stab, **kw)
+            n_q1d=prm.fem.n_quadrature_points_1d, stab=stab,
+            state_dtype=(torch.bfloat16 if prm.linear_solver
+                         .jacobian_state_precision == "bf16" else None),
+            **kw)
         self.bh = BoundaryHandler(self.space, prm.boundary_conditions, **kw)
 
         self.source = (VectorExpression(prm.source_term.xyz)

@@ -26,6 +26,15 @@ The Jacobian is never formed.  ``linearize(u, ...)`` captures the
 element state once per Newton iteration and ``jvp(state, du)`` applies
 J du: on CPU by forward-mode AD through the plain kernel (exact tau
 unless frozen), on CUDA by the kernel's frozen-tau tangent.
+
+With ``state_dtype=torch.bfloat16`` (the deck's ``jacobian state
+precision = bf16``) the state that the tangent and the node-block probes
+read is stored in bf16: ``linearize`` rounds ue, up and fq once per
+Newton iteration, and B1's geometry (xe, h) is rounded once, here.  The
+kernels widen every element on read, so the direction, the arithmetic
+and the output stay in the compute dtype; the residual is untouched.
+This is the JAX package's ``state_dtype`` of its Pallas kernels: an
+inexact Newton with a rounded-coefficient Jacobian, frozen tau.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ from ..ops.gls_kernel import GLSElementKernel
 from ..ops.lattice_kernel import LatticeGLSKernel, is_translate_lattice
 from ..ops.operators import (assemble, build_assembly_map,
                              node_multiplicity)
+from ..ops.persistent_tiles import state_rows
 from ..ops.structured import StructuredLayout
 
 
@@ -143,14 +153,22 @@ class GLSOperator(nn.Module):
 
     Tables (B, G, H, w), geometry (xe, h, quadrature points), the
     connectivity and the assembly map are buffers: ``.to(device)`` moves
-    all of them.
+    all of them.  ``state_dtype`` None keeps the Jacobian state in
+    ``dtype``; ``torch.bfloat16`` stores it in bf16 (see the module's
+    note), and B1's bf16 geometry rows are made here for the operator's
+    device.
     """
 
     def __init__(self, space: FESpace, nu: float, n_q1d: int | None = None,
                  stab: StabFlags = StabFlags(), *,
                  dtype: torch.dtype = torch.float32,
-                 device: torch.device | str = "cuda"):
+                 device: torch.device | str = "cuda",
+                 state_dtype: torch.dtype | None = None):
         super().__init__()
+        if state_dtype not in (None, torch.bfloat16):
+            raise ValueError(f"Jacobian state dtype {state_dtype}: None "
+                             "(the compute dtype) or torch.bfloat16")
+        self.state_dtype = state_dtype
         self.space = space
         self.dim = space.dim
         self.nc = self.dim + 1
@@ -200,6 +218,10 @@ class GLSOperator(nn.Module):
             self.kernel = GLSElementKernel(
                 dim=self.dim, degree=self.degree, B=B, G=G, H=H, w=wts,
                 nu=self.nu, stab=stab, dtype=dtype, device=device)
+            # the geometry B1's tangent and probes read: bf16 with a bf16
+            # state (B1 rounds xe and h too), made once
+            self.xe_state = self._state(self.xe_soa)
+            self.h_state = self._state(self.h)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -210,6 +232,11 @@ class GLSOperator(nn.Module):
         return self.B.device
 
     # ------------------------------------------------------------------
+    def _state(self, rows):
+        """Jacobian-state rows in the state dtype: rounded to bf16 (once,
+        in rows ``state_rows`` lays out for the kernels) or as they are."""
+        return rows if self.state_dtype is None else state_rows(rows)
+
     def _soa(self, u):
         """Nodal u[N, k] -> element rows [nn, k, E] (contiguous)."""
         return u[self.elem_nodes_t].transpose(1, 2).contiguous()
@@ -252,14 +279,16 @@ class GLSOperator(nn.Module):
         return torch.where(bc_mask, torch.zeros_like(R), R)
 
     def linearize(self, u, uprev_combo, fq, alpha0, sdt) -> Linearization:
-        """Element state at ``u`` for repeated Jacobian-vector products."""
+        """Element state at ``u`` for repeated Jacobian-vector products,
+        in the state dtype (rounded here, once per Newton iteration)."""
         if self.layout is not None:
-            return Linearization(ue=self._rows(u),
-                                 up=self._rows(uprev_combo),
-                                 fq=self._fq_rows(fq), alpha0=float(alpha0),
-                                 sdt=float(sdt))
-        return Linearization(ue=self._soa(u), up=self._soa(uprev_combo),
-                             fq=self._fq_soa(fq), alpha0=float(alpha0),
+            ue, up, fq = (self._rows(u), self._rows(uprev_combo),
+                          self._fq_rows(fq))
+        else:
+            ue, up, fq = (self._soa(u), self._soa(uprev_combo),
+                          self._fq_soa(fq))
+        return Linearization(ue=self._state(ue), up=self._state(up),
+                             fq=self._state(fq), alpha0=float(alpha0),
                              sdt=float(sdt))
 
     def jvp(self, state: Linearization, du):
@@ -268,28 +297,32 @@ class GLSOperator(nn.Module):
             dr = self.kernel.tangent(state.ue, self._rows(du), state.up,
                                      state.fq, state.alpha0, state.sdt)
             return self._scatter_rows(dr)
-        dr = self.kernel.tangent(state.ue, self._soa(du), self.xe_soa,
-                                 state.up, state.fq, self.h, state.alpha0,
-                                 state.sdt)
+        dr = self.kernel.tangent(state.ue, self._soa(du), self.xe_state,
+                                 state.up, state.fq, self.h_state,
+                                 state.alpha0, state.sdt)
         return self._assemble_rows(dr)
 
     def node_blocks(self, u, bc_mask, uprev_combo, fq, alpha0, sdt):
         """Assembled per-node (d+1)x(d+1) Jacobian diagonal blocks
-        [N, c, c] for (block-)Jacobi, with Dirichlet rows/cols zeroed."""
+        [N, c, c] for (block-)Jacobi, with Dirichlet rows/cols zeroed;
+        the state in the state dtype, as the tangent reads it."""
         c = self.nc
         keep_mask = 1.0 - bc_mask.to(self.dtype)
         if self.layout is not None:
             blocks = self.kernel.node_blocks(
-                self._rows(u), self._rows(uprev_combo), self._fq_rows(fq),
-                alpha0, sdt)                              # [nn, c*c, E]
+                self._state(self._rows(u)),
+                self._state(self._rows(uprev_combo)),
+                self._state(self._fq_rows(fq)), alpha0, sdt)  # [nn, c*c, E]
             keep = self.layout.gather(keep_mask)          # [c, nn, E]
             keep2 = (keep[:, None] * keep[None, :]).permute(2, 0, 1, 3)
             blocks = blocks * keep2.reshape(blocks.shape)
             return self.layout.scatter(blocks.transpose(0, 1)).reshape(
                 self.n_nodes, c, c)
         blocks = self.kernel.node_blocks(
-            self._soa(u), self.xe_soa, self._soa(uprev_combo),
-            self._fq_soa(fq), self.h, alpha0, sdt)       # [nn, c*c, E]
+            self._state(self._soa(u)), self.xe_state,
+            self._state(self._soa(uprev_combo)),
+            self._state(self._fq_soa(fq)), self.h_state, alpha0,
+            sdt)                                         # [nn, c*c, E]
         keep = self._soa(keep_mask)                      # [nn, c, E]
         keep2 = keep[:, :, None, :] * keep[:, None, :, :]
         blocks = blocks * keep2.reshape(blocks.shape)
