@@ -69,9 +69,19 @@ Phases (each prints its own lines; any failed check raises):
    the bf16 tangent and probe launch, the physics stays inside the f32
    phases' bounds, Newton is held to the f32 count + 1 (to the JAX
    package's bf16 count on the curved shell); and the distance between
-   the bf16 and the f32 tangent at Taylor-Couette r3 and r5.
+   the bf16 and the f32 tangent at Taylor-Couette r3 and r5;
+11. the solver options of decks without a forest, at the decks' full
+   size: SDIRK2 on TGV 32^3 with GMG and SDIRK3 on the MMS deck at
+   refinement 7 (B2), SDIRK2 on the GD TGV 16^3 (B3), pseudo-transient
+   continuation on the lid-driven cavity at 256^2 (B2, GMG), phase 6's
+   and phase 9's decks interrupted by a checkpoint and restarted in a
+   second run (held to the uninterrupted runs), additive Schwarz on
+   phases 4's and 5's decks (element matrices from nn*c tangent launches
+   of B1 and B2 with one-hot directions); then the card's element
+   matrices against the plain frozen-tau element matrices at TC r3,
+   TGV 32^3 and 2D Q2 128^2, timed beside the node blocks.
 
-Phases 4-10 hold their physics numbers against the JAX package run on the
+Phases 4-11 hold their physics numbers against the JAX package run on the
 CPU in float64 on the same decks (``JAX_REFERENCE`` below) and check
 which kernel each deck launched.  The line before the last lists the
 kernels with their launch counts in the main-path runs (in total and per
@@ -218,6 +228,83 @@ for _name in BF16_DECKS:
     _src, _edits = DECKS[_name]
     DECKS[_name.replace(".prm", "_bf16.prm")] = (_src, _edits + [_BF16_STATE])
 
+
+# phase 11: the solver options of decks without a forest (SDIRK,
+# pseudo-transient continuation, checkpoint/restart, additive Schwarz)
+def _edited(name: str, *, drop=(), add=()):
+    """DECKS[name]'s source and edits, without the edits whose key is in
+    ``drop``, then ``add``."""
+    src, edits = DECKS[name]
+    return src, [e for e in edits if e[0] not in drop] + list(add)
+
+
+def _restart(checkpoint: bool, restart: bool, frequency: int):
+    """A restart subsection, put before the non-linear solver's."""
+    head = "subsection non-linear solver"
+    return ("text", (head, f"subsection restart\n  set checkpoint = "
+                     f"{str(checkpoint).lower()}\n  set restart    = "
+                     f"{str(restart).lower()}\n  set frequency  = "
+                     f"{frequency}\n  set filename   = restart\nend\n{head}"))
+
+
+_AS = ("subsection linear solver", "set preconditioner = additive_schwarz")
+_BJ = ("subsection linear solver", "set preconditioner = block_jacobi")
+DECKS.update({
+    # TGV 32^3 with 'auto' (GMG), SDIRK2: 3 steps of 2 stages.  Newton
+    # stops at 1e-5, not the example's 1e-6, which float32 does not reach
+    # under SDIRK2's larger mass term (alpha0 = 1/(0.29 dt)): on an H100
+    # each stage's residual went 1.6e-1 -> 1.2e-4 -> 1.0e-6 -> 7.4e-7,
+    # three Newton iterations where float64 takes two (4.8e-8)
+    "tgv32_sdirk2.prm": _edited("tgv32_gmg.prm",
+                                add=[("method", "sdirk2"),
+                                     ("tolerance", "1e-5"), _VERBOSE_NEWTON]),
+    # the golden MMS deck at refinement 7 (128^2 Q2 cells, 198,147 DoF),
+    # SDIRK3: 3 steps of 3 stages, GMG on every level
+    "mms_q2_r7_sdirk3.prm": _edited(
+        "mms_q2_r8.prm", drop=("initial refinement",),
+        add=[("initial refinement", "7"), ("method", "sdirk3")]),
+    # the GD TGV at 16^3, SDIRK2: 1 step of 2 stages
+    "tgv16_gd_sdirk2.prm": _edited(
+        "tgv16_gd.prm", drop=("time end",),
+        add=[("time end", "0.05"), ("method", "sdirk2")]),
+    # the lid-driven cavity without its Kelly cycles at refinement 8
+    # (257^2 Q1 nodes, 198,147 DoF), steady by pseudo-transient
+    # continuation with 'auto' (GMG); the kinetic energy of the solution
+    "cavity_ptc.prm": ("examples/cavity_re400.prm", [
+        ("text", ("subsection non-linear solver",
+                  "subsection post-processing\n  set calculate kinetic "
+                  "energy = true\n  set verbosity = verbose\nend\n\n"
+                  "subsection non-linear solver")),
+        ("text", ("set type                 = kelly",
+                  "set type                 = none")),
+        ("number mesh adapt", "0"),
+        ("initial refinement", "8"),
+        ("tolerance", "1e-5"),
+        ("subsection non-linear solver", "set solver = pseudo_transient"),
+        _VERBOSE_NEWTON,
+    ]),
+    # phase 6's TGV in two legs: 2 steps with a checkpoint after step 2,
+    # then a restart that takes step 3
+    "tgv32_restart_a.prm": _edited(
+        "tgv32_gmg.prm", drop=("time end",),
+        add=[("time end", "0.10"), _restart(True, False, 2)]),
+    "tgv32_restart_b.prm": _edited(
+        "tgv32_gmg.prm", add=[_restart(False, True, 2)]),
+    # phase 9's GD TGV in two legs: a checkpoint after step 1, then step 2
+    "tgv16_gd_restart_a.prm": _edited(
+        "tgv16_gd.prm", drop=("time end",),
+        add=[("time end", "0.05"), _restart(True, False, 1)]),
+    "tgv16_gd_restart_b.prm": _edited(
+        "tgv16_gd.prm", add=[_restart(False, True, 1)]),
+    # phases 4 and 5 with additive Schwarz in place of block-Jacobi
+    "taylor_couette_r3_as.prm": _edited(
+        "taylor_couette_r3.prm", drop=(_BJ[0],),
+        add=[e for e in DECKS["taylor_couette_r3.prm"][1]
+             if e[0] == _BJ[0] and e != _BJ] + [_AS]),
+    "tgv32_as.prm": _edited("tgv32_3steps.prm", drop=(_BJ[0],),
+                            add=[_AS, _VERBOSE_NEWTON]),
+})
+
 # The JAX package on the CPU in float64 on these decks, written by
 #   python3 chip_smoke.py --write-decks DIR && cd DIR &&
 #   SOFTX_NO_COMPILE_CACHE=1 JAX_PLATFORMS=cpu JAX_ENABLE_X64=1 \
@@ -270,6 +357,59 @@ JAX_REFERENCE = {
         "enstrophy": [3.749735e-01, 3.752148e-01],
         "fgmres_per_newton": 75.83},
 }
+
+# Phase 11, by scripts/jax_newton_counts.py DECK DIM [gd] [--frozen-tau]
+# in a directory of --write-decks (JAX CPU f64; Newton and Krylov
+# iterations per nonlinear solve, a solve being a BDF step or an SDIRK
+# stage)
+JAX_REFERENCE.update({
+    # 6 solves (3 steps of 2 stages), 12 Newton and 72 FGMRES iterations:
+    # scripts/jax_newton_counts.py tgv32_sdirk2.prm 3
+    "tgv32_sdirk2.prm": {
+        "kinetic_energy": [1.225880e-01, 1.225625e-01, 1.225370e-01],
+        "enstrophy": [3.686455e-01, 3.688532e-01, 3.692507e-01],
+        "newton_per_solve": [2] * 6, "krylov_per_solve": [12] * 6},
+    # 9 solves (3 steps of 3 stages), 16 Newton and 121 FGMRES
+    # iterations: scripts/jax_newton_counts.py mms_q2_r7_sdirk3.prm 2.
+    # The first residual of solve 6 is 1.0024e-5 against the tolerance
+    # 1e-5, which float32 cannot tell apart: that solve may take one
+    # Newton iteration less ("newton_borderline", 0-based)
+    "mms_q2_r7_sdirk3.prm": {
+        "l2_velocity": [1.52258766e-05, 1.47758303e-05, 1.42195175e-05],
+        "newton_per_solve": [2] * 7 + [1, 1],
+        "krylov_per_solve": [15] * 7 + [8, 8], "newton_borderline": [5]},
+    # 2 solves (1 step of 2 stages), 4 Newton and 68 FGMRES iterations:
+    # scripts/jax_newton_counts.py tgv16_gd_sdirk2.prm 3 gd
+    "tgv16_gd_sdirk2.prm": {
+        "kinetic_energy": [1.249576e-01], "enstrophy": [3.749884e-01],
+        "newton_solves": 2, "newton_iterations": 4,
+        "fgmres_per_newton": 17.0},
+    # 11 pseudo-steps, 86 FGMRES iterations, steady residual 3.9922e-2 ->
+    # 5.1624e-6: scripts/jax_newton_counts.py cavity_ptc.prm 2 (195 s)
+    "cavity_ptc.prm": {"ptc_steps": 11, "krylov": 86,
+                       "kinetic_energy": 3.790281e-02},
+    # additive Schwarz with tau frozen in the Jacobian and the element
+    # matrices (--frozen-tau): 1 solve, 2 Newton and 4,885 GMRES
+    # iterations (residuals 2.4950, 3.2148e-3, 3.2071e-8):
+    # scripts/jax_newton_counts.py taylor_couette_r3_as.prm 2 --frozen-tau.
+    # Its GMRES(1000) solves need thousands of steps, and in float32 they
+    # need more, in the JAX package as on the card (C4): without
+    # JAX_ENABLE_X64 the same command takes 6,372 (3,186 per Newton
+    # iteration; residuals 2.4950, 3.2152e-3, 3.7660e-6).  The card's
+    # count is held to the float32 one
+    "taylor_couette_r3_as.prm": {
+        "l2_velocity": 1.16973555e-04, "l2_pressure": 2.37679749e-05,
+        "newton_per_solve": [2], "krylov_per_newton": 3186.0,
+        "krylov_per_newton_f64": 2442.5},
+    # 4 solves, 8 Newton and 255 GMRES iterations (58, 54, 71, 72); KE
+    # and enstrophy those of tgv32_3steps.prm to 7 digits:
+    # scripts/jax_newton_counts.py tgv32_as.prm 3 --frozen-tau; without
+    # JAX_ENABLE_X64 (float32, the count the card is held to): 262
+    # (60, 55, 73, 74)
+    "tgv32_as.prm": {"newton_per_solve": [2] * 4,
+                     "krylov_per_newton": 32.75,
+                     "krylov_per_newton_f64": 31.875},
+})
 
 # Tolerances of the card's float32 runs against the float64 reference.
 # L2 errors at refinement 3, relative: float32 runs of this deck came
@@ -1357,14 +1497,16 @@ def _launch_counters():
 
 
 def drive_app(torch, dim: int, deck: str, kernel: str,
-              solver: str = "gls") -> dict:
+              solver: str = "gls", workdir: str | None = None) -> dict:
     """Run the deck through the port's CLI entry point on the card (the
-    ``solver`` app: ``gls`` or ``gd``); its output is echoed and returned
-    with the launch counts and memory.  Checks that it launched
-    ``kernel`` and no other."""
+    ``solver`` app: ``gls`` or ``gd``) in ``workdir`` (a new temporary
+    directory by default); its output is echoed and returned with the
+    launch counts and memory.  Checks that it launched ``kernel`` and no
+    other."""
     from softx_2020_200_tpu_torch.apps.common import run_app
     counters = _launch_counters()
-    with tempfile.TemporaryDirectory() as tmp:
+    with contextlib.ExitStack() as stack:
+        tmp = workdir or stack.enter_context(tempfile.TemporaryDirectory())
         path = os.path.join(tmp, deck)
         with open(path, "w") as fh:
             fh.write(deck_text(deck))
@@ -1775,6 +1917,296 @@ def phase_bf16_decks(torch, f32_runs: dict) -> tuple[list, list]:
 
 
 # ----------------------------------------------------------------------
+# phase 11: SDIRK, pseudo-transient continuation, checkpoint/restart and
+# additive Schwarz
+# ----------------------------------------------------------------------
+# Newton and linear iterations of each solve, from the lines a GLS deck
+# with verbose Newton prints
+_PER_SOLVE = re.compile(r"^Newton: (\d+) iterations, (\d+) linear "
+                        r"iterations", re.M)
+# additive Schwarz: Krylov iterations per Newton iteration against the
+# JAX package's with tau frozen, relative
+AS_KRYLOV_RTOL = 0.10
+# the restarted leg against the uninterrupted run, relative (the same
+# float32 computation, printed to 7 digits)
+RESTART_RTOL = 1e-6
+# the pseudo-transient continuation on the cavity: pseudo-steps within 1
+# and Krylov iterations within 10 % of the JAX package's
+PTC_KRYLOV_RTOL = 0.10
+
+
+def _per_solve(deck: str, out: str, n: int | None = None) -> list:
+    m = [(int(a), int(b)) for a, b in _PER_SOLVE.findall(out)]
+    check(n is None or len(m) == n, f"{deck}: {len(m)} solves, not {n}")
+    return m
+
+
+def _check_newton_per_solve(deck: str, res: dict) -> None:
+    """Each solve's Newton iterations equal the JAX package's, its
+    linear iterations within 1 per Newton iteration."""
+    ref = JAX_REFERENCE[deck]
+    got = _per_solve(deck, res["out"], len(ref["newton_per_solve"]))
+    print(f"  Newton iterations per solve {[n for n, _ in got]} (JAX CPU "
+          f"f64 {ref['newton_per_solve']}), linear iterations per solve "
+          f"{[k for _, k in got]} (JAX {ref.get('krylov_per_solve')})")
+    border = ref.get("newton_borderline", ())
+    for i, ((n, k), nr, kr) in enumerate(zip(got, ref["newton_per_solve"],
+                                             ref["krylov_per_solve"])):
+        check(n == nr or (i in border and abs(n - nr) == 1),
+              f"{deck}: solve {i + 1}: {n} Newton iterations against {nr}")
+        check(abs(k - kr) <= max(n, nr), f"{deck}: solve {i + 1}: {k} "
+              f"linear iterations against {kr}")
+    _check_converged(deck, res)
+
+
+def _sdirk(torch) -> list:
+    runs = []
+    deck = "tgv32_sdirk2.prm"
+    res = drive_app(torch, 3, deck, "gls_lattice")
+    _check_energies(deck, res["out"])
+    _check_newton_per_solve(deck, res)
+    runs.append(res)
+    deck = "mms_q2_r7_sdirk3.prm"
+    res = drive_app(torch, 2, deck, "gls_lattice")
+    check(_gmg_levels(deck, res["out"]) == 5, f"{deck}: not 5 levels")
+    _check_newton_per_solve(deck, res)
+    got = [float(x) for x in re.findall(rf"L2 error velocity : {_NUM}\n",
+                                        res["out"])]
+    want = JAX_REFERENCE[deck]["l2_velocity"]
+    check(len(got) == len(want), f"{deck}: {len(got)} L2 lines")
+    for step, (g, w) in enumerate(zip(got, want), start=1):
+        print(f"  step {step}: L2 error velocity card f32 {g:.8e}, JAX CPU "
+              f"f64 {w:.8e}, rel diff {abs(g - w) / w:.3e} (bound "
+              f"{L2_RTOL:g})")
+        check(_close(g, w, L2_RTOL), f"{deck} step {step}: L2 {g} vs {w}")
+    runs.append(res)
+    return runs
+
+
+def _gd_sdirk(torch) -> dict:
+    deck = "tgv16_gd_sdirk2.prm"
+    res = drive_app(torch, 3, deck, "gd_lattice", solver="gd")
+    _check_energies(deck, res["out"])
+    ref = JAX_REFERENCE[deck]
+    print(f"  {res['newton_solves']} solves, {res['newton_iterations']} "
+          f"Newton iterations (JAX CPU f64 {ref['newton_solves']}, "
+          f"{ref['newton_iterations']}); FGMRES iterations per Newton "
+          f"iteration {res['linear_iterations'] / res['newton_iterations']:.2f}"
+          f" (JAX {ref['fgmres_per_newton']:.2f}; not held, as in phase 9)")
+    check(res["newton_solves"] == ref["newton_solves"]
+          and res["newton_iterations"] == ref["newton_iterations"],
+          f"{deck}: {res['newton_solves']} solves, "
+          f"{res['newton_iterations']} Newton iterations")
+    check(res["solves_above_tolerance"] == 0,
+          f"{deck}: {res['solves_above_tolerance']} solves above tolerance")
+    return res
+
+
+def _ptc(torch) -> dict:
+    deck = "cavity_ptc.prm"
+    res = drive_app(torch, 2, deck, "gls_lattice")
+    ref = JAX_REFERENCE[deck]
+    steps = res["newton_iterations"]
+    krylov = res["linear_iterations"]
+    lines = re.findall(rf"PTC step +\d+ +dt = {_NUM} +Residual: {_NUM}",
+                       res["out"])
+    ke = re.findall(rf"kinetic-energy: {_NUM}", res["out"])
+    check(len(lines) == steps and len(ke) == 1,
+          f"{deck}: {len(lines)} PTC lines, {len(ke)} KE lines")
+    resid, ke = float(lines[-1][1]), float(ke[0])
+    print(f"  {steps} pseudo-steps (JAX CPU f64 {ref['ptc_steps']}, bound "
+          f"+-1), {krylov} Krylov iterations (JAX {ref['krylov']}, bound "
+          f"{PTC_KRYLOV_RTOL:.0%}), steady residual {resid:.4e}, "
+          f"kinetic energy {ke:.6e} (JAX {ref['kinetic_energy']:.6e}, bound "
+          f"{ENERGY_RTOL:g})")
+    check(abs(steps - ref["ptc_steps"]) <= 1, f"{deck}: {steps} steps")
+    check(_close(krylov, ref["krylov"], PTC_KRYLOV_RTOL),
+          f"{deck}: {krylov} Krylov iterations against {ref['krylov']}")
+    check(resid <= 1e-5 and res["solves_above_tolerance"] == 0,
+          f"{deck}: steady residual {resid}")
+    check(_close(ke, ref["kinetic_energy"], ENERGY_RTOL),
+          f"{deck}: kinetic energy {ke}")
+    return res
+
+
+def _energies(out: str) -> list:
+    return [(float(a), float(b)) for a, b in re.findall(
+        rf"kinetic-energy: {_NUM}  enstrophy: {_NUM}", out)]
+
+
+def _restart(torch, legs, whole: dict, dim: int, kernel: str,
+             solver: str) -> list:
+    """Run the two legs in one directory: the second restarts from the
+    first's checkpoint.  Every step's KE and enstrophy within
+    RESTART_RTOL of the uninterrupted run ``whole``; the two legs' Newton
+    iterations equal its, their Krylov iterations within 1."""
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [drive_app(torch, dim, leg, kernel, solver=solver,
+                          workdir=tmp) for leg in legs]
+    got = _energies(runs[0]["out"]) + _energies(runs[1]["out"])
+    want = _energies(whole["out"])
+    check(len(got) == len(want), f"{legs}: {len(got)} steps, not "
+          f"{len(want)}")
+    for step, ((ke, en), (ke0, en0)) in enumerate(zip(got, want), start=1):
+        leg = "b" if step > len(_energies(runs[0]["out"])) else "a"
+        print(f"  step {step} (leg {leg}): KE {ke:.6e}, enstrophy {en:.6e}; "
+              f"uninterrupted {ke0:.6e}, {en0:.6e}")
+        check(_close(ke, ke0, RESTART_RTOL) and _close(en, en0, RESTART_RTOL),
+              f"{legs[1]} step {step}: ({ke}, {en}) against ({ke0}, {en0})")
+    newton = sum(r["newton_iterations"] for r in runs)
+    krylov = sum(r["linear_iterations"] for r in runs)
+    print(f"  Newton iterations {newton}, Krylov {krylov} over both legs "
+          f"(uninterrupted {whole['newton_iterations']}, "
+          f"{whole['linear_iterations']})")
+    check(newton == whole["newton_iterations"]
+          and abs(krylov - whole["linear_iterations"]) <= 1,
+          f"{legs}: {newton} Newton, {krylov} Krylov iterations")
+    return runs
+
+
+def _schwarz(torch) -> tuple[dict, dict]:
+    """Additive Schwarz on phases 4's and 5's decks: element matrices
+    from the kernels' tangent probes."""
+    out = []
+    for deck, dim, kernel, nloc in (
+            ("taylor_couette_r3_as.prm", 2, "gls_element", 27),
+            ("tgv32_as.prm", 3, "gls_lattice", 32)):
+        res = drive_app(torch, dim, deck, kernel)
+        ref = JAX_REFERENCE[deck]
+        got = _per_solve(deck, res["out"], len(ref["newton_per_solve"]))
+        newton = [n for n, _ in got]
+        per = res["linear_iterations"] / res["newton_iterations"]
+        want = ref["krylov_per_newton"]
+        tangents = sum(n for key, n in res["launches_by_shape"][kernel]
+                       .items() if key[4] == "tangent")
+        print(f"  {deck}: Newton per solve {newton} (JAX CPU f64 frozen "
+              f"tau {ref['newton_per_solve']}), Krylov per Newton "
+              f"iteration {per:.2f} (JAX CPU f32 {want:.2f}, bound "
+              f"{AS_KRYLOV_RTOL:.0%}; f64 {ref['krylov_per_newton_f64']:.2f})"
+              f"; {tangents} tangent launches, {nloc} per element-matrix "
+              "build")
+        check(newton == ref["newton_per_solve"], f"{deck}: Newton {newton}")
+        check(_close(per, want, AS_KRYLOV_RTOL),
+              f"{deck}: {per:.2f} Krylov iterations per Newton iteration")
+        check(tangents >= nloc * res["newton_iterations"],
+              f"{deck}: {tangents} tangent launches")
+        _check_converged(deck, res)
+        if dim == 2:
+            _check_l2(deck, res["out"], ref)
+        else:
+            _check_energies(deck, res["out"], "tgv32_3steps.prm")
+        out.append(res)
+    return out[0], out[1]
+
+
+# the element matrices on the card against the plain frozen-tau ones, the
+# bound relative to the plain matrices' largest entry: (label, deck, dim)
+EM_RTOL = 1e-6
+EM_SHAPES = (("2D Q2 Taylor-Couette r3 (B1)", "taylor_couette_r3.prm", 2),
+             ("3D Q1 TGV 32^3 (B2)", "tgv32_3steps.prm", 3),
+             ("2D Q2 128^2 (B2)", "mms_q2_r7_sdirk3.prm", 2))
+
+
+def _element_matrices(torch) -> dict:
+    """The element matrices from the kernel's tangent probes (nn*c
+    launches) against the plain frozen-tau element matrices on the same
+    rows, at the three shapes; times beside the node blocks.  Returns the
+    worst max-abs error per kernel."""
+    import dataclasses as dc
+
+    from softx_2020_200_tpu_torch.core.parameters import SimulationParameters
+    from softx_2020_200_tpu_torch.ops.batched_kernel import \
+        element_matrices_batched
+    from softx_2020_200_tpu_torch.ops.lattice_kernel import \
+        lattice_element_matrices
+    from softx_2020_200_tpu_torch.solvers.base import GLSNavierStokesSolver
+    worst = {"gls_element": 0.0, "gls_lattice": 0.0}
+    for label, deck, dim in EM_SHAPES:
+        with tempfile.TemporaryDirectory() as tmp, \
+                contextlib.redirect_stdout(io.StringIO()):
+            text = deck_text(deck).replace(
+                "subsection simulation control\n",
+                f"subsection simulation control\n  set output path = "
+                f"{tmp}/\n", 1)
+            op = GLSNavierStokesSolver(
+                SimulationParameters.from_text(text, dim=dim),
+                device="cuda", dtype=torch.float32).op
+        x = _inputs(torch, op, seed=11)
+        kern = op.kernel
+        frozen = kern.plain(dc.replace(kern.stab, frozen_tau=True))
+        a0 = sdt = 20.0
+        if op.layout is None:
+            rows = (op._soa(x["u"]), op.xe_soa, op._soa(x["prev"]),
+                    op._fq_soa(x["fq"]), op.h)
+            em = lambda: kern.element_matrices(*rows, a0, sdt)  # noqa
+            plain = lambda: element_matrices_batched(  # noqa: E731
+                frozen, *rows, a0, sdt)
+            nb = lambda: kern.node_blocks(*rows, a0, sdt)  # noqa: E731
+        else:
+            rows = (op._rows(x["u"]), op._rows(x["prev"]),
+                    op._fq_rows(x["fq"]))
+            em = lambda: kern.element_matrices(*rows, a0, sdt)  # noqa
+            plain = lambda: lattice_element_matrices(  # noqa: E731
+                frozen, *rows, a0, sdt)
+            nb = lambda: kern.node_blocks(*rows, a0, sdt)  # noqa: E731
+        got, want = em(), plain()
+        err, rel = _rel(torch, got, want)
+        name = "gls_element" if op.layout is None else "gls_lattice"
+        worst[name] = max(worst[name], err)
+        E, nloc = got.shape[0], got.shape[1]
+        del got, want
+        # device time (a CUDA graph of the calls) and time with the host's
+        # launches (events around single calls)
+        dev, dev_nb = _graph_ms(torch, em, 5), _graph_ms(torch, nb, 5)
+        ms, ms_nb = _median_ms(torch, em, 5), _median_ms(torch, nb, 5)
+        ms_plain = _median_ms(torch, plain, 3)
+        print(f"  {label}: E {E}, {nloc} probe launches: max abs err "
+              f"{err:.3e}, {rel:.3e} of scale (bound {EM_RTOL:g}); "
+              f"element matrices {dev:.3f} ms device ({1e3 * dev / nloc:.2f}"
+              f" us per probe), {ms:.3f} ms with the host's launches, plain "
+              f"{ms_plain:.3f} ms; node blocks {dev_nb:.3f} ms device, "
+              f"{ms_nb:.3f} ms with the host's launches")
+        check(rel <= EM_RTOL, f"{label}: element matrices {rel}")
+    return worst
+
+
+def phase_options(torch, earlier: dict) -> tuple[list, list, list, dict]:
+    """Phase 11: the solver options of decks without a forest, at the
+    decks' full size.  ``earlier`` holds phases 6's and 9's runs by deck
+    (run here when missing), the uninterrupted runs the restarts are held
+    to.  Returns the B1, B2 and B3 runs and the worst element-matrix
+    max-abs error per kernel."""
+    print("== phase 11: SDIRK2/3, pseudo-transient continuation, "
+          "checkpoint/restart and additive Schwarz on the main path")
+    b1, b2, b3 = [], [], []
+    print(" -- SDIRK (B2): TGV 32^3 SDIRK2, MMS Q2 128^2 SDIRK3")
+    b2 += _sdirk(torch)
+    print(" -- SDIRK (B3): GD TGV 16^3 SDIRK2")
+    b3.append(_gd_sdirk(torch))
+    print(" -- pseudo-transient continuation (B2): cavity 256^2")
+    b2.append(_ptc(torch))
+    print(" -- checkpoint/restart (B2): TGV 32^3 GMG, 2 steps + 1")
+    whole = earlier.get("tgv32_gmg.prm") or drive_app(
+        torch, 3, "tgv32_gmg.prm", "gls_lattice")
+    b2 += _restart(torch, ("tgv32_restart_a.prm", "tgv32_restart_b.prm"),
+                   whole, 3, "gls_lattice", "gls")
+    print(" -- checkpoint/restart (B3): GD TGV 16^3, 1 step + 1")
+    whole = earlier.get("tgv16_gd.prm") or drive_app(
+        torch, 3, "tgv16_gd.prm", "gd_lattice", solver="gd")
+    b3 += _restart(torch, ("tgv16_gd_restart_a.prm",
+                           "tgv16_gd_restart_b.prm"),
+                   whole, 3, "gd_lattice", "gd")
+    print(" -- additive Schwarz: TC r3 (B1), TGV 32^3 (B2)")
+    tc, tgv = _schwarz(torch)
+    b1.append(tc)
+    b2.append(tgv)
+    print(" -- element matrices from tangent probes against the plain "
+          "frozen-tau version")
+    worst = _element_matrices(torch)
+    return b1, b2, b3, worst
+
+
+# ----------------------------------------------------------------------
 # the variants of each kernel's timed shapes, as _time_variants names
 # them, and the launch variant each one's time is per launch of
 VARIANTS = {"gls_element": ("primal", "tangent", "node blocks",
@@ -1910,7 +2342,8 @@ def _print_bounds(times: dict, kernel: str) -> None:
                       else ""))
 
 
-PHASES = ("2", "3", "3b", "3c", "3d", "4", "5", "6", "7", "8", "9", "10")
+PHASES = ("2", "3", "3b", "3c", "3d", "4", "5", "6", "7", "8", "9", "10",
+          "11")
 
 
 def main(argv=None) -> int:
@@ -1991,6 +2424,15 @@ def main(argv=None) -> int:
         b1_runs += b1_bf16
         b2_runs += b2_bf16
         stamp("10")
+    if "11" in only:
+        b1_opt, b2_opt, b3_opt, worst_em = phase_options(
+            torch, {r["deck"]: r for r in b2_runs + b3_runs})
+        b1_runs += b1_opt
+        b2_runs += b2_opt
+        b3_runs += b3_opt
+        worst_b1 = max(worst_b1, worst_em["gls_element"])
+        worst_b2 = max(worst_b2, worst_em["gls_lattice"])
+        stamp("11")
     if only != set(PHASES):
         print(f"phases {sorted(only)} passed; no contract line")
         return 0

@@ -174,3 +174,21 @@ def node_blocks_batched(kernel, ue, xe, uprev, fq, h, alpha0, sdt):
                               alpha0, sdt)[n0]              # [c(i), E]
         out[n0, j::c] = col
     return out
+
+
+def element_matrices_batched(kernel, ue, xe, uprev, fq, h, alpha0, sdt):
+    """Element Jacobian matrices [E, nn*c, nn*c] (row and column
+    n*c + i): column k = d r / d ue[k] for every element at once, from
+    nn*c forward-mode probes, one live at a time (the JAX package's
+    ``element_matrices_batched`` maps over them the same way)."""
+    nn, c, E = ue.shape
+    out = ue.new_empty((E, nn * c, nn * c))
+    probe = torch.zeros_like(ue)
+    flat = probe.view(nn * c, E)
+    for k in range(nn * c):
+        flat.zero_()
+        flat[k] = 1.0
+        col = tangent_batched(kernel, ue, probe, xe, uprev, fq, h, alpha0,
+                              sdt)
+        out[:, :, k] = col.reshape(nn * c, E).T
+    return out

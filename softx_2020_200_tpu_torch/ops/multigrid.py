@@ -28,6 +28,7 @@ import torch
 from ..fem.dof import FESpace
 from ..fem.mesh import subdivided_hyper_rectangle
 from .linalg import gmres_fixed
+from .operators import assemble, build_assembly_map
 from .preconditioners import apply_node_block_state, node_blocks_to_state
 
 # the JAX package's cycle defaults, which every deck uses: one damped
@@ -72,12 +73,22 @@ class Level:
     finest)
     the transfers from the level above: ``masters``/``weights``
     [N_above, nn] interpolate this level's nodes to the level above,
-    ``inject`` [N] picks this level's nodes out of the level above."""
+    ``inject`` [N] picks this level's nodes out of the level above.
+    ``restrict_idx`` [N, M] (made here) lists, for each node of this
+    level, the slots of ``masters`` that name it: restriction is a gather
+    and a sum over them, in a fixed order on every device."""
     op: object
     mask: torch.Tensor
     masters: torch.Tensor | None = None
     weights: torch.Tensor | None = None
     inject: torch.Tensor | None = None
+    restrict_idx: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.masters is not None and self.restrict_idx is None:
+            amap = build_assembly_map(self.masters.cpu().numpy(),
+                                      self.inject.shape[0])
+            self.restrict_idx = amap.idx.to(self.masters.device)
 
 
 def prolong(level: Level, vc):
@@ -87,12 +98,10 @@ def prolong(level: Level, vc):
 
 def restrict(level: Level, rf):
     """A residual on the level above -> this level (the transpose of
-    ``prolong``)."""
-    c = rf.shape[-1]
-    out = rf.new_zeros((level.inject.shape[0], c))
-    return out.index_add_(
-        0, level.masters.reshape(-1),
-        (level.weights[:, :, None] * rf[:, None, :]).reshape(-1, c))
+    ``prolong``), as a gather-sum: no atomics, so the cycle adds in the
+    same order on every run."""
+    return assemble(level.weights[:, :, None] * rf[:, None, :],
+                    level.restrict_idx)
 
 
 def build_hierarchy(solver, min_elems: int = 256) -> list[Level]:

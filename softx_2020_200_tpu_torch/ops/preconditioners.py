@@ -4,9 +4,14 @@
 - ``jacobi``       — pointwise diagonal scaling.
 - ``block_jacobi`` — per-node (d+1)x(d+1) blocks: couples the velocity
                      components and pressure at each node.
+- ``additive_schwarz`` — restricted additive Schwarz with one block per
+                     element: batched inverses of the nn*(d+1) element
+                     matrices (``GLSOperator.element_matrices``), applied
+                     as a gather, one batched product and an assembly.
 
-Both are built from the assembled node-diagonal Jacobian blocks
-(``GLSOperator.node_blocks``) and applied as batched small dense algebra.
+The first two are built from the assembled node-diagonal Jacobian blocks
+(``GLSOperator.node_blocks``); all three are applied as batched small
+dense algebra.
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from .operators import assemble
 from .smallmat import det_bm, inv_bm
 
 
@@ -74,3 +80,31 @@ def apply_node_block_state(state, v):
     if state.ndim == 2:           # jacobi inverse diagonal
         return v * state
     return torch.einsum("nij,nj->ni", state, v)
+
+
+def build_additive_schwarz(A_e, elem_nodes, amap_idx, inv_mult,
+                           bc_mask) -> Preconditioner:
+    """Restricted additive Schwarz with element blocks:
+
+        z = sum_e R_e^T W_e (A_e + s_e I)^-1 R_e v,  W_e = 1/multiplicity
+
+    so that overlapping contributions average.  The steady local blocks
+    carry exact null modes (the constant pressure of a floating element);
+    the relative shift s_e = 1e-3 max|diag A_e| makes every block
+    invertible.  ``A_e`` [E, nn*c, nn*c] (row n*c + i, the order of
+    ``v[elem_nodes]``) is overwritten; its inverses are the state."""
+    E, nloc, _ = A_e.shape
+    nn = elem_nodes.shape[1]
+    c = nloc // nn
+    diag = A_e.diagonal(dim1=1, dim2=2)
+    dmax = diag.abs().amax(dim=-1, keepdim=True)
+    diag.add_(1e-3 * dmax)
+    Ainv = torch.linalg.inv(A_e)                    # [E, nn*c, nn*c]
+    weight = inv_mult[elem_nodes][:, :, None]       # [E, nn, 1]
+
+    def apply(v):
+        ve = v[elem_nodes].reshape(E, nloc, 1)
+        ze = torch.bmm(Ainv, ve).view(E, nn, c) * weight
+        return torch.where(bc_mask, v, assemble(ze, amap_idx))
+
+    return Preconditioner(apply=apply)

@@ -1,8 +1,9 @@
 """The solver engine: setup, steady/transient stepping, orchestration
 (counterpart of ``softx_2020_200_tpu.solvers.base``).
 
-mesh -> DoFs -> constraints -> initial condition -> { steady cycles |
-BDF time loop } with post-processing, tables and VTU output.
+mesh -> DoFs -> constraints -> initial condition -> { steady cycles
+(Newton or pseudo-transient continuation) | BDF or SDIRK time loop }
+with post-processing, tables, VTU output and checkpoints.
 
 Everything runs on one device given at construction (``device``, CUDA
 by default, and ``dtype``, float32 by default, as the CLI).  A Newton
@@ -14,12 +15,19 @@ in ``self.stats``.
 (``ops/multigrid.py``) on a lattice with a hierarchy, with FGMRES
 outside; a GMG that stalls a linear solve is swapped for block-Jacobi
 for the rest of that solve and restored once for the next (see
-``_gmg_fallback``).
+``_gmg_fallback``).  ``additive_schwarz`` builds its element blocks from
+the kernel's tangent once per Newton iteration (``GLSOperator.
+element_matrices``).
+
+A checkpoint is the JAX package's ``.npz`` with the same keys (control,
+pvd, n_nodes, degree, u, previous), so a run of either package continues
+in the other.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import time as _time
 
@@ -31,16 +39,18 @@ from ..core.expressions import VectorExpression
 from ..core.parameters import (BoundaryType, SimulationParameters,
                                TimeSteppingMethod, Verbosity)
 from ..core.pvd_handler import PVDHandler
+from ..core.sdirk import sdirk_coefficients
 from ..core.simulation_control import SimulationControl
 from ..core.timer import SectionTimer
 from ..fem.constraints import build_hanging_constraints
 from ..fem.dof import FESpace
 from ..fem.geometry import det_and_inv
 from ..fem.mesh import Manifold, Mesh, generate_mesh
-from ..ops.linalg import gmres
+from ..ops.linalg import HostSync, gmres
 from ..ops.multigrid import build_hierarchy, make_vcycle
 from ..ops.operators import assemble
 from ..ops.preconditioners import (apply_node_block_state,
+                                   build_additive_schwarz,
                                    build_from_node_blocks,
                                    node_blocks_to_state)
 from ..utils.tables import Table
@@ -49,13 +59,38 @@ from . import postprocessing as post
 from .analytical import l2_error
 from .boundary import BoundaryHandler
 from .gls import GLSOperator, StabFlags
-from .newton import NewtonConfig, newton_solve
+from .newton import (NewtonConfig, NewtonResult, line_search,
+                     linear_solve, newton_solve)
 
 
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to the PyTorch package yet "
         f"(ROADMAP.md {item})")
+
+
+def checkpoint_path(prm: SimulationParameters) -> str:
+    """``<output path>/<restart filename>``, without the ``.npz``."""
+    return os.path.join(prm.simulation_control.output_path,
+                        prm.restart.filename)
+
+
+def write_npz_atomic(path: str, **arrays) -> None:
+    """``np.savez`` to ``path + ".npz"`` through a temporary file and
+    ``os.replace``: a crash mid-write leaves the last checkpoint whole."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = path + ".tmp.npz"
+    np.savez(tmp, **arrays)
+    os.replace(tmp, path + ".npz")
+
+
+def load_checkpoint(path: str):
+    """The arrays of ``path + ".npz"`` (no pickles).  A checkpoint of an
+    adapted forest is refused: forests are not ported."""
+    data = np.load(path + ".npz", allow_pickle=False)
+    if "forest_leaves" in data:
+        raise _not_ported("a checkpoint of an adapted forest", "A8, D5")
+    return data
 
 
 def new_stats() -> dict:
@@ -112,18 +147,9 @@ class GLSNavierStokesSolver:
     # ------------------------------------------------------------------
     def _check_supported(self) -> None:
         prm = self.prm
-        if prm.simulation_control.method.is_sdirk:
-            raise _not_ported("SDIRK time stepping", "D2")
-        if prm.nonlinear_solver.solver == "pseudo_transient":
-            raise _not_ported("pseudo-transient continuation", "D2")
-        if prm.restart.checkpoint or prm.restart.restart:
-            raise _not_ported("checkpoint/restart", "D2")
         if prm.mesh_adaptation.type == "kelly" or prm.mesh.type == "gmsh":
             raise _not_ported("Kelly adaptation, forests and gmsh meshes",
                               "A8, D5")
-        pc = prm.linear_solver.preconditioner
-        if pc == "additive_schwarz":
-            raise _not_ported("preconditioner = additive_schwarz", "D3")
 
     def setup(self, mesh: Mesh | None = None) -> None:
         """read_mesh + setup_dofs + operator/BC construction."""
@@ -224,6 +250,9 @@ class GLSNavierStokesSolver:
                     "block_jacobi (no multigrid hierarchy on this mesh)")
             print(f"linear solver: preconditioner 'auto' resolves to {what}")
         self._zero_prev = torch.zeros((self.space.n_nodes, self.dim), **kw)
+        # the additive-Schwarz inverses of the last Newton iteration,
+        # dropped before the next ones are built
+        self._schwarz = None
 
     # ------------------------------------------------------------------
     def _source_at(self, t, qpts=None):
@@ -282,6 +311,13 @@ class GLSNavierStokesSolver:
                 # iteration
                 return self._vcycle(hc.distribute(u), uprev_combo, fq,
                                     alpha0, sdt, mask)
+            if self.precond_kind == "additive_schwarz":
+                self._schwarz = None
+                A_e = op.element_matrices(hc.distribute(u), mask,
+                                          uprev_combo, fq, alpha0, sdt)
+                self._schwarz = build_additive_schwarz(
+                    A_e, op.elem_nodes, op.amap_idx, op.inv_mult, mask)
+                return lambda v: self._schwarz.apply(v)
             blocks = op.node_blocks(hc.distribute(u), mask, uprev_combo,
                                     fq, alpha0, sdt)
             blocks = bh.slip_project_blocks(blocks)
@@ -316,18 +352,22 @@ class GLSNavierStokesSolver:
             self._vcycle, self._gmg_stash = self._gmg_stash, None
             self.precond_kind = "gmg"
 
+    def _check_preconditioner(self) -> None:
+        if self.precond_kind not in ("jacobi", "block_jacobi", "gmg",
+                                     "additive_schwarz"):
+            raise ValueError(
+                f"unknown preconditioner {self.precond_kind!r}")
+
     def _newton(self, u0, uprev_combo, t, alpha0, sdt):
         """One nonlinear solve (steady: alpha0 = sdt = 0)."""
         self._gmg_probation()
-        if self.precond_kind not in ("jacobi", "block_jacobi", "gmg"):
-            raise ValueError(
-                f"unknown preconditioner {self.precond_kind!r}")
+        self._check_preconditioner()
         t0 = _time.perf_counter()
         (constrain, residual, jacobian, node_block_state,
          precond_builder) = self._make_problem(uprev_combo, t, alpha0, sdt)
         u0 = constrain(u0)
         if (self.prm.nonlinear_solver.solver == "skip_newton"
-                and self._vcycle is None):
+                and self.precond_kind in ("jacobi", "block_jacobi")):
             # reference SkipNewtonNonLinearSolver: the preconditioner
             # state is rebuilt every `skip iterations`
             res = newton_solve(residual, jacobian, u0,
@@ -408,9 +448,121 @@ class GLSNavierStokesSolver:
         """One steady nonlinear solve; returns (u, NewtonResult)."""
         if u0 is None:
             u0 = self.initial_condition()
+        if self.prm.nonlinear_solver.solver == "pseudo_transient":
+            res = self.solve_steady_ptc(u0, verbose=verbose)
+            return res.u, res
         res = self._newton(u0, self._zero_prev, 0.0, 0.0, 0.0)
         self._log_newton(res, verbose)
         return res.u, res
+
+    def solve_steady_ptc(self, u0, verbose: bool | None = None):
+        """Pseudo-transient continuation (``solver = pseudo_transient``),
+        as in the JAX package: one backward-Euler Newton iteration per
+        pseudo-step, combo = -u_k/dt frozen at its start, with dt grown by
+        switched evolution relaxation on the steady residual
+        (dt_{k+1} = dt_k ||R_k||/||R_{k+1}||, the growth clamped to
+        [0.1, ptc_growth], dt capped at ptc_max_dt) until the steady
+        residual meets the nonlinear tolerance.  The linear solve stops at
+        ``max(relative_residual * ||R_be||, minimum_residual)`` of the
+        backward-Euler residual; when its cycles run out, GMG falls back
+        to block-Jacobi and the same pseudo-step is retried.  The stall
+        guard acts once dt has reached ptc_max_dt.  Returns a
+        NewtonResult whose ``n_iterations`` counts the pseudo-steps and
+        whose history (length ptc_max_steps + 1) holds the steady
+        residuals; the best iterate is returned."""
+        self._gmg_probation()
+        self._check_preconditioner()
+        nls, cfg = self.prm.nonlinear_solver, self.newton_cfg
+        if verbose is None:
+            verbose = (nls.verbosity is Verbosity.verbose
+                       and not self.prm.test.enable)
+        t0 = _time.perf_counter()
+        sync = HostSync()
+        d = self.dim
+        constrain, residual = self._make_problem(self._zero_prev, 0.0, 0.0,
+                                                 0.0)[:2]
+        u = constrain(u0)
+        rs = sync(torch.linalg.vector_norm(residual(u)))
+        dt = nls.ptc_initial_dt
+        maxk = nls.ptc_max_steps
+        hist = np.full(maxk + 1, np.nan)
+        alphas = np.full(maxk, np.nan)
+        hist[0] = rs
+        k = lin_total = ls_evals = restarts = 0
+
+        def stalled():
+            # the floor guard, once the pseudo-step is effectively
+            # infinite (the residual is not monotone while dt ramps)
+            W = cfg.stall_window
+            return (dt >= nls.ptc_max_dt and k >= W
+                    and rs > cfg.stall_factor * hist[k - W])
+
+        u_best, n_best = u, rs
+        while rs > cfg.tolerance and k < maxk and not stalled():
+            alpha0 = 1.0 / dt
+            combo = -u[:, :d] * alpha0
+            (_, residual_be, jacobian, _,
+             precond_builder) = self._make_problem(combo, 0.0, alpha0,
+                                                   alpha0)
+            Rbe = residual_be(u)
+            rbe = sync(torch.linalg.vector_norm(Rbe))
+            step, lin_rn, lin_atol, lin_it, cycles = linear_solve(
+                jacobian(u), precond_builder(u), Rbe, rbe, cfg, sync)
+            lin_total += lin_it
+            restarts += max(cycles - 1, 0)
+            if lin_rn > lin_atol and self._gmg_fallback():
+                continue
+            u, _, _, alpha, evals = line_search(residual_be, u, step, rbe,
+                                                cfg, sync)
+            ls_evals += evals
+            u = constrain(u)
+            rs_new = sync(torch.linalg.vector_norm(residual(u)))
+            growth = min(nls.ptc_growth, max(0.1, rs / max(rs_new, 1e-300)))
+            dt = min(nls.ptc_max_dt, dt * growth)
+            rs = rs_new
+            k += 1
+            hist[k] = rs
+            alphas[k - 1] = alpha
+            if rs < n_best:
+                u_best, n_best = u, rs
+            if verbose:
+                prec = self.prm.simulation_control.log_precision
+                print(f"PTC step {k:3d}  dt = {dt:.3e}  "
+                      f"Residual: {rs:.{prec}e}")
+        res = NewtonResult(u=u_best, res_history=hist, n_iterations=k,
+                           linear_iters=lin_total, alphas=alphas,
+                           host_syncs=sync.count, line_search_evals=ls_evals,
+                           linear_restarts=restarts)
+        record_solve(self.stats, res, _time.perf_counter() - t0,
+                     cfg.tolerance)
+        return res
+
+    def solve_sdirk_step(self, u, t_old, dt, order, verbose=None):
+        """One SDIRK22/SDIRK33 step (``order`` stages), as in the JAX
+        package.  Stage s solves with udot = (u_s - u_n - dt sum_{j<s}
+        A[s,j] k_j) / (dt A[s,s]): alpha0 = 1/(dt A[s,s]), the rest in
+        the combo term, from the previous stage's u; its derivative
+        k_s = alpha0 u_s + combo (velocity) feeds the later stages.
+        Both schemes are stiffly accurate: u_{n+1} is the last stage.
+        Returns (u_{n+1}, the last stage's NewtonResult)."""
+        table = sdirk_coefficients(order, dt)
+        A, c = table[:, :order], table[:, order]
+        d = self.dim
+        u_n = u
+        ks = []
+        res = None
+        for s_i in range(order):
+            gamma = A[s_i, s_i]
+            alpha0 = 1.0 / (dt * gamma)
+            combo = -u_n[:, :d] * alpha0
+            for j in range(s_i):
+                combo = combo - (A[s_i, j] / gamma) * ks[j]
+            res = self._newton(u, combo, t_old + c[s_i] * dt, alpha0,
+                               1.0 / dt)
+            self._log_newton(res, verbose)
+            u = res.u
+            ks.append(alpha0 * u[:, :d] + combo)
+        return u, res
 
     def solve_transient_step(self, u, previous, t, dts, order, verbose=None):
         """One implicit BDF step.
@@ -445,24 +597,33 @@ class GLSNavierStokesSolver:
             self.write_output(u, t)
 
     def run_transient(self, u0=None, on_step=None, verbose=None):
-        """Transient BDF time loop, with the JAX package's startup
-        sub-stepping: with ``startup time scaling`` s in (0, 1) the first
-        step(s) of a BDF2/3 run are split into lower-order sub-steps of
-        sizes (s dt, (1-s) dt).  ``on_step(solver, u, t)`` runs after
-        every step.  Returns the final solution."""
+        """Transient BDF or SDIRK time loop, with the JAX package's
+        startup sub-stepping: with ``startup time scaling`` s in (0, 1)
+        the first step(s) of a BDF2/3 run are split into lower-order
+        sub-steps of sizes (s dt, (1-s) dt) (not under SDIRK, not after a
+        restart).  A restart reads the checkpoint before that is decided;
+        a checkpoint is written after every ``frequency``-th step.
+        ``on_step(solver, u, t)`` runs after every step.  Returns the
+        final solution."""
         ctrl = self.control
+        sdirk_order = (int(ctrl.method.value[-1])
+                       if ctrl.method.is_sdirk else 0)
         target_order = ctrl.method.bdf_order
-        if target_order == 0:
-            raise ValueError("run_transient requires a bdf method")
+        if target_order == 0 and sdirk_order == 0:
+            raise ValueError("run_transient requires a bdf/sdirk method")
+        target_order = max(target_order, 1)
         if u0 is None:
             u0 = self.initial_condition()
         u = u0
         previous = [u0] * 3    # newest first
 
         prm = self.prm
+        if prm.restart.restart:
+            u, previous = self.read_checkpoint()
         s_scale = prm.simulation_control.startup_timestep_scaling
         startup_left = 0
-        if target_order >= 2 and 0.0 < s_scale < 1.0:
+        if (target_order >= 2 and not sdirk_order and 0.0 < s_scale < 1.0
+                and not prm.restart.restart):
             startup_left = target_order - 1
 
         while not ctrl.is_at_end():
@@ -491,6 +652,7 @@ class GLSNavierStokesSolver:
                                    + ctrl.dt_history[1:])[:4]
                 startup_left -= 1
                 self._after_step(u, t)
+                self._checkpoint_after(u, previous)
                 if on_step is not None:
                     on_step(self, u, t)
                 continue
@@ -500,10 +662,16 @@ class GLSNavierStokesSolver:
                 print(f"*** Time step : {ctrl.iteration}  "
                       f"time = {t:.{prec}g}  dt = {ctrl.dt:.{prec}g} ***")
             with self.timer.section("solve"):
-                u, _ = self.solve_transient_step(
-                    u, previous, t, ctrl.dts(), order, verbose=verbose)
+                if sdirk_order:
+                    u, _ = self.solve_sdirk_step(
+                        u, t - ctrl.dt, ctrl.dt, sdirk_order,
+                        verbose=verbose)
+                else:
+                    u, _ = self.solve_transient_step(
+                        u, previous, t, ctrl.dts(), order, verbose=verbose)
             previous = [u] + previous[:2]
             self._after_step(u, t)
+            self._checkpoint_after(u, previous)
             if on_step is not None:
                 on_step(self, u, t)
             if prm.timer.type == "iteration":
@@ -702,6 +870,44 @@ class GLSNavierStokesSolver:
             self.pvd.append(t, name)
             self.pvd.write(os.path.join(
                 sc.output_path, sc.output_name + ".pvd"))
+
+    # ------------------------------------------------------------------
+    # checkpoint / restart
+    # ------------------------------------------------------------------
+    def _checkpoint_after(self, u, previous) -> None:
+        prm = self.prm
+        if (prm.restart.checkpoint
+                and self.control.iteration % prm.restart.frequency == 0):
+            self.write_checkpoint(u, previous)
+
+    def write_checkpoint(self, u, previous) -> None:
+        """The JAX package's checkpoint: ``<output path>/<filename>.npz``
+        with the control and PVD state as JSON, the space's size and
+        degree, u and the BDF history (newest first) in the run's dtype;
+        written atomically."""
+        with self.timer.section("checkpoint"):
+            write_npz_atomic(
+                checkpoint_path(self.prm),
+                control=json.dumps(self.control.serialize()),
+                pvd=json.dumps(self.pvd.serialize()),
+                n_nodes=self.space.n_nodes, degree=self.space.degree,
+                u=u.detach().cpu().numpy(),
+                previous=np.stack([p.detach().cpu().numpy()
+                                   for p in previous]))
+
+    def read_checkpoint(self):
+        """Restore the control and PVD state; returns (u, previous) in
+        the run's dtype and device, from a checkpoint of either package
+        (float32 or float64)."""
+        data = load_checkpoint(checkpoint_path(self.prm))
+        if (int(data["n_nodes"]) != self.space.n_nodes
+                or int(data["degree"]) != self.space.degree):
+            raise ValueError("checkpoint does not match current mesh/space")
+        self.control.deserialize(json.loads(str(data["control"])))
+        self.pvd.deserialize(json.loads(str(data["pvd"])))
+        kw = dict(dtype=self.dtype, device=self.device)
+        return (torch.as_tensor(data["u"], **kw),
+                [torch.as_tensor(p, **kw) for p in data["previous"]])
 
     def _log_newton(self, res, verbose=None):
         if verbose is None:

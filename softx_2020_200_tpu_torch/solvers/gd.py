@@ -21,11 +21,17 @@ what the JAX package runs there too (XLA, not Pallas).  The GD weak form
 has no stabilization parameter, so the Jacobian action is exact on both
 paths: ``linearize`` captures the element state once per Newton
 iteration and ``jvp`` applies J dx.
+
+Time stepping is BDF1-3 or SDIRK2/3 (the stages through the velocity
+history only); a checkpoint is the JAX package's ``.npz`` (u, previous,
+control, pvd, n_dofs), read by either package.  As in the JAX GD engine,
+``solver = pseudo_transient`` is ignored: a steady solve is Newton.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
 import os
 import time as _time
@@ -39,6 +45,7 @@ from ..core.bdf import bdf_coefficients
 from ..core.expressions import VectorExpression
 from ..core.parameters import BoundaryType, SimulationParameters, Verbosity
 from ..core.pvd_handler import PVDHandler
+from ..core.sdirk import sdirk_coefficients
 from ..core.simulation_control import SimulationControl
 from ..core.timer import SectionTimer
 from ..fem.dof import FESpace
@@ -55,7 +62,8 @@ from ..ops.structured import StructuredLayout
 from ..utils.tables import Table
 from ..utils.vtu import subcell_connectivity, write_vtu
 from . import postprocessing as post
-from .base import _not_ported, new_stats, record_solve
+from .base import (_not_ported, checkpoint_path, load_checkpoint,
+                   new_stats, record_solve, write_npz_atomic)
 from .boundary import BoundaryHandler
 from .newton import NewtonConfig, newton_solve
 
@@ -363,10 +371,6 @@ class GDNavierStokesSolver:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
         sc = prm.simulation_control
-        if sc.method.is_sdirk:
-            raise _not_ported("SDIRK time stepping", "D2")
-        if prm.restart.checkpoint or prm.restart.restart:
-            raise _not_ported("checkpoint/restart", "D2")
         if prm.mesh_adaptation.type == "kelly" or prm.mesh.type == "gmsh":
             raise _not_ported("Kelly adaptation, forests and gmsh meshes",
                               "A8, D5")
@@ -571,6 +575,28 @@ class GDNavierStokesSolver:
         res = self._newton(x, combo, t, float(alpha[0]))
         return res.u, res
 
+    def solve_sdirk_step(self, x, t_old, dt, order):
+        """One SDIRK22/33 step on the mixed state, the GLS engine's stage
+        sequence with the velocity history only: each stage from the
+        previous stage's state, k_s = alpha0 v_s + combo.  Returns
+        (x_{n+1}, the last stage's NewtonResult)."""
+        table = sdirk_coefficients(order, dt)
+        A, c = table[:, :order], table[:, order]
+        v_n, _ = self.op.split(x)
+        ks = []
+        res = None
+        for s_i in range(order):
+            gamma = A[s_i, s_i]
+            alpha0 = 1.0 / (dt * gamma)
+            combo = -v_n * alpha0
+            for j in range(s_i):
+                combo = combo - (A[s_i, j] / gamma) * ks[j]
+            res = self._newton(x, combo, t_old + c[s_i] * dt, alpha0)
+            x = res.u
+            v_s, _ = self.op.split(x)
+            ks.append(alpha0 * v_s + combo)
+        return x, res
+
     # ------------------------------------------------------------------
     def solve(self, on_step=None):
         """Steady cycles (uniform refinement between them) or the
@@ -596,15 +622,24 @@ class GDNavierStokesSolver:
         return x
 
     def run_transient(self, x0=None, on_step=None):
-        """The BDF time loop with the JAX package's startup sub-steps."""
+        """The BDF or SDIRK time loop with the JAX package's startup
+        sub-steps (BDF only, not after a restart), the restart read
+        before them and a checkpoint after every ``frequency``-th
+        step."""
         prm = self.prm
         ctrl = self.control
+        sdirk_order = (int(ctrl.method.value[-1])
+                       if ctrl.method.is_sdirk else 0)
         target_order = max(ctrl.method.bdf_order, 1)
         x = self.initial_condition() if x0 is None else x0
         previous = [x] * 3
+        if prm.restart.restart:
+            x, previous = self.read_checkpoint()
         s_scale = prm.simulation_control.startup_timestep_scaling
         startup_left = (target_order - 1
-                        if target_order >= 2 and 0.0 < s_scale < 1.0 else 0)
+                        if (target_order >= 2 and not sdirk_order
+                            and 0.0 < s_scale < 1.0
+                            and not prm.restart.restart) else 0)
         prec = prm.simulation_control.log_precision
         while not ctrl.is_at_end():
             ctrl.integrate()
@@ -614,7 +649,10 @@ class GDNavierStokesSolver:
                 print(f"*** Time step : {ctrl.iteration}  "
                       f"time = {t:.{prec}g}  dt = {ctrl.dt:.{prec}g} ***")
             with self.timer.section("solve"):
-                if startup_left > 0:
+                if sdirk_order:
+                    x, _ = self.solve_sdirk_step(x, t - ctrl.dt, ctrl.dt,
+                                                 sdirk_order)
+                elif startup_left > 0:
                     k = target_order - startup_left
                     dt_full = ctrl.dt_history[0]
                     dt_a = s_scale * dt_full
@@ -641,6 +679,9 @@ class GDNavierStokesSolver:
                     print(f"L2 error velocity : {ev:.{prec}e}")
             if ctrl.is_output_iteration():
                 self.write_output(x, t)
+            if (prm.restart.checkpoint
+                    and ctrl.iteration % prm.restart.frequency == 0):
+                self.write_checkpoint(x, previous)
             if on_step is not None:
                 on_step(self, x, t)
         self.write_tables()
@@ -760,6 +801,29 @@ class GDNavierStokesSolver:
                    "pressure": p_nodes})
         self.pvd.append(t, name)
         self.pvd.write(os.path.join(sc.output_path, sc.output_name + ".pvd"))
+
+    # ------------------------------------------------------------------
+    def write_checkpoint(self, x, previous) -> None:
+        """The JAX GD engine's checkpoint: u and the history (newest
+        first) in the run's dtype, the control and PVD state as JSON and
+        the DoF count; written atomically."""
+        write_npz_atomic(
+            checkpoint_path(self.prm), u=x.detach().cpu().numpy(),
+            previous=np.stack([p.detach().cpu().numpy() for p in previous]),
+            control=json.dumps(self.control.serialize()),
+            pvd=json.dumps(self.pvd.serialize()), n_dofs=self.op.n_dofs)
+
+    def read_checkpoint(self):
+        """Restore the control and PVD state; returns (x, previous) in the
+        run's dtype and device, from a checkpoint of either package."""
+        data = load_checkpoint(checkpoint_path(self.prm))
+        if int(data["n_dofs"]) != self.op.n_dofs:
+            raise ValueError("checkpoint does not match current mesh")
+        self.control.deserialize(json.loads(str(data["control"])))
+        self.pvd.deserialize(json.loads(str(data["pvd"])))
+        kw = dict(dtype=self.dtype, device=self.device)
+        return (torch.as_tensor(data["u"], **kw),
+                [torch.as_tensor(p, **kw) for p in data["previous"]])
 
     def l2_errors(self, x, t=0.0):
         if self.exact is None:

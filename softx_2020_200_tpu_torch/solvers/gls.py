@@ -48,7 +48,7 @@ from torch import nn
 
 from ..fem.dof import FESpace
 from ..fem.geometry import det_and_inv
-from ..ops.batched_kernel import element_size
+from ..ops.batched_kernel import element_size, make_batched_kernel
 from ..ops.gls_kernel import GLSElementKernel
 from ..ops.lattice_kernel import LatticeGLSKernel, is_translate_lattice
 from ..ops.operators import (assemble, build_assembly_map,
@@ -68,69 +68,22 @@ class StabFlags:
 
 def make_element_kernel(*, dim: int, degree: int, B, G, H, w, nu: float,
                         stab: StabFlags):
-    """Single-element GLS residual in the natural [nn, c] layout (the
-    per-element form of ``ops/batched_kernel.py``; h from the volume of
-    the element's own quadrature, as in the JAX package)."""
-    d = dim
-    eye = torch.eye(dim, dtype=B.dtype, device=B.device)
+    """Single-element GLS residual in the natural [nn, c] layout: the
+    plain batched kernel (``ops/batched_kernel.py``) on a batch of one,
+    with h from the volume of the element's own quadrature, as in the
+    JAX package."""
+    kernel = make_batched_kernel(dim=dim, B=B, G=G, H=H, w=w, nu=nu,
+                                 stab=stab)
 
     def element_residual(ue, xe, uprev_e, fq, alpha0, sdt):
         J = torch.einsum("ni,qnj->qij", xe, G)
-        detJ, Jinv = det_and_inv(J)
-        scale = detJ * w
-
-        uq = torch.einsum("qn,nc->qc", B, ue)
-        du_dxi = torch.einsum("qna,nc->qca", G, ue)
-        grad = torch.einsum("qca,qai->qci", du_dxi, Jinv)
-        vel = uq[:, :d]
-        gvel = grad[:, :d, :]
-        p = uq[:, d]
-        gp = grad[:, d, :]
-        K = torch.einsum("qai,qbi->qab", Jinv, Jinv)
-        d2u = torch.einsum("qnab,nc->qcab", H, ue[:, :d])
-        lap = torch.einsum("qcab,qab->qc", d2u, K)
-
-        udot = alpha0 * vel + torch.einsum("qn,nd->qd", B, uprev_e)
-        conv = torch.einsum("qij,qj->qi", gvel, vel)
-        r_m = udot + conv + gp - nu * lap - fq
-        div = torch.einsum("qii->q", gvel)
-
-        vol = torch.sum(scale)
-        if d == 2:
+        vol = torch.sum(det_and_inv(J)[0] * w)
+        if dim == 2:
             h = torch.sqrt(4.0 * vol / math.pi) / degree
         else:
             h = torch.pow(6.0 * vol / math.pi, 1.0 / 3.0) / degree
-        umag2 = torch.sum(vel * vel, dim=-1)
-        tau = 1.0 / torch.sqrt(
-            sdt * sdt + 4.0 * umag2 / (h * h)
-            + 9.0 * (4.0 * nu / (h * h)) ** 2)
-        if stab.frozen_tau:
-            tau = tau.detach()
-
-        a_v = scale[:, None] * (udot + conv - fq)
-        a_g = scale[:, None, None] * (nu * gvel - p[:, None, None] * eye)
-        a_p = scale * div
-        a_pg = torch.zeros_like(gp)
-        if stab.pspg:
-            a_pg = a_pg + (scale * tau)[:, None] * r_m
-        if stab.supg:
-            a_g = a_g + (scale * tau)[:, None, None] * \
-                torch.einsum("qi,qj->qij", r_m, vel)
-        if stab.lsic:
-            tau_l = 0.5 * torch.sqrt(umag2) * h
-            a_g = a_g + (scale * tau_l * div)[:, None, None] * eye
-
-        Rv = torch.einsum("qn,qi->ni", B, a_v)
-        ag_ref = torch.einsum("qij,qaj->qia", a_g, Jinv)
-        Rv = Rv + torch.einsum("qna,qia->ni", G, ag_ref)
-        if stab.gls_viscous_adjoint:
-            a_lap = -(scale * tau * nu)[:, None] * r_m
-            lap_phi = torch.einsum("qnab,qab->qn", H, K)
-            Rv = Rv + torch.einsum("qn,qi->ni", lap_phi, a_lap)
-        Rp = torch.einsum("qn,q->n", B, a_p)
-        apg_ref = torch.einsum("qj,qaj->qa", a_pg, Jinv)
-        Rp = Rp + torch.einsum("qna,qa->n", G, apg_ref)
-        return torch.cat([Rv, Rp[:, None]], dim=-1)
+        return kernel(ue[..., None], xe[..., None], uprev_e[..., None],
+                      fq[..., None], h[None], alpha0, sdt)[..., 0]
 
     return element_residual
 
@@ -327,6 +280,40 @@ class GLSOperator(nn.Module):
         keep2 = keep[:, :, None, :] * keep[:, None, :, :]
         blocks = blocks * keep2.reshape(blocks.shape)
         return self._assemble_rows(blocks).reshape(self.n_nodes, c, c)
+
+    def element_matrices(self, u, bc_mask, uprev_combo, fq, alpha0, sdt):
+        """Per-element dense Jacobian matrices [E, nn*c, nn*c] in the
+        space's element order (row and column n*c + i, the order of
+        ``u[elem_nodes]``), for additive Schwarz.  Constrained rows and
+        columns are zeroed with a unit diagonal.  From nn*c tangent
+        probes of the operator's kernel, one live at a time: on CPU
+        forward-mode AD through the plain kernel (exact tau unless
+        frozen, the JAX package's ``element_matrices``); on CUDA the
+        kernel's frozen-tau tangent, the operator the Krylov matvec
+        applies there.  The state is the full-precision one whatever
+        ``state_dtype`` says, as in the JAX package."""
+        nn, c = self.nn, self.nc
+        if self.layout is not None:
+            rows = self.kernel.element_matrices(
+                self._rows(u), self._rows(uprev_combo), self._fq_rows(fq),
+                alpha0, sdt)                    # [E, c*nn, c*nn], lattice
+            E = rows.shape[0]
+            # component-major local order -> node-major, lattice element
+            # order -> the space's (elem_perm maps grid -> space)
+            A = torch.empty_like(rows)
+            A.view(E, nn, c, nn, c)[self.elem_perm] = rows.view(
+                E, c, nn, c, nn).permute(0, 2, 1, 4, 3)
+            del rows
+        else:
+            A = self.kernel.element_matrices(
+                self._soa(u), self.xe_soa, self._soa(uprev_combo),
+                self._fq_soa(fq), self.h, alpha0, sdt)
+            E = A.shape[0]
+        m = bc_mask[self.elem_nodes].reshape(E, nn * c).to(A.dtype)
+        keep = 1.0 - m
+        A.mul_(keep[:, :, None]).mul_(keep[:, None, :])
+        A.diagonal(dim1=1, dim2=2).add_(m)
+        return A
 
     # ------------------------------------------------------------------
     def cfl(self, u, dt):

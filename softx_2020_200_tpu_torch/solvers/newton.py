@@ -53,6 +53,59 @@ class NewtonResult(NamedTuple):
     linear_restarts: int         # Krylov restarts (one read each)
 
 
+def linear_solve(jv, precond, R, rnorm: float, config: NewtonConfig,
+                 sync: HostSync):
+    """The Newton direction: solve J d = -R to ``max(relative_residual *
+    rnorm, minimum_residual)`` with ``jv`` (v[N, c] -> J v) and
+    ``precond`` (v[N, c] -> M^-1 v).  Returns (d[N, c], the linear
+    residual, its tolerance, iterations, Krylov cycles)."""
+    shape = R.shape
+
+    def matvec(v_flat):
+        return jv(v_flat.reshape(shape)).reshape(-1)
+
+    def pre_flat(v_flat):
+        return precond(v_flat.reshape(shape)).reshape(-1)
+
+    lin_atol = max(config.relative_residual * rnorm,
+                   config.minimum_residual)
+    if config.method == "bicgstab":
+        d, lin_rn, lin_it = bicgstab(
+            matvec, -R.reshape(-1), precond=pre_flat,
+            max_iters=config.gmres_restart * config.max_krylov_cycles,
+            atol=lin_atol, sync=sync)
+        cycles = 1
+    else:
+        d, lin_rn, lin_it, cycles = gmres(
+            matvec, -R.reshape(-1), precond=pre_flat,
+            m=config.gmres_restart,
+            max_restarts=config.max_krylov_cycles, atol=lin_atol,
+            flexible=config.flexible, sync=sync)
+    return d.reshape(shape), lin_rn, lin_atol, lin_it, cycles
+
+
+def line_search(residual_fn, u, d, rnorm: float, config: NewtonConfig,
+                sync: HostSync):
+    """The alpha-halving line search on ||R(u + alpha d)||: halve while
+    the norm does not fall below ``rnorm``, at most ``max_halvings``
+    times, and take the last step tried.  Returns (u + alpha d, its
+    residual, the norm, alpha, residual evaluations)."""
+    alpha = 1.0
+    Rt = residual_fn(u + d)
+    nt = sync(_norm(Rt))
+    k = 0
+    while nt >= rnorm and k < config.max_halvings:
+        alpha *= 0.5
+        Rt = residual_fn(u + alpha * d)
+        nt = sync(_norm(Rt))
+        k += 1
+    return u + alpha * d, Rt, nt, alpha, 1 + k
+
+
+def _norm(R):
+    return torch.sqrt(torch.sum(R * R))
+
+
 def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
                  precond_builder: Callable | None = None,
                  config: NewtonConfig,
@@ -78,16 +131,12 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
     """
     sync = sync if sync is not None else HostSync()
     start = sync.count
-    shape = u0.shape
     maxit = config.max_iterations
     skip = max(1, config.skip_iterations)
     stateful = precond_state_fn is not None
 
-    def norm(R):
-        return torch.sqrt(torch.sum(R * R))
-
     R = residual_fn(u0)
-    rnorm = sync(norm(R))
+    rnorm = sync(_norm(R))
     hist = np.full(maxit + 1, np.nan)
     alphas = np.full(maxit, np.nan)
     hist[0] = rnorm
@@ -102,10 +151,6 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
 
     while rnorm > config.tolerance and it < maxit and not stalled():
         jv = jacobian_fn(u)
-
-        def matvec(v_flat):
-            return jv(v_flat.reshape(shape)).reshape(-1)
-
         if stateful:
             if pstate is None or it % skip == 0:
                 pstate = precond_state_fn(u)
@@ -113,44 +158,16 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
             precond = lambda v: precond_apply_fn(state, v)  # noqa: E731
         else:
             precond = precond_builder(u)
-
-        def pre_flat(v_flat):
-            return precond(v_flat.reshape(shape)).reshape(-1)
-
-        lin_atol = max(config.relative_residual * rnorm,
-                       config.minimum_residual)
-        if config.method == "bicgstab":
-            d, lin_rn, lin_it = bicgstab(
-                matvec, -R.reshape(-1), precond=pre_flat,
-                max_iters=config.gmres_restart * config.max_krylov_cycles,
-                atol=lin_atol, sync=sync)
-        else:
-            d, lin_rn, lin_it, cycles = gmres(
-                matvec, -R.reshape(-1), precond=pre_flat,
-                m=config.gmres_restart,
-                max_restarts=config.max_krylov_cycles, atol=lin_atol,
-                flexible=config.flexible, sync=sync)
-            restarts += max(cycles - 1, 0)
+        d, lin_rn, lin_atol, lin_it, cycles = linear_solve(
+            jv, precond, R, rnorm, config, sync)
+        restarts += max(cycles - 1, 0)
         lin_total += lin_it
         if (lin_rn > lin_atol and on_linear_stall is not None
                 and on_linear_stall()):
             continue
-        d = d.reshape(shape)
-
-        # alpha-halving line search on ||R(u + alpha d)||
-        alpha = 1.0
-        Rt = residual_fn(u + d)
-        nt = sync(norm(Rt))
-        k = 0
-        while nt >= rnorm and k < config.max_halvings:
-            alpha *= 0.5
-            Rt = residual_fn(u + alpha * d)
-            nt = sync(norm(Rt))
-            k += 1
-        ls_evals += 1 + k
-
-        u = u + alpha * d
-        R, rnorm = Rt, nt
+        u, R, rnorm, alpha, evals = line_search(residual_fn, u, d, rnorm,
+                                                config, sync)
+        ls_evals += evals
         alphas[it] = alpha
         it += 1
         hist[it] = rnorm

@@ -237,6 +237,12 @@ def enstrophy(op, u):
     return 0.5 * o2 / vol
 
 
+def ke_dissipation_rate(op, u):
+    """(1/V) integral nu grad u : grad u (TGV dissipation diagnostics)."""
+    vol, _, g2, _ = _volume_sums(op, u, with_grad=True)
+    return op.nu * g2 / vol
+
+
 # --------------------------------------------------------------------------
 # derived nodal fields for output
 # --------------------------------------------------------------------------

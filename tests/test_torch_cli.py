@@ -1,8 +1,11 @@
 """The PyTorch package's CLI on the CPU in float64.
 
 It reproduces the JAX package's golden outputs under the same numeric
-diff (``tests/test_golden_apps.py::numdiff``, rtol 2e-3), refuses what
-it cannot do instead of doing something else, and says so.
+diff (``tests/test_golden_apps.py::numdiff``, rtol 2e-3), prints what the
+JAX package's CLI prints on decks with SDIRK, pseudo-transient
+continuation, checkpoints and additive Schwarz, refuses what it cannot
+do (Kelly adaptation and forests) instead of doing something else, and
+says so.
 """
 
 import contextlib
@@ -111,28 +114,93 @@ def test_cli_bf16_jacobian_state_matches_jax(tmp_path, monkeypatch):
     assert ev < 1e-5 and float(l2[0]) < 1e-5
 
 
-@pytest.mark.parametrize("section,edit,match", [
-    ("non-linear solver", "  set solver = pseudo_transient\n", "D2"),
-    ("linear solver", "  set preconditioner = additive_schwarz\n", "D3"),
-])
-def test_cli_refuses_what_is_not_ported(section, edit, match, tmp_path,
-                                        monkeypatch):
+def _jax_cli(dim, deck, tmp_path, monkeypatch, solver="gls"):
+    """The JAX package's CLI on ``deck`` in ``tmp_path``: its output."""
+    from softx_2020_200_tpu.apps.common import run_app as jax_run_app
+    kw = {}
+    if solver == "gd":
+        from softx_2020_200_tpu.solvers.gd import GDNavierStokesSolver
+        kw["solver_cls"] = GDNavierStokesSolver
+    monkeypatch.chdir(tmp_path)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert jax_run_app(dim, [deck], **kw) == 0
+    return buf.getvalue()
+
+
+@pytest.mark.parametrize("section,edit", [
+    ("non-linear solver", "  set solver = pseudo_transient\n"),
+    ("linear solver", "  set preconditioner = additive_schwarz\n"),
+], ids=["pseudo_transient", "additive_schwarz"])
+def test_cli_solver_option_matches_jax(section, edit, tmp_path,
+                                       monkeypatch):
+    """The Couette golden deck with pseudo-transient continuation or
+    additive Schwarz through the port's CLI (CPU, float64) prints what
+    the JAX package's CLI prints on the same deck."""
     text = _golden("couette_gls")
     head = f"subsection {section}\n"
-    assert head in text
-    text = text.replace(head, head + edit)
-    deck = _write(tmp_path, "deck.prm", text)
+    assert text.count(head) == 1
+    deck = _write(tmp_path, "deck.prm", text.replace(head, head + edit))
+    (tmp_path / "jax").mkdir()
+    want = _jax_cli(2, deck, tmp_path / "jax", monkeypatch)
+    out = _run(2, [deck, "--device", "cpu", "--dtype", "float64"],
+               tmp_path, monkeypatch)
+    assert "L2 error velocity" in out
+    numdiff(out, want, rtol=1e-6)
+
+
+@pytest.mark.parametrize("old,new", [
+    ("set method        = bdf2", "set method        = sdirk2"),
+    ("subsection test\n", "subsection restart\n  set checkpoint = true\n"
+     "  set filename = gd_restart\nend\nsubsection test\n"),
+], ids=["sdirk", "checkpoint"])
+def test_gd_cli_option_matches_jax(old, new, tmp_path, monkeypatch):
+    """The GD golden MMS deck with SDIRK2, or writing a checkpoint every
+    step, through the port's GD CLI (CPU, float64) prints what the JAX
+    package's prints; the two checkpoints hold the same state, history
+    and control."""
+    import json
+
+    import numpy as np
+    text = _golden("gd_mms_bdf2")
+    assert text.count(old) == 1
+    deck = _write(tmp_path, "deck.prm", text.replace(old, new))
+    (tmp_path / "jax").mkdir()
+    want = _jax_cli(2, deck, tmp_path / "jax", monkeypatch, solver="gd")
+    out = _run(2, [deck, "--device", "cpu", "--dtype", "float64"],
+               tmp_path, monkeypatch, solver="gd")
+    assert "L2 error velocity" in out
+    numdiff(out, want, rtol=1e-6)
+    if "checkpoint" in new:
+        port = np.load(tmp_path / "gd_restart.npz")
+        ref = np.load(tmp_path / "jax" / "gd_restart.npz")
+        assert sorted(port.files) == sorted(ref.files)
+        for key in ("u", "previous"):
+            np.testing.assert_allclose(port[key], ref[key], rtol=0,
+                                       atol=1e-9 * np.abs(ref[key]).max())
+        assert int(port["n_dofs"]) == int(ref["n_dofs"])
+        cp, cr = (json.loads(str(f["control"])) for f in (port, ref))
+        assert cp.pop("cfl") == pytest.approx(cr.pop("cfl"), rel=1e-12)
+        assert cp == cr
+
+
+_KELLY = ("subsection test\n", "subsection mesh adaptation\n  set type = "
+          "kelly\nend\nsubsection test\n")
+
+
+@pytest.mark.parametrize("old,new,match", [_KELLY + ("A8, D5",)],
+                         ids=["kelly"])
+def test_cli_refuses_what_is_not_ported(old, new, match, tmp_path,
+                                        monkeypatch):
+    text = _golden("couette_gls")
+    assert text.count(old) == 1
+    deck = _write(tmp_path, "deck.prm", text.replace(old, new))
     with pytest.raises(NotImplementedError, match=match):
         _run(2, [deck, "--device", "cpu"], tmp_path, monkeypatch)
 
 
-@pytest.mark.parametrize("old,new,match", [
-    ("set method        = bdf2", "set method        = sdirk2", "D2"),
-    ("subsection test\n", "subsection restart\n  set checkpoint = true\n"
-     "end\nsubsection test\n", "D2"),
-    ("subsection test\n", "subsection mesh adaptation\n  set type = kelly\n"
-     "end\nsubsection test\n", "A8, D5"),
-], ids=["sdirk", "checkpoint", "kelly"])
+@pytest.mark.parametrize("old,new,match", [_KELLY + ("A8, D5",)],
+                         ids=["kelly"])
 def test_gd_cli_refuses_what_is_not_ported(old, new, match, tmp_path,
                                            monkeypatch):
     text = _golden("gd_mms_bdf2")
@@ -141,6 +209,19 @@ def test_gd_cli_refuses_what_is_not_ported(old, new, match, tmp_path,
     with pytest.raises(NotImplementedError, match=match):
         _run(2, [deck, "--device", "cpu"], tmp_path, monkeypatch,
              solver="gd")
+
+
+def test_cli_refuses_a_forest_checkpoint(tmp_path, monkeypatch):
+    """A checkpoint that holds an adapted forest is refused by name."""
+    import numpy as np
+    text = _golden("sdirk_np8").replace(
+        "subsection test\n", "subsection restart\n  set restart = true\n"
+        "  set filename = forest\nend\nsubsection test\n")
+    deck = _write(tmp_path, "deck.prm", text)
+    np.savez(tmp_path / "forest.npz", forest_leaves=np.zeros((1, 4),
+                                                            np.int64))
+    with pytest.raises(NotImplementedError, match="A8, D5"):
+        _run(2, [deck, "--device", "cpu"], tmp_path, monkeypatch)
 
 
 def test_cli_device_and_device_count(tmp_path, monkeypatch):

@@ -38,7 +38,8 @@ COPIES = ["core/prm.py", "core/parameters.py", "core/bdf.py",
           "core/sdirk.py", "core/simulation_control.py",
           "core/pvd_handler.py", "core/timer.py", "fem/quadrature.py",
           "fem/basis.py", "fem/mesh.py", "fem/dof.py", "utils/tables.py",
-          "utils/vtu.py", "native.py"]
+          "utils/vtu.py", "native.py",
+          "apps/navier_stokes_parameter_template.py"]
 
 # what a copy may leave out of its original: code that needs jax
 DROPPED = {"core/timer.py": {"jax_trace"}}
@@ -161,22 +162,68 @@ def test_mesh_and_numbering_identical(name, degree):
     np.testing.assert_array_equal(pt[0].numpy(), np.asarray(prev[0]))
 
 
+def test_parameter_template_roundtrips(capsys):
+    """The template app prints the JAX package's default deck, and the
+    deck parses back, to the JAX package's parameters
+    (``tests/test_postprocessing.py::test_parameter_template_roundtrips``)."""
+    from softx_2020_200_tpu.apps import \
+        navier_stokes_parameter_template as jax_template
+    from softx_2020_200_tpu.core.prm import parse_prm as jax_parse_prm
+    from softx_2020_200_tpu_torch.apps import \
+        navier_stokes_parameter_template as template
+    from softx_2020_200_tpu_torch.core.prm import parse_prm
+    for dim in (2, 3):
+        assert template.main([str(dim)]) == 0
+        text = capsys.readouterr().out
+        assert jax_template.main([str(dim)]) == 0
+        assert capsys.readouterr().out == text
+        prm = SimulationParameters(dim=dim).parse(parse_prm(text))
+        assert prm.fem.velocity_order == 1
+        assert _plain(prm) == _plain(
+            JaxParameters(dim=dim).parse(jax_parse_prm(text)))
+
+
 def test_apps_never_import_jax(tmp_path):
     """Importing the port's apps and kernel, lattice and multigrid
-    modules, and running a tiny GLS deck and a tiny GD deck on the CPU
-    (lattices: the strided layout and the lattice kernels' plain
-    versions) leaves jax out of sys.modules."""
+    modules, and running tiny GLS and GD decks on the CPU (lattices: the
+    strided layout and the lattice kernels' plain versions; SDIRK2 with
+    additive Schwarz and a checkpoint, a restart of it, pseudo-transient
+    continuation) leaves jax out of sys.modules."""
     decks = {}
-    for name, old, new in (
-            ("couette_gls", "initial refinement = 3",
-             "initial refinement = 1"),
-            ("gd_mms_bdf2", "initial refinement = 2",
-             "initial refinement = 1")):
+    sdirk = [("time end      = 0.2", "time end      = {end}"),
+             ("subsection linear solver\n", "subsection linear solver\n"
+              "  set preconditioner = additive_schwarz\n"),
+             ("subsection test\n", "subsection restart\n  set checkpoint "
+              "= true\n  set restart = {restart}\nend\nsubsection test\n")]
+    for name, src, edits in (
+            ("couette_gls", "couette_gls",
+             [("initial refinement = 3", "initial refinement = 1")]),
+            ("gd_mms_bdf2", "gd_mms_bdf2",
+             [("initial refinement = 2", "initial refinement = 1")]),
+            ("couette_ptc", "couette_gls",
+             [("initial refinement = 3", "initial refinement = 1"),
+              ("subsection non-linear solver\n",
+               "subsection non-linear solver\n"
+               "  set solver = pseudo_transient\n")]),
+            ("sdirk_a", "sdirk_np8", sdirk),
+            ("sdirk_b", "sdirk_np8", sdirk)):
         decks[name] = tmp_path / f"{name}.prm"
         text = open(os.path.join(ROOT, "tests", "golden",
-                                 f"{name}.prm")).read()
-        assert old in text
-        decks[name].write_text(text.replace(old, new))
+                                 f"{src}.prm")).read()
+        for old, new in edits:
+            new = new.format(restart=str(name == "sdirk_b").lower(),
+                             end=0.15 if name == "sdirk_b" else 0.1)
+            assert text.count(old) == 1, old
+            text = text.replace(old, new)
+        decks[name].write_text(text)
+    runs = "".join(
+        f"rc = {app}.main([{str(decks[name])!r}] + args)\n"
+        "assert rc == 0\n"
+        for app, name in (("gls_navier_stokes_2d", "couette_gls"),
+                          ("gd_navier_stokes_2d", "gd_mms_bdf2"),
+                          ("gls_navier_stokes_2d", "couette_ptc"),
+                          ("gls_navier_stokes_2d", "sdirk_a"),
+                          ("gls_navier_stokes_2d", "sdirk_b")))
     code = (
         "import sys\n"
         "pre = {m for m in sys.modules if m.split('.')[0] == 'jax'}\n"
@@ -184,16 +231,13 @@ def test_apps_never_import_jax(tmp_path):
         "from softx_2020_200_tpu_torch.apps import gls_navier_stokes_3d\n"
         "from softx_2020_200_tpu_torch.apps import gd_navier_stokes_2d\n"
         "from softx_2020_200_tpu_torch.apps import gd_navier_stokes_3d\n"
+        "from softx_2020_200_tpu_torch.apps import "
+        "navier_stokes_parameter_template\n"
         "from softx_2020_200_tpu_torch.ops import (cuda_build, "
         "gd_multigrid, lattice_gd_kernel, lattice_kernel, multigrid, "
         "structured)\n"
         "args = ['--device', 'cpu', '--dtype', 'float64']\n"
-        f"rc = gls_navier_stokes_2d.main([{str(decks['couette_gls'])!r}] "
-        "+ args)\n"
-        "assert rc == 0\n"
-        f"rc = gd_navier_stokes_2d.main([{str(decks['gd_mms_bdf2'])!r}] "
-        "+ args)\n"
-        "assert rc == 0\n"
+        + runs +
         "new = {m for m in sys.modules if m.split('.')[0] == 'jax'} - pre\n"
         "assert not new, sorted(new)\n"
         "assert 'softx_2020_200_tpu' not in sys.modules\n"
@@ -205,5 +249,6 @@ def test_apps_never_import_jax(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "NO_JAX_OK" in out.stdout
-    # the GLS deck prints one L2 line, the GD deck one per step
-    assert out.stdout.count("L2 error velocity") == 4
+    # the Couette decks print one L2 line each, the GD deck one per step,
+    # the SDIRK legs one per step (two, then one after the restart)
+    assert out.stdout.count("L2 error velocity") == 8

@@ -203,8 +203,12 @@ def test_geometry_and_assembly_match_jax(dim):
 # ----------------------------------------------------------------------
 # node-block preconditioners
 # ----------------------------------------------------------------------
-@pytest.mark.parametrize("kind", ["jacobi", "block_jacobi"])
+@pytest.mark.parametrize("kind", ["jacobi", "block_jacobi",
+                                  "additive_schwarz"])
 def test_node_block_preconditioners_match_jax(kind):
+    if kind == "additive_schwarz":
+        _additive_schwarz_matches_jax()
+        return
     rng = np.random.default_rng(4)
     N, c = 40, 4
     blocks = rng.standard_normal((N, c, c)) + 4 * np.eye(c)
@@ -221,9 +225,45 @@ def test_node_block_preconditioners_match_jax(kind):
            jax_pc.apply_node_block_state(sa, jnp.asarray(v)))
 
 
+def _additive_schwarz_matches_jax():
+    """Restricted additive Schwarz on seeded element matrices of a 2D Q2
+    mesh (shift, inverse, gather, weights, assembly, constrained rows)."""
+    sp = FESpace(port_mesh.hyper_shell([0.0, 0.0], 0.25, 1.0, 6), 2)
+    en, N = sp.elem_nodes, sp.n_nodes
+    E, nn = en.shape
+    c = 3
+    rng = np.random.default_rng(5)
+    A = rng.standard_normal((E, nn * c, nn * c)) + 8 * np.eye(nn * c)
+    mask = rng.random((N, c)) < 0.2
+    v = rng.standard_normal((N, c))
+    inv_mult = 1.0 / port_operators.node_multiplicity(en, N)
+    pa = jax_pc.build_preconditioner(
+        "additive_schwarz", jnp.asarray(A), jnp.asarray(en), N, nn, c,
+        inv_mult=jnp.asarray(inv_mult), bc_mask=jnp.asarray(mask))
+    amap = port_operators.build_assembly_map(en, N)
+    pb = port_pc.build_additive_schwarz(
+        _t(A), _t(en), amap.idx, _t(inv_mult), _t(mask))
+    _close(pb.apply(_t(v)), pa.apply(jnp.asarray(v)))
+
+
 # ----------------------------------------------------------------------
 # post-processing
 # ----------------------------------------------------------------------
+@pytest.mark.parametrize("dim", [2, 3])
+def test_ke_dissipation_rate_matches_jax(dim):
+    """(1/V) integral nu grad u : grad u of a seeded state."""
+    def mk(m):
+        return m.subdivided_hyper_rectangle([0.0] * dim, [1.0, 0.7, 1.3][:dim],
+                                            [3, 2, 2][:dim], True, dim=dim)
+    sa, sb = JaxFESpace(mk(jax_mesh), 2), FESpace(mk(port_mesh), 2)
+    oa = jax_gls.GLSOperator(sa, nu=0.03, dtype=jnp.float64)
+    ob = port_gls.GLSOperator(sb, nu=0.03, device="cpu",
+                              dtype=torch.float64)
+    u = np.random.default_rng(dim).standard_normal((sa.n_nodes, dim + 1))
+    _close(port_post.ke_dissipation_rate(ob, _t(u)),
+           jax_post.ke_dissipation_rate(oa, jnp.asarray(u)))
+
+
 @pytest.mark.parametrize("dim,degree", [(2, 2), (3, 1)])
 def test_postprocessing_matches_jax(dim, degree):
     if dim == 2:
