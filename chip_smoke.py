@@ -250,14 +250,11 @@ def _restart(checkpoint: bool, restart: bool, frequency: int):
 _AS = ("subsection linear solver", "set preconditioner = additive_schwarz")
 _BJ = ("subsection linear solver", "set preconditioner = block_jacobi")
 DECKS.update({
-    # TGV 32^3 with 'auto' (GMG), SDIRK2: 3 steps of 2 stages.  Newton
-    # stops at 1e-5, not the example's 1e-6, which float32 does not reach
-    # under SDIRK2's larger mass term (alpha0 = 1/(0.29 dt)): on an H100
-    # each stage's residual went 1.6e-1 -> 1.2e-4 -> 1.0e-6 -> 7.4e-7,
-    # three Newton iterations where float64 takes two (4.8e-8)
+    # TGV 32^3 with 'auto' (GMG), SDIRK2: 3 steps of 2 stages, Newton to
+    # the example's 1e-6.  The JAX package in float32 reaches it in two
+    # iterations per stage (residuals below), so the card must too
     "tgv32_sdirk2.prm": _edited("tgv32_gmg.prm",
-                                add=[("method", "sdirk2"),
-                                     ("tolerance", "1e-5"), _VERBOSE_NEWTON]),
+                                add=[("method", "sdirk2"), _VERBOSE_NEWTON]),
     # the golden MMS deck at refinement 7 (128^2 Q2 cells, 198,147 DoF),
     # SDIRK3: 3 steps of 3 stages, GMG on every level
     "mms_q2_r7_sdirk3.prm": _edited(
@@ -364,7 +361,14 @@ JAX_REFERENCE = {
 # stage)
 JAX_REFERENCE.update({
     # 6 solves (3 steps of 2 stages), 12 Newton and 72 FGMRES iterations:
-    # scripts/jax_newton_counts.py tgv32_sdirk2.prm 3
+    # scripts/jax_newton_counts.py tgv32_sdirk2.prm 3.  Newton residuals
+    # per stage, float64 with --frozen-tau: 1.6385e-1, 1.1528e-4, 4.7272e-8
+    # (stage 1 of step 1; the others 3.8e-8 to 1.2e-7 after two
+    # iterations).  The same in
+    # float32 (no JAX_ENABLE_X64), with and without --frozen-tau, also 2
+    # Newton and 12 FGMRES iterations per stage, two iterations ending at
+    # 8.68e-7 to 8.89e-7 (exact tau: 8.8480e-7, 8.8879e-7, 8.6685e-7,
+    # 8.8333e-7, 8.7575e-7, 8.7209e-7), so float32 has room for two
     "tgv32_sdirk2.prm": {
         "kinetic_energy": [1.225880e-01, 1.225625e-01, 1.225370e-01],
         "enstrophy": [3.686455e-01, 3.688532e-01, 3.692507e-01],
@@ -1129,13 +1133,19 @@ B2_SHAPES = (("3D Q1 TGV 32^3", 3, 1, 2, (32,) * 3),
 # which a 2D shear or a larger one breaks
 B2_SHEARED = ((3, (32, 32, 17)),)
 B2_SHEAR = 0.02
-# the coarser multigrid levels of phases 6 and 7, compared and timed too:
-# they carry most of B2's launches on the main path
+# the coarser multigrid levels of phases 6, 7 and 11, compared and timed
+# too: they carry most of B2's launches on the main path.  The Q1 levels
+# with 2 points per axis are the cavity's halved levels and the p-level
+# of the MMS deck at refinement 7 (128^2)
 B2_LEVELS = (("3D Q1 16^3 (TGV level 1)", 3, 1, 2, (16,) * 3),
              ("3D Q1 8^3 (TGV level 2)", 3, 1, 2, (8,) * 3),
              ("2D Q1 64^2 q=3 (MMS level 3)", 2, 1, 3, (64,) * 2),
              ("2D Q1 32^2 q=3 (MMS level 4)", 2, 1, 3, (32,) * 2),
-             ("2D Q1 16^2 q=3 (MMS level 5)", 2, 1, 3, (16,) * 2))
+             ("2D Q1 16^2 q=3 (MMS level 5)", 2, 1, 3, (16,) * 2),
+             ("2D Q1 128^2 q=2 (cavity level 1)", 2, 1, 2, (128,) * 2),
+             ("2D Q1 64^2 q=2 (cavity level 2)", 2, 1, 2, (64,) * 2),
+             ("2D Q1 32^2 q=2 (cavity level 3)", 2, 1, 2, (32,) * 2),
+             ("2D Q1 16^2 q=2 (cavity level 4)", 2, 1, 2, (16,) * 2))
 
 
 def _sheared_lattices(torch, device) -> float:
@@ -2108,18 +2118,18 @@ EM_SHAPES = (("2D Q2 Taylor-Couette r3 (B1)", "taylor_couette_r3.prm", 2),
 
 
 def _element_matrices(torch) -> dict:
-    """The element matrices from the kernel's tangent probes (nn*c
-    launches) against the plain frozen-tau element matrices on the same
-    rows, at the three shapes; times beside the node blocks.  Returns the
-    worst max-abs error per kernel."""
+    """The element matrices' columns from the kernel's tangent probes
+    (nn*c launches) against the plain frozen-tau tangent's on the same
+    rows, at the three shapes; times beside the whole build (the
+    operator's ``element_matrices``: probes, reordering, constraints) and
+    the node blocks.  Returns the worst max-abs error per kernel."""
     import dataclasses as dc
 
     from softx_2020_200_tpu_torch.core.parameters import SimulationParameters
-    from softx_2020_200_tpu_torch.ops.batched_kernel import \
-        element_matrices_batched
-    from softx_2020_200_tpu_torch.ops.lattice_kernel import \
-        lattice_element_matrices
+    from softx_2020_200_tpu_torch.ops.batched_kernel import tangent_batched
+    from softx_2020_200_tpu_torch.ops.lattice_kernel import lattice_tangent
     from softx_2020_200_tpu_torch.solvers.base import GLSNavierStokesSolver
+    from softx_2020_200_tpu_torch.solvers.gls import probe_columns
     worst = {"gls_element": 0.0, "gls_lattice": 0.0}
     for label, deck, dim in EM_SHAPES:
         with tempfile.TemporaryDirectory() as tmp, \
@@ -2128,45 +2138,51 @@ def _element_matrices(torch) -> dict:
                 "subsection simulation control\n",
                 f"subsection simulation control\n  set output path = "
                 f"{tmp}/\n", 1)
-            op = GLSNavierStokesSolver(
+            solver = GLSNavierStokesSolver(
                 SimulationParameters.from_text(text, dim=dim),
-                device="cuda", dtype=torch.float32).op
+                device="cuda", dtype=torch.float32)
+        op = solver.op
         x = _inputs(torch, op, seed=11)
         kern = op.kernel
         frozen = kern.plain(dc.replace(kern.stab, frozen_tau=True))
         a0 = sdt = 20.0
         if op.layout is None:
-            rows = (op._soa(x["u"]), op.xe_soa, op._soa(x["prev"]),
-                    op._fq_soa(x["fq"]), op.h)
-            em = lambda: kern.element_matrices(*rows, a0, sdt)  # noqa
-            plain = lambda: element_matrices_batched(  # noqa: E731
-                frozen, *rows, a0, sdt)
-            nb = lambda: kern.node_blocks(*rows, a0, sdt)  # noqa: E731
+            ue = op._soa(x["u"])
+            args = (op.xe_soa, op._soa(x["prev"]), op._fq_soa(x["fq"]), op.h)
+            plain_tangent = tangent_batched
         else:
-            rows = (op._rows(x["u"]), op._rows(x["prev"]),
-                    op._fq_rows(x["fq"]))
-            em = lambda: kern.element_matrices(*rows, a0, sdt)  # noqa
-            plain = lambda: lattice_element_matrices(  # noqa: E731
-                frozen, *rows, a0, sdt)
-            nb = lambda: kern.node_blocks(*rows, a0, sdt)  # noqa: E731
+            ue = op._rows(x["u"])
+            args = (op._rows(x["prev"]), op._fq_rows(x["fq"]))
+            plain_tangent = lattice_tangent
+        em = lambda: probe_columns(  # noqa: E731
+            lambda due: kern.tangent(ue, due, *args, a0, sdt), ue)
+        plain = lambda: probe_columns(  # noqa: E731
+            lambda due: plain_tangent(frozen, ue, due, *args, a0, sdt), ue)
+        build = lambda: op.element_matrices(  # noqa: E731
+            x["u"], solver.bh.mask, x["prev"], x["fq"], a0, sdt)
+        nb = lambda: kern.node_blocks(ue, *args, a0, sdt)  # noqa: E731
         got, want = em(), plain()
         err, rel = _rel(torch, got, want)
         name = "gls_element" if op.layout is None else "gls_lattice"
         worst[name] = max(worst[name], err)
-        E, nloc = got.shape[0], got.shape[1]
+        nloc, E = got.shape[0], got.shape[-1]
         del got, want
         # device time (a CUDA graph of the calls) and time with the host's
         # launches (events around single calls)
         dev, dev_nb = _graph_ms(torch, em, 5), _graph_ms(torch, nb, 5)
         ms, ms_nb = _median_ms(torch, em, 5), _median_ms(torch, nb, 5)
+        ms_build = _median_ms(torch, build, 5)
         ms_plain = _median_ms(torch, plain, 3)
         print(f"  {label}: E {E}, {nloc} probe launches: max abs err "
               f"{err:.3e}, {rel:.3e} of scale (bound {EM_RTOL:g}); "
-              f"element matrices {dev:.3f} ms device ({1e3 * dev / nloc:.2f}"
-              f" us per probe), {ms:.3f} ms with the host's launches, plain "
-              f"{ms_plain:.3f} ms; node blocks {dev_nb:.3f} ms device, "
-              f"{ms_nb:.3f} ms with the host's launches")
+              f"probes {dev:.3f} ms device ({1e3 * dev / nloc:.2f} us per "
+              f"probe), {ms:.3f} ms with the host's launches, plain "
+              f"{ms_plain:.3f} ms; the whole build {ms_build:.3f} ms with "
+              f"the host's launches; node blocks {dev_nb:.3f} ms device, {ms_nb:.3f} ms "
+              f"with the host's launches")
         check(rel <= EM_RTOL, f"{label}: element matrices {rel}")
+        del solver, op, kern, x
+        torch.cuda.empty_cache()
     return worst
 
 
@@ -2241,8 +2257,14 @@ def _by_shape(times: dict, kernel: str, launches: dict) -> list:
     maps (dim, degree, points per axis, E, variant[, route]) to a count,
     summed over routes) and, per variant, the kernel's, the parent's
     (None without one) and the plain version's times, the forced routes'
-    times and the bound."""
+    times and the bound.  Fails if a main-path launch is at a shape that
+    is not timed (and so was not compared at its own E either)."""
     keys, out = _shape_keys(kernel), []
+    timed = {(*keys[label], row["E"]) for label, row in times.items()}
+    untimed = sorted({k[:5] for k in launches if tuple(k[:4]) not in timed})
+    check(not untimed, f"{kernel}: main-path launches at shapes that are "
+          f"neither compared nor timed (dim, degree, points per axis, E, "
+          f"variant): {untimed}")
     for label, row in times.items():
         dim, degree, q1d = keys[label]
         E = row["E"]

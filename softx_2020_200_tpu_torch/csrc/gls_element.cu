@@ -8,7 +8,10 @@
 // the strong residual r_m = a0 u + sum a_i u^{n-i} + (u.grad)u + grad p
 // - nu lap u - f; tau = (sdt^2 + 4|u|^2/h^2 + 9 (4 nu/h^2)^2)^-1/2; the
 // Galerkin, SUPG, PSPG, GLS-viscous-adjoint and LSIC coefficients; and the
-// transpose contraction back to the nn*(d+1) nodal outputs.
+// transpose contraction back to the nn*(d+1) nodal outputs.  The time
+// derivative a0 u + sum a_i u^{n-i} is interpolated from its nodal values
+// (one fmaf per node), a small difference of two large terms: f32 then
+// rounds the small result and not a0 times the interpolated u.
 //
 // Three variants (MODE):
 //   PRIMAL   the residual, full tau;
@@ -173,7 +176,8 @@ __device__ __forceinline__ float inverse(const float (&J)[D][D],
 }
 
 // The pointwise weak form at one quadrature point, shared by both routes:
-// from the values, physical gradients and Laplacians of (u, p), u^{n-i}
+// from the values, physical gradients and Laplacians of (u, p), the time
+// derivative upq (interpolated from a0 u + sum a_i u^{n-i} at the nodes)
 // and f (and of the direction for the tangent and the probe), the
 // coefficients pre-multiplied by det J * w: a_v against phi, a_g against
 // grad phi, a_lap against lap phi, a_p against psi, a_pg against grad psi.
@@ -191,7 +195,7 @@ __device__ __forceinline__ void weak_form(
   float div = 0.0f, umag2 = 0.0f;
 #pragma unroll
   for (int i = 0; i < D; ++i) {
-    udot[i] = alpha0 * uq[i] + upq[i];
+    udot[i] = upq[i];
     float s = 0.0f;
 #pragma unroll
     for (int j = 0; j < D; ++j) s += grad[i][j] * uq[j];
@@ -320,7 +324,7 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
   // then one pass over the nodes, each table entry loaded once: values
   // and reference gradients of the C components of u (and of due),
   // Laplacians of the velocity (lap_phi[n] = Hs[q, n, :] . Km), and the
-  // values of u^{n-i}
+  // value of the time derivative a0 u + u^{n-i} terms
   float v[C], dref[C][D], lap[D], upq[D];
   float dv[TAN ? C : 1], ddref[TAN ? C : 1][D], dl[TAN ? D : 1];
 #pragma unroll
@@ -353,7 +357,11 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
       v[k] += bn * u;
 #pragma unroll
       for (int a = 0; a < D; ++a) dref[k][a] += g[a] * u;
-      if (k < D) lap[k] += lp * u;
+      if (k < D) {
+        lap[k] += lp * u;
+        upq[k] += bn * fmaf(p.alpha0, u,
+                            tiles::ld<T>(st + S::O_UP, (n * D + k) * BE + el));
+      }
       if constexpr (TAN) {
         const float du = st[S::O_DUE + (n * C + k) * BE + el];
         dv[k] += bn * du;
@@ -362,9 +370,6 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
         if (k < D) dl[k] += lp * du;
       }
     }
-#pragma unroll
-    for (int i = 0; i < D; ++i)
-      upq[i] += bn * tiles::ld<T>(st + S::O_UP, (n * D + i) * BE + el);
   }
 
   // physical gradients: reference gradients times J^-1
@@ -670,7 +675,7 @@ __global__ void __launch_bounds__(REG_THREADS)
 #pragma unroll
         for (int n = 0; n < NN; ++n) {
           s += lap_phi[n] * ue[n * C + i];
-          t += Bq[n] * up[n * D + i];
+          t += Bq[n] * fmaf(p.alpha0, ue[n * C + i], up[n * D + i]);
           if constexpr (TAN) ds += lap_phi[n] * due[n * C + i];
         }
         lap[i] = s;

@@ -14,7 +14,10 @@
 //                       GLS-viscous-adjoint and LSIC coefficients
 //   project:      out_k = T_proj @ coeffs_k     (the quadrature sum)
 // as the TPU kernel does in its own body.  The products are f32 on the
-// CUDA cores (no tensor cores, so no TF32).
+// CUDA cores (no tensor cores, so no TF32).  The time derivative a0 u +
+// sum a_i u^{n-i} is interpolated from its nodal values (one fmaf per
+// node), a small difference of two large terms: f32 then rounds the small
+// result and not a0 times the interpolated u.
 //
 // Three variants (MODE):
 //   PRIMAL   the residual, full tau;
@@ -147,7 +150,7 @@ struct Params {
 
 // The pointwise weak form at one quadrature point, as B2's body writes it:
 // from the values, gradients and Laplacians of (u, p) (and of the
-// direction for the tangent and the probe) and s = u^{n-i} terms - f, the
+// direction for the tangent and the probe) and s = udot - f, the
 // coefficients against phi (a_v), grad phi (a_g), lap phi (a_lap) for the
 // velocity and against psi (a_p), grad psi (a_pg) for the pressure.
 template <int D, int MODE>
@@ -169,7 +172,7 @@ struct Point {
 #pragma unroll
       for (int j = 0; j < D; ++j) c += gvel[i][j] * vel[j];
       conv[i] = c;
-      r_m[i] = alpha0 * vel[i] + s[i] + conv[i] + gp[i] - nu * lap[i];
+      r_m[i] = s[i] + conv[i] + gp[i] - nu * lap[i];
       div += gvel[i][i];
       umag2 += vel[i] * vel[i];
     }
@@ -179,7 +182,7 @@ struct Point {
     if constexpr (MODE == PRIMAL) {
 #pragma unroll
       for (int i = 0; i < D; ++i) {
-        a_v[i] = alpha0 * vel[i] + s[i] + conv[i];
+        a_v[i] = s[i] + conv[i];
 #pragma unroll
         for (int j = 0; j < D; ++j) {
           a_g[i][j] = nu * gvel[i][j] - (i == j ? pr : 0.0f);
@@ -251,7 +254,7 @@ __device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
   constexpr bool TAN = MODE == TANGENT;
   // one pass over the nodes, each table entry T_all[b*NQ + q, n] loaded
   // once: value (b = 0), gradients (1..D) and Laplacian (D+1) of every
-  // component of u (and of due), and the value of u^{n-i}
+  // component of u (and of due), and the value of a0 u + u^{n-i} terms
   float a[C][D + 2], da[TAN ? C : 1][D + 2], upv[D];
 #pragma unroll
   for (int k = 0; k < C; ++k)
@@ -272,15 +275,15 @@ __device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
       const float u = tiles::ld<T>(st + S::O_UE, (k * NN + n) * BE + el);
 #pragma unroll
       for (int b = 0; b < D + 2; ++b) a[k][b] += t[b] * u;
+      if (k < D)
+        upv[k] += t[0] * fmaf(ph.alpha0, u,
+                              tiles::ld<T>(st + S::O_UP, (k * NN + n) * BE + el));
       if constexpr (TAN) {
         const float du = st[S::O_DUE + (k * NN + n) * BE + el];
 #pragma unroll
         for (int b = 0; b < D + 2; ++b) da[k][b] += t[b] * du;
       }
     }
-#pragma unroll
-    for (int i = 0; i < D; ++i)
-      upv[i] += t[0] * tiles::ld<T>(st + S::O_UP, (i * NN + n) * BE + el);
   }
 
   Point<D, MODE> pt;
@@ -485,7 +488,9 @@ __global__ void __launch_bounds__(REG_THREADS)
           float s = -tiles::ldg(p.fq + (k * NQ + q) * P + e);
 #pragma unroll
           for (int n = 0; n < NN; ++n)
-            s += p.T[q * NN + n] * tiles::ldg(p.up + (k * NN + n) * P + e);
+            s += p.T[q * NN + n] *
+                 fmaf(p.ph.alpha0, u[k * NN + n],
+                      tiles::ldg(p.up + (k * NN + n) * P + e));
           pt.s[k] = s;
 #pragma unroll
           for (int j = 0; j < D; ++j) pt.gvel[k][j] = a[1 + j];

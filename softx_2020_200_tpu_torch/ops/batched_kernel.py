@@ -104,7 +104,10 @@ def make_batched_kernel(*, dim: int, B, G, H, w, nu: float,
         lap_phi = torch.einsum("qnab,qabE->qnE", H, K)
         lap = torch.einsum("qnE,ncE->qcE", lap_phi, ue[:, :d])
 
-        udot = alpha0 * vel + torch.einsum("qn,ndE->qdE", B, uprev)
+        # the time derivative from its nodal values (alpha0 u + combo,
+        # a small difference of two large terms): float32 rounds the
+        # small result, not alpha0 times the interpolated u
+        udot = torch.einsum("qn,ndE->qdE", B, alpha0 * ue[:, :d] + uprev)
         conv = torch.einsum("qijE,qjE->qiE", gvel, vel)
         r_m = udot + conv + gp - nu * lap - fq
         div = torch.einsum("qiiE->qE", gvel)
@@ -173,22 +176,4 @@ def node_blocks_batched(kernel, ue, xe, uprev, fq, h, alpha0, sdt):
         col = tangent_batched(kernel, ue, probe, xe, uprev, fq, h,
                               alpha0, sdt)[n0]              # [c(i), E]
         out[n0, j::c] = col
-    return out
-
-
-def element_matrices_batched(kernel, ue, xe, uprev, fq, h, alpha0, sdt):
-    """Element Jacobian matrices [E, nn*c, nn*c] (row and column
-    n*c + i): column k = d r / d ue[k] for every element at once, from
-    nn*c forward-mode probes, one live at a time (the JAX package's
-    ``element_matrices_batched`` maps over them the same way)."""
-    nn, c, E = ue.shape
-    out = ue.new_empty((E, nn * c, nn * c))
-    probe = torch.zeros_like(ue)
-    flat = probe.view(nn * c, E)
-    for k in range(nn * c):
-        flat.zero_()
-        flat[k] = 1.0
-        col = tangent_batched(kernel, ue, probe, xe, uprev, fq, h, alpha0,
-                              sdt)
-        out[:, :, k] = col.reshape(nn * c, E).T
     return out

@@ -48,8 +48,8 @@ from torch import nn
 
 from . import cuda_build
 from . import persistent_tiles as pt
-from .batched_kernel import (element_matrices_batched, make_batched_kernel,
-                             node_blocks_batched, tangent_batched)
+from .batched_kernel import (make_batched_kernel, node_blocks_batched,
+                             tangent_batched)
 
 SOURCE = os.path.join(cuda_build.CSRC, "gls_element.cu")
 
@@ -251,27 +251,6 @@ class GLSElementKernel(nn.Module):
             kernel, state = self._plain_state((ue, xe, up, fq, h))
             return node_blocks_batched(kernel, *state, alpha0, sdt)
         return self._call(_PROBE, ue, None, (xe, up, fq, h, alpha0, sdt))
-
-    def element_matrices(self, ue, xe, up, fq, h, alpha0, sdt):
-        """Element Jacobian matrices [E, nn*c, nn*c] (row and column
-        n*c + i): on CPU by forward-mode probes of the plain version
-        (exact or frozen tau per the flags); on CUDA from nn*c tangent
-        launches, each along an element-local one-hot direction (frozen
-        tau, the operator the Krylov matvec applies there)."""
-        if not self._on_cuda(ue):
-            return element_matrices_batched(self.plain(), ue, xe, up, fq, h,
-                                            alpha0, sdt)
-        nn, c, E = ue.shape
-        out = ue.new_empty((E, nn * c, nn * c))
-        due = torch.zeros_like(ue)
-        col = torch.empty_like(ue)
-        for k in range(nn * c):
-            due.view(nn * c, E).zero_()
-            due.view(nn * c, E)[k] = 1.0
-            self._launch(_TANGENT, ue, due, (xe, up, fq, h, alpha0, sdt),
-                         col)
-            out[:, :, k] = col.view(nn * c, E).T
-        return out
 
     # ------------------------------------------------------------------
     def _call(self, mode, ue, due, args, route="auto", split=None):

@@ -224,10 +224,14 @@ def make_lattice_kernel(*, dim: int, nn: int, nq: int, T_all, T_proj,
         lap = prim[:d, Mnl:]
         p = prim[d, :nq]
         gp = prim[d, nq:Mnl].reshape(d, nq, E)
-        upv = torch.einsum("qn,inE->iqE", T_all[:nq], up.reshape(d, nn, E))
+        # the time derivative from its nodal values (alpha0 u + combo,
+        # a small difference of two large terms) and not from alpha0 times
+        # the interpolated u: the float32 rounding stays that of the
+        # small result
+        udot = torch.einsum("qn,inE->iqE", T_all[:nq],
+                            (alpha0 * ue[:d * nn] + up).reshape(d, nn, E))
         f = fq.reshape(d, nq, E)
 
-        udot = alpha0 * vel + upv
         conv = torch.einsum("ijqE,jqE->iqE", gvel, vel)
         r_m = udot + conv + gp - nu * lap - f
         div = torch.einsum("iiqE->qE", gvel)
@@ -276,21 +280,6 @@ def lattice_node_blocks(kernel, ue, up, fq, alpha0, sdt, nn: int):
             probe[j * nn + n0] = 1.0
             col = lattice_tangent(kernel, ue, probe, up, fq, alpha0, sdt)
             out[n0, j::c] = col[n0::nn]
-    return out
-
-
-def lattice_element_matrices(kernel, ue, up, fq, alpha0, sdt):
-    """Element Jacobian matrices [E, c*nn, c*nn] in the rows' own order
-    (row and column k*nn + n) from c*nn forward-mode probes, one live at
-    a time."""
-    cn, E = ue.shape
-    out = ue.new_empty((E, cn, cn))
-    probe = torch.zeros_like(ue)
-    for k in range(cn):
-        probe.zero_()
-        probe[k] = 1.0
-        out[:, :, k] = lattice_tangent(kernel, ue, probe, up, fq, alpha0,
-                                       sdt).T
     return out
 
 
@@ -399,27 +388,6 @@ class LatticeGLSKernel(nn.Module):
             return lattice_node_blocks(kernel, ue, up, fq, alpha0, sdt,
                                        self.nn)
         return self._call(_PROBE, ue, None, (up, fq, alpha0, sdt))
-
-    def element_matrices(self, ue, up, fq, alpha0, sdt):
-        """Element Jacobian matrices [E, c*nn, c*nn] (row and column
-        k*nn + n, the rows' order): on CPU by forward-mode probes of the
-        plain version (exact or frozen tau per the flags); on CUDA from
-        c*nn tangent launches, each along an element-local one-hot
-        direction (frozen tau, the operator the Krylov matvec applies
-        there)."""
-        if not self._on_cuda(ue):
-            return lattice_element_matrices(self.plain(), ue, up, fq,
-                                            alpha0, sdt)
-        cn, E = ue.shape
-        out = ue.new_empty((E, cn, cn))
-        due = torch.zeros_like(ue)
-        col = torch.empty_like(ue)
-        for k in range(cn):
-            due.zero_()
-            due[k] = 1.0
-            self._launch(_TANGENT, ue, due, (up, fq, alpha0, sdt), col)
-            out[:, :, k] = col.T
-        return out
 
     # ------------------------------------------------------------------
     def _call(self, mode, ue, due, args, route="auto"):

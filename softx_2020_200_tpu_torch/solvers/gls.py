@@ -101,6 +101,24 @@ class Linearization:
     sdt: float
 
 
+def probe_columns(tangent, ue):
+    """The columns of the element Jacobians, [n, n, E] (column, row,
+    element) with n = ue.numel() // E in ``ue``'s own local order: column
+    k is ``tangent(due)`` along the element-local one-hot direction
+    ``due`` (local row k of every element at once), one probe live at a
+    time.  Each column is stored whole and contiguous."""
+    E = ue.shape[-1]
+    n = ue.numel() // E
+    out = ue.new_empty((n, n, E))
+    due = torch.zeros_like(ue)
+    flat = due.view(n, E)
+    for k in range(n):
+        flat[k] = 1.0
+        out[k] = tangent(due).reshape(n, E)
+        flat[k] = 0.0
+    return out
+
+
 class GLSOperator(nn.Module):
     """Matrix-free GLS Navier-Stokes operator on one FESpace.
 
@@ -294,21 +312,24 @@ class GLSOperator(nn.Module):
         ``state_dtype`` says, as in the JAX package."""
         nn, c = self.nn, self.nc
         if self.layout is not None:
-            rows = self.kernel.element_matrices(
-                self._rows(u), self._rows(uprev_combo), self._fq_rows(fq),
-                alpha0, sdt)                    # [E, c*nn, c*nn], lattice
-            E = rows.shape[0]
-            # component-major local order -> node-major, lattice element
-            # order -> the space's (elem_perm maps grid -> space)
-            A = torch.empty_like(rows)
-            A.view(E, nn, c, nn, c)[self.elem_perm] = rows.view(
-                E, c, nn, c, nn).permute(0, 2, 1, 4, 3)
-            del rows
+            ue = self._rows(u)
+            args = (self._rows(uprev_combo), self._fq_rows(fq))
         else:
-            A = self.kernel.element_matrices(
-                self._soa(u), self.xe_soa, self._soa(uprev_combo),
-                self._fq_soa(fq), self.h, alpha0, sdt)
-            E = A.shape[0]
+            ue = self._soa(u)
+            args = (self.xe_soa, self._soa(uprev_combo), self._fq_soa(fq),
+                    self.h)
+        cols = probe_columns(
+            lambda due: self.kernel.tangent(ue, due, *args, alpha0, sdt), ue)
+        E = cols.shape[-1]
+        if self.layout is not None:
+            # component-major local order (k*nn + n) -> node-major, lattice
+            # element order -> the space's (elem_perm maps grid -> space)
+            A = cols.new_empty((E, nn * c, nn * c))
+            A.view(E, nn, c, nn, c)[self.elem_perm] = cols.view(
+                c, nn, c, nn, E).permute(4, 3, 2, 1, 0)
+            del cols
+        else:
+            A = cols.permute(2, 1, 0)                    # a view, no copy
         m = bc_mask[self.elem_nodes].reshape(E, nn * c).to(A.dtype)
         keep = 1.0 - m
         A.mul_(keep[:, :, None]).mul_(keep[:, None, :])

@@ -59,13 +59,14 @@ def _pairs(d):
 def _weak_form(mode, flags, scale, h, uq, grad, lap, upq, f, duq, dgrad,
                dlap):
     """``weak_form`` of gls_element.cu over a batch: uq [c, E],
-    grad [c, d, E], lap/upq/f [d, E] (and the direction's for the tangent
-    and the probe) -> a_v [d, E], a_g [d, d, E], a_p [E], a_pg [d, E],
+    grad [c, d, E], lap/upq/f [d, E], upq the time derivative
+    interpolated from its nodal values A0 u + u^{n-i} terms (and the
+    direction's for the tangent and the probe) -> a_v [d, E], a_g [d, d, E], a_p [E], a_pg [d, E],
     a_lap [d, E], pre-multiplied by det J * w."""
     d = grad.shape[1]
     inv_h2 = 1.0 / (h * h)
     visc = 9.0 * (4.0 * NU) ** 2 * inv_h2 * inv_h2
-    udot = A0 * uq[:d] + upq
+    udot = upq
     conv = torch.einsum("ijE,jE->iE", grad[:d], uq[:d])
     r_m = udot + conv + grad[d] - NU * lap - f
     div = sum(grad[i, i] for i in range(d))
@@ -128,7 +129,7 @@ class _Point:
             return val, grad, lap
 
         self.uq, self.grad, self.lap = fields(ue)
-        self.upq = torch.einsum("n,niE->iE", B[q], up)
+        self.upq = torch.einsum("n,niE->iE", B[q], A0 * ue[:, :d] + up)
         self.f = fq[q]
         E = ue.shape[-1]
         self.duq = self.dgrad = self.dlap = None

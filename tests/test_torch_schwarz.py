@@ -37,7 +37,8 @@ from softx_2020_200_tpu_torch.core.parameters import SimulationParameters
 from softx_2020_200_tpu_torch.fem import mesh as port_mesh
 from softx_2020_200_tpu_torch.fem.dof import FESpace
 from softx_2020_200_tpu_torch.solvers.base import GLSNavierStokesSolver
-from softx_2020_200_tpu_torch.solvers.gls import GLSOperator, StabFlags
+from softx_2020_200_tpu_torch.solvers.gls import (GLSOperator, StabFlags,
+                                                   probe_columns)
 from tests.test_gls_steady import BASE, COUETTE_BCS
 
 torch.set_num_threads(1)
@@ -137,9 +138,9 @@ def test_probe_element_matrices_match_tpu_kernel(kind):
             dr = jax.jvp(lambda w: pg.residual_rows(w, up2, fq2, A0, SDT),
                          (ue2,), (due2,))[1]
             return pg.from_rows(dr).T
-        got = op.kernel.element_matrices(
-            op._soa(_t(x["u"])), op.xe_soa, op._soa(_t(x["prev"])),
-            op._fq_soa(_t(x["fq"])), op.h, A0, SDT)
+        ue = op._soa(_t(x["u"]))
+        args = (op.xe_soa, op._soa(_t(x["prev"])), op._fq_soa(_t(x["fq"])),
+                op.h)
     else:
         assert op.layout is not None
         assert (op.elem_perm != torch.arange(E)).any()
@@ -158,9 +159,11 @@ def test_probe_element_matrices_match_tpu_kernel(kind):
         def run(due2):
             return jax.jvp(lambda w: pg.residual_rows(w, up2, fq2, A0, SDT),
                            (ue2,), (due2,))[1]
-        got = op.kernel.element_matrices(
-            op._rows(_t(x["u"])), op._rows(_t(x["prev"])),
-            op._fq_rows(_t(x["fq"])), A0, SDT)
+        ue = op._rows(_t(x["u"]))
+        args = (op._rows(_t(x["prev"])), op._fq_rows(_t(x["fq"])))
+    got = probe_columns(lambda due: op.kernel.tangent(ue, due, *args, A0,
+                                                      SDT), ue)
+    got = got.permute(2, 1, 0)                  # [E, row, column]
     ref = _onehot_columns(run, rows, nn * c, E)
     assert got.shape == ref.shape
     assert _rel(got, ref) < RTOL
