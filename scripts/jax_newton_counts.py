@@ -28,6 +28,14 @@ Newton count against the count this prints.
 key): the Jacobian, and the element matrices of additive Schwarz, with
 the stabilization parameter frozen, which is the linearization the
 PyTorch package's CUDA kernels compute.
+
+``--centerline`` prints, after the run, the x-velocity of the final GLS
+solution on the vertical line x = 0.5 at Ghia, Ghia & Shin's stations
+(the lid-driven cavity), read from the nodes on that line: along a mesh
+line a Q1 field is linear between its nodes, so the value is exact.
+A Kelly deck prints its cells per cycle as the solver's own
+``Mesh adaptation`` lines.  ``--l2`` prints the L2 errors of the final
+solution against the deck's analytical solution at the final time.
 """
 
 import sys
@@ -37,8 +45,20 @@ import numpy as np
 from softx_2020_200_tpu.core.parameters import SimulationParameters
 
 
+GHIA_Y = (0.0547, 0.0625, 0.0703, 0.1016, 0.1719, 0.2813, 0.4531, 0.5,
+          0.6172, 0.7344, 0.8516, 0.9531, 0.9609, 0.9688, 0.9766)
+
+
+def centerline_u(nodes, u):
+    """u_x at x = 0.5 and y = GHIA_Y, from the nodes on the line."""
+    on = np.abs(nodes[:, 0] - 0.5) < 1e-9
+    order = np.argsort(nodes[on, 1])
+    return np.interp(GHIA_Y, nodes[on, 1][order], u[on, 0][order])
+
+
 def main(deck: str, dim: int, solver: str = "gls",
-         pallas_interpret: bool = False, frozen_tau: bool = False) -> None:
+         pallas_interpret: bool = False, frozen_tau: bool = False,
+         centerline: bool = False, l2: bool = False) -> None:
     if solver == "gd":
         from softx_2020_200_tpu.solvers.gd import GDNavierStokesSolver as cls
     else:
@@ -93,7 +113,13 @@ def main(deck: str, dim: int, solver: str = "gls",
     levels = getattr(s, "_mg_levels", None) or getattr(s, "mg_levels", None)
     print(f"preconditioner {s.precond_kind}"
           + (f" ({len(levels)} levels)" if levels else ""), flush=True)
-    s.solve()
+    u = s.solve()
+    if centerline:
+        vals = centerline_u(np.asarray(s.space.nodes), np.asarray(u))
+        print("centerline u: " + " ".join(f"{v:.8e}" for v in vals))
+    if l2:
+        ev, ep = s.l2_errors(u, s.control.time)
+        print(f"final L2 error velocity: {ev:.8e}  pressure: {ep:.8e}")
     n = max(total["newton"], 1)
     print(f"total: {total['solves']} solves, {total['newton']} Newton, "
           f"{total['krylov']} Krylov iterations, "
@@ -101,8 +127,9 @@ def main(deck: str, dim: int, solver: str = "gls",
 
 
 if __name__ == "__main__":
-    flags = ("--pallas-interpret", "--frozen-tau")
+    flags = ("--pallas-interpret", "--frozen-tau", "--centerline", "--l2")
     args = [a for a in sys.argv[1:] if a not in flags]
     main(args[0], int(args[1]), *args[2:3],
          pallas_interpret=flags[0] in sys.argv[1:],
-         frozen_tau=flags[1] in sys.argv[1:])
+         frozen_tau=flags[1] in sys.argv[1:],
+         centerline=flags[2] in sys.argv[1:], l2=flags[3] in sys.argv[1:])

@@ -22,6 +22,11 @@
 //            array; it writes only the c outputs of node probe_node into
 //            the node-block array out[nn, c*c, E] at rows i*c + probe_comp.
 //
+// Quadrature: Q1 and Q2 with degree + 1 Gauss points per axis, and Q1
+// with 3 points per axis (Q1 = 3 below) on the STAGED route only: the
+// multigrid levels under a Q2 mesh's Q1 p-level keep the fine level's
+// rule, as in the JAX package's forest hierarchy (ops/multigrid.py).
+//
 // Layout: SoA rows with the element index fastest: ue[nn*c, E],
 // due[nn*c, E], xe[nn*d, E], up[nn*d, E], fq[nq*d, E], h[E];
 // out[nn*c, E].  The tables arrive packed in one array: B[nq][nn],
@@ -51,7 +56,8 @@
 // of at most occupancy x SMs blocks); the caller picks one per launch from
 // the shape and E (ops/gls_kernel.py):
 //   STAGED     every shape.  A block stages the tables once, then per tile
-//              of BE elements (32; 16 at 27 nodes) the rows arrive in a
+//              of BE elements (32; 16 at 27 nodes or points) the rows
+//              arrive in a
 //              two-stage ring by TMA (4-byte cp.async where the row pitch
 //              is not a multiple of 16 bytes) while the previous tile
 //              computes.  Phase A, one thread per (quadrature point,
@@ -60,7 +66,9 @@
 //              the physics, and the point's reference-frame coefficients
 //              (a_v, ag_ref = a_g J^-T, apg_ref, a_p, a_lap, Km) into
 //              shared memory.  Phase B, one thread per (node, element):
-//              the contraction with B, G and Hs.  No thread holds an
+//              the contraction with B, G and Hs (a block has max(nq, nn)
+//              threads per element: those past nq idle in phase A, those
+//              past nn in phase B).  No thread holds an
 //              element's nn*c accumulators, so 3D Q2 does not spill; the
 //              cost is shared-memory traffic (each point re-reads its
 //              element's rows, each node its points' coefficients), which
@@ -99,19 +107,22 @@ constexpr int REG_THREADS = 64;
 
 using tiles::pad32;
 
-template <int D, int K, int MODE, int SE = 4>
+template <int D, int K, int MODE, int SE = 4, int Q1 = K + 1>
 struct Shape {
   static constexpr int N1 = K + 1;
   static constexpr int NN = (D == 2) ? N1 * N1 : N1 * N1 * N1;
-  static constexpr int NQ = NN;          // (degree + 1)-point Gauss rule
+  static constexpr int NQ = (D == 2) ? Q1 * Q1 : Q1 * Q1 * Q1;  // Gauss
   static constexpr int C = D + 1;
   static constexpr int NH = D * (D + 1) / 2;
   static constexpr int TB = NQ * NN;
   static constexpr int TG = NQ * NN * D;
   static constexpr int TH = NQ * NN * NH;
   static constexpr int TABLES = TB + TG + TH + NQ;
-  static constexpr int BE = (NN * 32 <= 512) ? 32 : 16;
-  static constexpr int THREADS = NN * BE;
+  // STAGED: one thread per (point, element) in phase A and per (node,
+  // element) in phase B
+  static constexpr int SLOTS = NQ > NN ? NQ : NN;
+  static constexpr int BE = (SLOTS * 32 <= 512) ? 32 : 16;
+  static constexpr int THREADS = SLOTS * BE;
   // staged coefficients per (point, element): a_v[D], ag_ref[D][D],
   // apg_ref[D], a_p, a_lap[D], Km (symmetric)[NH]
   static constexpr int AV = 0, AG = D, APG = D + D * D, AP = APG + D,
@@ -286,12 +297,12 @@ __device__ __forceinline__ void metric(const float (&Ji)[D][D],
 // ------------------------------------------------------------- STAGED --
 // Phase A: point q of element el of the staged tile `st`; writes the
 // point's NCOEF coefficients to cq[k * BE].
-template <int D, int K, int MODE, int SE>
+template <int D, int K, int MODE, int SE, int Q1>
 __device__ __forceinline__ void point_coefficients(const Params& p,
                                                    const float* tab,
                                                    const float* st, int q,
                                                    int el, float* cq) {
-  using S = Shape<D, K, MODE, SE>;
+  using S = Shape<D, K, MODE, SE, Q1>;
   using T = tiles::state_t<SE>;
   constexpr int NN = S::NN, C = S::C, BE = S::BE, NH = S::NH;
   constexpr bool TAN = MODE == TANGENT;
@@ -443,11 +454,11 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
 
 // Phase B: node n of element el: acc[i] = sum_q (B a_v + G . ag_ref +
 // lap_phi a_lap)_i, acc[D] = sum_q (B a_p + G . apg_ref).
-template <int D, int K, int MODE>
+template <int D, int K, int MODE, int Q1>
 __device__ __forceinline__ void node_contraction(const float* tab,
                                                  const float* coef, int n,
                                                  int el, float (&acc)[D + 1]) {
-  using S = Shape<D, K, MODE>;
+  using S = Shape<D, K, MODE, 4, Q1>;
   constexpr int NN = S::NN, NQ = S::NQ, BE = S::BE, NH = S::NH;
   const float* sB = tab;
   const float* sG = sB + S::TB;
@@ -479,10 +490,10 @@ __device__ __forceinline__ void node_contraction(const float* tab,
   }
 }
 
-template <int D, int K, int MODE, int SE>
-__global__ void __launch_bounds__(Shape<D, K, MODE, SE>::THREADS)
+template <int D, int K, int MODE, int SE, int Q1>
+__global__ void __launch_bounds__(Shape<D, K, MODE, SE, Q1>::THREADS)
     gls_element_kernel(const __grid_constant__ Params p) {
-  using S = Shape<D, K, MODE, SE>;
+  using S = Shape<D, K, MODE, SE, Q1>;
   constexpr int BE = S::BE, C = S::C;
 
   extern __shared__ __align__(128) float smem[];
@@ -521,15 +532,16 @@ __global__ void __launch_bounds__(Shape<D, K, MODE, SE>::THREADS)
     ring.wait(it);
     __syncthreads();
 
-    point_coefficients<D, K, MODE, SE>(p, tab, ring.stage(s), slot, el,
-                                   coef + slot * S::NCOEF * BE + el);
+    if (slot < S::NQ)
+      point_coefficients<D, K, MODE, SE, Q1>(
+          p, tab, ring.stage(s), slot, el, coef + slot * S::NCOEF * BE + el);
     __syncthreads();
 
     const int64_t e = t * BE + el;
     const int n = slot;
-    if (e < E && (MODE != PROBE || n == p.probe_node)) {
+    if (n < S::NN && e < E && (MODE != PROBE || n == p.probe_node)) {
       float acc[C];
-      node_contraction<D, K, MODE>(tab, coef, n, el, acc);
+      node_contraction<D, K, MODE, Q1>(tab, coef, n, el, acc);
 #pragma unroll
       for (int i = 0; i < C; ++i) {
         const int64_t row = MODE == PROBE ? n * C * C + i * C + p.probe_comp
@@ -791,14 +803,14 @@ cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
   return cudaSuccess;
 }
 
-template <int D, int K, int MODE, int SE>
+template <int D, int K, int MODE, int SE, int Q1>
 cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
-  using S = Shape<D, K, MODE, SE>;
+  using S = Shape<D, K, MODE, SE, Q1>;
   constexpr size_t smem = sizeof(float) * S::SMEM_FLOATS;
   static int cached = 0;
   if (!cached) {
     const cudaError_t err = tiles::occupancy(
-        gls_element_kernel<D, K, MODE, SE>, S::THREADS, smem, &cached);
+        gls_element_kernel<D, K, MODE, SE, Q1>, S::THREADS, smem, &cached);
     if (err != cudaSuccess) return err;
   }
   *blocks = cached;
@@ -822,11 +834,13 @@ cudaError_t reg_run(bool query, const Params& p, int grid, cudaStream_t s,
   }
 }
 
-template <int D, int K, int MODE, int SE>
+// REGISTERS is compiled for the (degree + 1)-point rule only
+template <int D, int K, int MODE, int SE, int Q1>
 cudaError_t run(int route, int split, bool query, Params& p, int grid,
                 cudaStream_t s, int* blocks, int* smem, int* threads) {
-  using S = Shape<D, K, MODE, SE>;
+  using S = Shape<D, K, MODE, SE, Q1>;
   if (route == REGISTERS) {
+    if constexpr (Q1 != K + 1) return cudaErrorInvalidValue;
     switch (split) {
       case 1: return reg_run<D, K, MODE, 1, SE>(query, p, grid, s, blocks, smem, threads);
       case 2: return reg_run<D, K, MODE, 2, SE>(query, p, grid, s, blocks, smem, threads);
@@ -835,7 +849,8 @@ cudaError_t run(int route, int split, bool query, Params& p, int grid,
     }
   }
   if (route != STAGED) return cudaErrorInvalidValue;
-  cudaError_t err = staged_config<D, K, MODE, SE>(blocks, smem, threads);
+  cudaError_t err = staged_config<D, K, MODE, SE, Q1>(blocks, smem,
+                                                      threads);
   if (err != cudaSuccess || query || p.E == 0 || grid <= 0) return err;
   p.in.rows[0] = S::R_UE;
   p.in.rows[1] = S::R_DUE;
@@ -848,54 +863,60 @@ cudaError_t run(int route, int split, bool query, Params& p, int grid,
     err = tiles::encode_inputs(p.in, 6, p.E, S::BE, esz);
     if (err != cudaSuccess) return err;
   }
-  gls_element_kernel<D, K, MODE, SE><<<grid, S::THREADS, *smem, s>>>(p);
+  gls_element_kernel<D, K, MODE, SE, Q1><<<grid, S::THREADS, *smem, s>>>(p);
   return cudaGetLastError();
 }
 
 // the primal reads f32 state only; the tangent and the probe, f32 or
 // bf16 state (`state_bytes` 4 or 2)
-template <int D, int K>
+template <int D, int K, int Q1>
 cudaError_t dispatch(int mode, int state_bytes, int route, int split,
                      bool query, Params& p, int grid, cudaStream_t s,
                      int* blocks, int* smem, int* threads) {
   switch (mode * 10 + state_bytes) {
     case PRIMAL * 10 + 4:
-      return run<D, K, PRIMAL, 4>(route, split, query, p, grid, s, blocks,
-                                  smem, threads);
+      return run<D, K, PRIMAL, 4, Q1>(route, split, query, p, grid, s,
+                                      blocks, smem, threads);
     case TANGENT * 10 + 4:
-      return run<D, K, TANGENT, 4>(route, split, query, p, grid, s, blocks,
-                                   smem, threads);
+      return run<D, K, TANGENT, 4, Q1>(route, split, query, p, grid, s,
+                                       blocks, smem, threads);
     case PROBE * 10 + 4:
-      return run<D, K, PROBE, 4>(route, split, query, p, grid, s, blocks,
-                                 smem, threads);
+      return run<D, K, PROBE, 4, Q1>(route, split, query, p, grid, s,
+                                     blocks, smem, threads);
     case TANGENT * 10 + 2:
-      return run<D, K, TANGENT, 2>(route, split, query, p, grid, s, blocks,
-                                   smem, threads);
+      return run<D, K, TANGENT, 2, Q1>(route, split, query, p, grid, s,
+                                       blocks, smem, threads);
     case PROBE * 10 + 2:
-      return run<D, K, PROBE, 2>(route, split, query, p, grid, s, blocks,
-                                 smem, threads);
+      return run<D, K, PROBE, 2, Q1>(route, split, query, p, grid, s,
+                                     blocks, smem, threads);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t dispatch_shape(int dim, int degree, int mode, int state_bytes,
-                           int route, int split, bool query, Params& p,
-                           int grid, cudaStream_t s, int* blocks, int* smem,
-                           int* threads) {
-  switch (dim * 10 + degree) {
-    case 21:
-      return dispatch<2, 1>(mode, state_bytes, route, split, query, p, grid,
-                            s, blocks, smem, threads);
-    case 22:
-      return dispatch<2, 2>(mode, state_bytes, route, split, query, p, grid,
-                            s, blocks, smem, threads);
-    case 31:
-      return dispatch<3, 1>(mode, state_bytes, route, split, query, p, grid,
-                            s, blocks, smem, threads);
-    case 32:
-      return dispatch<3, 2>(mode, state_bytes, route, split, query, p, grid,
-                            s, blocks, smem, threads);
+cudaError_t dispatch_shape(int dim, int degree, int points, int mode,
+                           int state_bytes, int route, int split, bool query,
+                           Params& p, int grid, cudaStream_t s, int* blocks,
+                           int* smem, int* threads) {
+  switch (dim * 100 + degree * 10 + points) {
+    case 212:
+      return dispatch<2, 1, 2>(mode, state_bytes, route, split, query, p,
+                               grid, s, blocks, smem, threads);
+    case 213:
+      return dispatch<2, 1, 3>(mode, state_bytes, route, split, query, p,
+                               grid, s, blocks, smem, threads);
+    case 223:
+      return dispatch<2, 2, 3>(mode, state_bytes, route, split, query, p,
+                               grid, s, blocks, smem, threads);
+    case 312:
+      return dispatch<3, 1, 2>(mode, state_bytes, route, split, query, p,
+                               grid, s, blocks, smem, threads);
+    case 313:
+      return dispatch<3, 1, 3>(mode, state_bytes, route, split, query, p,
+                               grid, s, blocks, smem, threads);
+    case 323:
+      return dispatch<3, 2, 3>(mode, state_bytes, route, split, query, p,
+                               grid, s, blocks, smem, threads);
     default:
       return cudaErrorInvalidValue;
   }
@@ -905,18 +926,20 @@ cudaError_t dispatch_shape(int dim, int degree, int mode, int state_bytes,
 
 // The variant's blocks per SM (after opting it in to its dynamic shared
 // memory), shared-memory bytes and threads per block on route STAGED (0)
-// or REGISTERS (1, with `split` threads per element), with state rows of
-// `state_bytes` (4: f32; 2: bf16, tangent and probe only); the caller
-// sizes the persistent grid from them.  Returns a CUDA error code
-// (cudaErrorInvalidValue for a variant that is not compiled).
-extern "C" int gls_element_config(int dim, int degree, int mode,
+// or REGISTERS (1, with `split` threads per element), with `points` Gauss
+// points per axis and state rows of `state_bytes` (4: f32; 2: bf16,
+// tangent and probe only); the caller sizes the persistent grid from
+// them.  Returns a CUDA error code (cudaErrorInvalidValue for a variant
+// that is not compiled).
+extern "C" int gls_element_config(int dim, int degree, int points, int mode,
                                   int state_bytes, int route, int split,
                                   int* blocks_per_sm, int* smem_bytes,
                                   int* threads) {
   Params p{};
-  return static_cast<int>(dispatch_shape(dim, degree, mode, state_bytes,
-                                         route, split, true, p, 0, nullptr,
-                                         blocks_per_sm, smem_bytes, threads));
+  return static_cast<int>(dispatch_shape(dim, degree, points, mode,
+                                         state_bytes, route, split, true, p,
+                                         0, nullptr, blocks_per_sm,
+                                         smem_bytes, threads));
 }
 
 // Launches one variant on `stream` with `grid` blocks, on route STAGED (0)
@@ -927,11 +950,11 @@ extern "C" int gls_element_config(int dim, int degree, int mode,
 // (`state_bytes` 4, row pitch E) or, for the tangent and the probe, bf16
 // (2, row pitch `state_pitch`, even, and 4-byte aligned rows); due and out
 // are f32 with row pitch E.  Returns cudaGetLastError() after the launch
-// (0 on success); cudaErrorInvalidValue for a (dim, degree, mode, state
-// type, route) that is not compiled.  Does not synchronise and allocates
-// nothing.
+// (0 on success); cudaErrorInvalidValue for a (dim, degree, points,
+// mode, state type, route) that is not compiled.  Does not synchronise
+// and allocates nothing.
 extern "C" int gls_element_launch(
-    int dim, int degree, int mode, int state_bytes,
+    int dim, int degree, int points, int mode, int state_bytes,
     const void* ue, const void* due, const void* xe, const void* up,
     const void* fq, const void* h, const void* tables, void* out,
     int64_t n_elements, int64_t state_pitch, float nu, float alpha0,
@@ -962,8 +985,9 @@ extern "C" int gls_element_launch(
   p.probe_comp = probe_comp;
   p.path = path;
   int blocks, smem, threads;
-  return static_cast<int>(dispatch_shape(dim, degree, mode, state_bytes,
-                                         route, split, false, p, grid,
+  return static_cast<int>(dispatch_shape(dim, degree, points, mode,
+                                         state_bytes, route, split, false, p,
+                                         grid,
                                          static_cast<cudaStream_t>(stream),
                                          &blocks, &smem, &threads));
 }

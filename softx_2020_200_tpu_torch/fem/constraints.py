@@ -9,7 +9,10 @@ coincide with a coarse node is constrained to the coarse face's basis:
 Application is two dense index ops (tiny H):
 - ``distribute(u)``     sets constrained values (before element gather);
 - ``distribute_transpose(R)`` accumulates constrained-row residuals into
-  the master rows and zeroes them (after scatter-add).
+  the master rows and zeroes them (after scatter-add).  The accumulation
+  is a gather-sum over the slots that name each master (``slots``, found
+  once on the host), never ``index_put(accumulate=True)``: the atomics
+  behind it on a GPU add in no fixed order.
 
 The Newton system then acts on the constrained subspace exactly as the
 reference's condensed matrix does.
@@ -23,11 +26,31 @@ import numpy as np
 import torch
 
 
+def master_slots(masters: np.ndarray):
+    """(unique masters [U], slots [U, K]): row u of ``slots`` lists the
+    positions in ``masters.reshape(-1)`` that name master u, in
+    increasing order, padded with the position ``masters.size`` (a zero
+    row appended by the caller)."""
+    flat = masters.reshape(-1)
+    umasters, inv, counts = np.unique(flat, return_inverse=True,
+                                      return_counts=True)
+    order = np.argsort(inv, kind="stable")
+    starts = np.cumsum(counts) - counts
+    slots = np.full((umasters.size, int(counts.max(initial=1))), flat.size,
+                    dtype=np.int64)
+    for k in range(slots.shape[1]):
+        has = counts > k
+        slots[has, k] = order[starts[has] + k]
+    return umasters.astype(np.int64), slots
+
+
 @dataclass
 class HangingConstraints:
-    ids: torch.Tensor      # [H] int64 (global hanging node ids)
-    masters: torch.Tensor  # [H, M] int64
-    weights: torch.Tensor  # [H, M] float
+    ids: torch.Tensor       # [H] int64 (global hanging node ids)
+    masters: torch.Tensor   # [H, M] int64
+    weights: torch.Tensor   # [H, M] float
+    umasters: torch.Tensor  # [U] int64 (the distinct masters)
+    slots: torch.Tensor     # [U, K] int64 (see ``master_slots``)
 
     @property
     def n(self) -> int:
@@ -46,16 +69,22 @@ class HangingConstraints:
         if self.n == 0:
             return R
         rh = R[self.ids]                                   # [H, c]
-        contrib = self.weights.to(R.dtype)[:, :, None] * rh[:, None, :]
-        R = R.index_put((self.masters.reshape(-1),),
-                        contrib.reshape(-1, R.shape[1]), accumulate=True)
+        c = R.shape[1]
+        flat = R.new_empty((self.masters.numel() + 1, c))
+        flat[:-1].view(*self.masters.shape, c).copy_(
+            self.weights.to(R.dtype)[:, :, None] * rh[:, None, :])
+        flat[-1].zero_()
+        R = R.index_put((self.umasters,),
+                        R[self.umasters] + flat[self.slots].sum(dim=1))
         return R.index_put((self.ids,), torch.zeros_like(rh))
 
     def to(self, device, dtype):
         """The constraints with weights in ``dtype`` on ``device``."""
         return HangingConstraints(ids=self.ids.to(device),
                                   masters=self.masters.to(device),
-                                  weights=self.weights.to(device, dtype))
+                                  weights=self.weights.to(device, dtype),
+                                  umasters=self.umasters.to(device),
+                                  slots=self.slots.to(device))
 
 
 def build_hanging_constraints(space, nc_faces,
@@ -77,7 +106,9 @@ def build_hanging_constraints(space, nc_faces,
         return HangingConstraints(
             ids=torch.zeros(0, dtype=torch.int64),
             masters=torch.zeros((0, 1), dtype=torch.int64),
-            weights=torch.zeros((0, 1), dtype=dtype))
+            weights=torch.zeros((0, 1), dtype=dtype),
+            umasters=torch.zeros(0, dtype=torch.int64),
+            slots=torch.zeros((0, 1), dtype=torch.int64))
 
     if not nc_faces:
         return _empty()
@@ -148,7 +179,10 @@ def build_hanging_constraints(space, nc_faces,
     # (face-major order — same tie-break the sequential builder used),
     # output sorted by global id
     ids, first = np.unique(g_flat, return_index=True)
+    masters = m_flat[first].astype(np.int64)
+    umasters, slots = master_slots(masters)
     return HangingConstraints(
         ids=torch.from_numpy(ids.astype(np.int64)),
-        masters=torch.from_numpy(m_flat[first].astype(np.int64)),
-        weights=torch.as_tensor(w_flat[first], dtype=dtype))
+        masters=torch.from_numpy(masters),
+        weights=torch.as_tensor(w_flat[first], dtype=dtype),
+        umasters=torch.from_numpy(umasters), slots=torch.from_numpy(slots))

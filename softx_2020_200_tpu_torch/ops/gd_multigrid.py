@@ -10,14 +10,18 @@ A V-cycle on the linearized velocity block
 which is linear in v, so each level's matvec is a direct evaluation
 (index gather, einsums, gather-sum assembly; no kernel and no jvp, as in
 the JAX package on every device) and its node-block smoother is
-assembled in closed form.  A structured lattice coarsens by halving;
-the velocity degree stays.  The pressure Schur part of the
-block-triangular preconditioner lives in ``solvers/gd.py``.
+assembled in closed form.  A structured lattice coarsens by halving; a
+mesh in a forest coarsens through the forest (``ops/multigrid.py``),
+each level with its own velocity hanging-node constraints (the matvec
+is hc^T A hc on every level, the finest included); the velocity degree
+stays.  The pressure Schur part of the block-triangular preconditioner
+lives in ``solvers/gd.py``.
 
     smoother : damped (``OMEGA``) node-block Jacobi, one pre- and one
                post-smoothing step
     transfers: ``ops/multigrid.py``'s interpolation and its transpose;
-               the linearization velocity is injected
+               the linearization velocity is injected (lattice) or
+               interpolated (forest)
     bottom   : GMRES(``COARSE_ITERS``) preconditioned by block-Jacobi,
                a fixed number of steps (``ops/linalg.py::gmres_fixed``),
                so a cycle reads nothing back from the device
@@ -32,7 +36,8 @@ from ..fem.dof import FESpace
 from ..fem.mesh import subdivided_hyper_rectangle
 from .batched_kernel import _det_inv_soa
 from .linalg import gmres_fixed
-from .multigrid import Level, _transfer_maps, prolong, restrict
+from .multigrid import (Level, _coarsen_forest, _transfer_maps,
+                        forest_transfers, hanging_level, prolong, restrict)
 from .operators import assemble, build_assembly_map
 from .preconditioners import build_from_node_blocks
 
@@ -136,6 +141,7 @@ def _level_mask(space_v: FESpace, prm_bcs, dim: int, *, device):
     return BoundaryHandler(space_v, prm_bcs, device=device).mask[:, :dim]
 
 
+
 def _face_centers(m, rows, dim: int):
     """Centres of boundary faces ``rows`` [(elem, local face, id)]: the
     corners of local face (axis, side) among the lex-ordered 2^d cell
@@ -157,15 +163,19 @@ def build_gd_hierarchy(solver, min_elems: int = 64,
     lattice keeps ``min_elems`` cells; coarse boundary faces take the
     fine side's id, or on a side that carries several ids the id of the
     nearest fine boundary face, so a coarse Dirichlet mask never covers
-    an outlet patch.  Any other mesh gets only its own level (the forest
-    hierarchy is not ported), and the solver then uses block-Jacobi."""
+    an outlet patch.  Any other mesh coarsens through the solver's forest
+    when it has one (``_forest_levels``); without one it gets only its own
+    level, and the solver then uses block-Jacobi."""
     op = solver.op
     d = solver.dim
     kw = dict(dtype=op.dtype, device=op.device)
     n_q1d = int(round(op.n_q ** (1.0 / d)))
-    levels = [Level(op=op.velocity_level(), mask=solver.bh.mask[:, :d])]
+    mask0 = solver._mask[:op.Nv * d].reshape(op.Nv, d)
+    levels = [Level(op=op.velocity_level(), mask=mask0, hc=solver.hc_v)]
     mesh = op.space_v.mesh
     if mesh.structured_shape is None:
+        if solver.forest is not None:
+            _forest_levels(solver, levels, n_q1d, min_elems, max_levels)
         return levels
     ne = tuple(mesh.structured_shape)
     lo = mesh.vertices.min(axis=0)
@@ -213,6 +223,31 @@ def build_gd_hierarchy(solver, min_elems: int = 64,
     return levels
 
 
+def _forest_levels(solver, levels, n_q1d, min_elems, max_levels) -> None:
+    """Append the forest's velocity levels to ``levels``: one forest level
+    coarser at a time while the level has more than ``min_elems`` cells
+    and the forest still coarsens."""
+    op, d = solver.op, solver.dim
+    kw = dict(dtype=op.dtype, device=op.device)
+    cur_forest, cur_space, cur_elem_of = (solver.forest, op.space_v,
+                                          solver._elem_of)
+    while len(levels) < max_levels and cur_space.n_elements > min_elems:
+        cforest = _coarsen_forest(cur_forest)
+        if cforest.n_leaves() >= cur_forest.n_leaves():
+            break
+        cmesh, c_elem_of, c_ncf = cforest.build_mesh()
+        cmesh.periodic = list(op.space_v.mesh.periodic)
+        cspace = FESpace(cmesh, op.space_v.degree)
+        mask, hc = hanging_level(cspace, c_ncf,
+                                 solver.prm.boundary_conditions, **kw)
+        levels.append(Level(
+            op=GDVelocityLevel(cspace, op.nu, op.gamma, n_q1d, **kw),
+            mask=mask[:, :d], hc=hc, **forest_transfers(
+                cur_space, cur_forest, cur_elem_of, cspace, cforest,
+                c_elem_of, **kw)))
+        cur_forest, cur_space, cur_elem_of = cforest, cspace, c_elem_of
+
+
 # ----------------------------------------------------------------------
 def make_gd_vcycle(levels: list[Level], *, n_smooth: int = N_SMOOTH,
                    omega: float = OMEGA, coarse_iters: int = COARSE_ITERS):
@@ -221,10 +256,11 @@ def make_gd_vcycle(levels: list[Level], *, n_smooth: int = N_SMOOTH,
     n_levels = len(levels)
 
     def builder(v_lin, alpha0):
-        # linearization velocities per level, injected downward
+        # linearization velocities per level, injected (lattice) or
+        # interpolated (forest) downward
         vs = [v_lin]
         for lvl in levels[1:]:
-            vs.append(vs[-1][lvl.inject])
+            vs.append(lvl.down(vs[-1]))
 
         mats = []
         for lvl, v in zip(levels, vs):
@@ -236,9 +272,10 @@ def make_gd_vcycle(levels: list[Level], *, n_smooth: int = N_SMOOTH,
             smoother = build_from_node_blocks("block_jacobi", blocks,
                                               mask).apply
 
-            def matvec(v, lv=lv, uq=uq, guq=guq, mask=mask):
-                zero = torch.zeros_like(v)
-                out = lv.matvec(torch.where(mask, zero, v), uq, guq, alpha0)
+            def matvec(v, lvl=lvl, uq=uq, guq=guq, mask=mask):
+                vin = lvl.hc_distribute(torch.where(mask, torch.zeros_like(v),
+                                                    v))
+                out = lvl.hc_transpose(lvl.op.matvec(vin, uq, guq, alpha0))
                 return torch.where(mask, v, out)
 
             mats.append((matvec, smoother, mask))

@@ -57,7 +57,12 @@ _PRIMAL, _TANGENT, _PROBE = 0, 1, 2
 MODES = ("primal", "tangent", "probe")
 # the variants that take bf16 state rows
 BF16_MODES = (_TANGENT, _PROBE)
+# (dim, degree) with degree + 1 Gauss points per axis
 SUPPORTED = {(2, 1), (2, 2), (3, 1), (3, 2)}
+# (dim, degree, points per axis) of the other compiled rules, on the
+# STAGED route only: Q1 with 3 points, the levels below a Q2 mesh's Q1
+# p-level in the forest multigrid (ops/multigrid.py)
+OTHER_POINTS = {(2, 1, 3), (3, 1, 3)}
 # the shapes with a REGISTERS route (one thread per element; 3D Q2's state
 # does not fit the registers), and its threads per block
 REGISTER_SHAPES = {(2, 1), (2, 2), (3, 1)}
@@ -81,12 +86,12 @@ def get_build() -> cuda_build.KernelBuild:
     if _BUILD is None:
         _BUILD = cuda_build.load(
             SOURCE, "gls_element_launch",
-            [ctypes.c_int] * 4 + [ctypes.c_void_p] * 8
+            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 8
             + [ctypes.c_int64] * 2 + [ctypes.c_float] * 3
             + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         _BUILD.lib.gls_element_config.restype = ctypes.c_int
         _BUILD.lib.gls_element_config.argtypes = (
-            [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3)
+            [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3)
     return _BUILD
 
 
@@ -101,17 +106,19 @@ def route_for(dim: int, degree: int, n_elements: int, n_sms: int,
 
 def tile_config(dim: int, degree: int, mode: int,
                 route: int = pt.STAGED, split: int = 1,
-                state_bytes: int = 4) -> dict:
+                state_bytes: int = 4, points: int | None = None) -> dict:
     """The shape of one variant's launch, as ``csrc/gls_element.cu``
     computes it: elements per tile ``be`` (per block on the REGISTERS
     route, with ``split`` threads per element), threads per block (one
-    per (point, element) on the STAGED route), the input rows of a ring
-    stage (ue, due, xe, up, fq, h), their bytes per element (the state's
-    ``state_bytes``; due f32) and the shared-memory bytes (STAGED:
-    tables, two stages, the staged coefficients of every point;
-    REGISTERS: the tables)."""
+    per (point or node, element) on the STAGED route, the more of the
+    two), the input rows of a ring stage (ue, due, xe, up, fq, h), their
+    bytes per element (the state's ``state_bytes``; due f32) and the
+    shared-memory bytes (STAGED: tables, two stages, the staged
+    coefficients of every point; REGISTERS: the tables).  ``points`` per
+    axis: degree + 1 by default."""
     nn = (degree + 1) ** dim
-    nq, c, nh = nn, dim + 1, dim * (dim + 1) // 2
+    nq = (points or degree + 1) ** dim
+    c, nh = dim + 1, dim * (dim + 1) // 2
     tables = nq * nn * (1 + dim + nh) + nq
     rows = (nn * c, nn * c if mode == _TANGENT else 0, nn * dim, nn * dim,
             nq * dim, 1)
@@ -120,26 +127,29 @@ def tile_config(dim: int, degree: int, mode: int,
     if route == pt.REGISTERS:
         return dict(be=REG_THREADS // split, threads=REG_THREADS,
                     rows=rows, elem_bytes=elem_bytes, smem_bytes=4 * tables)
-    be = 32 if nn * 32 <= 512 else 16
+    slots = max(nn, nq)
+    be = 32 if slots * 32 <= 512 else 16
     ncoef = 3 * dim + dim * dim + 1 + nh
     floats = (pt.pad32(tables)
               + pt.STAGES * pt.stage_floats(rows, be, elem_bytes)
               + nq * ncoef * be)
-    return dict(be=be, threads=nn * be, rows=rows, elem_bytes=elem_bytes,
+    return dict(be=be, threads=slots * be, rows=rows, elem_bytes=elem_bytes,
                 smem_bytes=4 * floats)
 
 
 def config_on_card(dim: int, degree: int, mode: int, route: int,
-                   split: int = 1, state_bytes: int = 4
-                   ) -> tuple[int, int, int]:
+                   split: int = 1, state_bytes: int = 4,
+                   points: int | None = None) -> tuple[int, int, int]:
     """(blocks per SM, shared-memory bytes, threads) of one variant (with
-    ``split`` threads per element on the REGISTERS route, and state rows
-    of ``state_bytes``), from the compiled library (cached)."""
-    key = (dim, degree, mode, route, split, state_bytes)
+    ``split`` threads per element on the REGISTERS route, state rows of
+    ``state_bytes`` and ``points`` Gauss points per axis, degree + 1 by
+    default), from the compiled library (cached)."""
+    points = points or degree + 1
+    key = (dim, degree, points, mode, route, split, state_bytes)
     if key not in _CONFIG:
         out = [ctypes.c_int() for _ in range(3)]
         err = get_build().lib.gls_element_config(
-            dim, degree, mode, state_bytes, route, split,
+            dim, degree, points, mode, state_bytes, route, split,
             *(ctypes.byref(o) for o in out))
         if err != 0:
             raise RuntimeError(f"GLS element kernel {key}: CUDA error {err}")
@@ -165,7 +175,8 @@ class GLSElementKernel(nn.Module):
     ``launches`` counts CUDA kernel launches (class-wide), and
     ``launches_by_shape`` the same per (dim, degree, points per axis, E,
     variant: "tangent_bf16" and "probe_bf16" for bf16 state); the plain
-    version on CPU tensors does not count.
+    version on CPU tensors does not count.  The rule is the tables' (nq
+    points): degree + 1 points per axis, or for Q1 also 3.
     """
 
     launches = 0
@@ -178,6 +189,7 @@ class GLSElementKernel(nn.Module):
         self.dim, self.degree = dim, degree
         self.nc = dim + 1
         self.nn, self.nq = B.shape[1], B.shape[0]
+        self.q1d = round(self.nq ** (1 / dim))
         self.nu = float(nu)
         self.stab = stab
         for name, arr in (("B", B), ("G", G), ("H", H), ("w", w)):
@@ -279,22 +291,27 @@ class GLSElementKernel(nn.Module):
         shared memory and occupancy."""
         key = (mode, E, route, split, sb)
         if key not in self._plans:
-            d, k = self.dim, self.degree
-            if (d, k) not in SUPPORTED or self.nq != self.nn:
+            d, k, q1 = self.dim, self.degree, self.q1d
+            own_rule = q1 == k + 1 and (d, k) in SUPPORTED
+            if not (own_rule or (d, k, q1) in OTHER_POINTS) \
+                    or q1 ** d != self.nq:
                 raise ValueError(
                     f"CUDA GLS kernel: no variant for dim={d}, degree={k} "
                     f"with {self.nq} quadrature points (compiled: Q1/Q2 in "
-                    f"2D/3D with degree+1 points per axis)")
+                    f"2D/3D with degree+1 points per axis, Q1 with 3)")
             n_sms = pt.sm_count(device)
-            r = route_for(d, k, E, n_sms, route)
+            r = (route_for(d, k, E, n_sms, route) if own_rule
+                 else pt.choose_route(route, False, E, REG_MIN_PER_SM,
+                                      n_sms))
+            rule = {} if own_rule else {"points": q1}
             n = 1
             if r == pt.REGISTERS:
                 n = split or pt.split_for(
                     E, [(s, config_on_card(d, k, mode, r, s, sb)[0])
                         for s in REG_SPLITS[d]], n_sms, REG_THREADS)
             grid = pt.persistent_grid(
-                E, tile_config(d, k, mode, r, n, sb)["be"],
-                config_on_card(d, k, mode, r, n, sb)[0], n_sms)
+                E, tile_config(d, k, mode, r, n, sb, **rule)["be"],
+                config_on_card(d, k, mode, r, n, sb, **rule)[0], n_sms)
             self._plans[key] = (r, n, grid)
         return self._plans[key]
 
@@ -321,7 +338,7 @@ class GLSElementKernel(nn.Module):
             ptrs.append(due.data_ptr())
             pitch_bytes.append(4 * E)
         err = get_build().lib.gls_element_launch(
-            d, self.degree, mode, sb, ptrs[0],
+            d, self.degree, self.q1d, mode, sb, ptrs[0],
             ptrs[5] if due is not None else None, *ptrs[1:5],
             self.tables.data_ptr(), out.data_ptr(), E, pitch, self.nu,
             float(alpha0), float(sdt), *self._flags, probe[0], probe[1],
@@ -332,6 +349,6 @@ class GLSElementKernel(nn.Module):
                                f"error {err}")
         cls = GLSElementKernel
         cls.launches += 1
-        key = (d, self.degree, self.degree + 1, E,
+        key = (d, self.degree, self.q1d, E,
                MODES[mode] + ("_bf16" if sb == 2 else ""))
         cls.launches_by_shape[key] = cls.launches_by_shape.get(key, 0) + 1

@@ -1,16 +1,28 @@
-"""Geometric multigrid preconditioner on structured lattices
-(counterpart of the lattice branch of ``softx_2020_200_tpu.ops.multigrid``).
+"""Geometric multigrid preconditioner (counterpart of
+``softx_2020_200_tpu.ops.multigrid``).
 
-A cycle over a nested hierarchy of lattices:
+A cycle over a hierarchy of levels, built one of two ways:
+
+- a structured lattice halves (after a Q1 level on the same lattice for
+  degree > 1); the Newton state is injected, and every level runs the
+  lattice kernel;
+- a mesh in a forest (a Kelly-adapted leaf set, a multiblock or gmsh
+  base mesh) coarsens through the forest: the same Q1 p-level first,
+  then one forest level coarser at a time (every complete sibling family
+  merged, then rebalanced).  Transfers are FE interpolation through
+  base-cell reference coordinates, the Newton state is interpolated
+  (nodes are not nested under bisection), and each level carries its own
+  hanging-node constraints: its matvec is hc^T A hc, prolongation first
+  fills its constrained rows from their masters, restriction moves the
+  residual off them.  Every level runs the element kernel.
 
     smoother   : damped node-block Jacobi, or a few node-block-
                  preconditioned GMRES steps
     transfers  : FE interpolation (fine nodes evaluated in coarse cells,
                  host-precomputed masters/weights); restriction is its
-                 transpose; the Newton state is injected
+                 transpose, a gather-sum
     coarse ops : each level is a ``GLSOperator`` linearized at the
-                 injected state, so on a lattice every level runs the
-                 lattice kernel
+                 restricted state
     bottom     : GMRES(coarse_iters) preconditioned by block-Jacobi
                  (the outer Krylov is then FGMRES)
 
@@ -69,30 +81,53 @@ def _transfer_maps(fine_space, coarse_space):
 @dataclass
 class Level:
     """One level: its operator (a ``GLSOperator``, or in the GD
-    hierarchy a ``GDVelocityLevel``) and Dirichlet mask, and (below the
-    finest)
-    the transfers from the level above: ``masters``/``weights``
-    [N_above, nn] interpolate this level's nodes to the level above,
-    ``inject`` [N] picks this level's nodes out of the level above.
-    ``restrict_idx`` [N, M] (made here) lists, for each node of this
-    level, the slots of ``masters`` that name it: restriction is a gather
-    and a sum over them, in a fixed order on every device."""
+    hierarchy a ``GDVelocityLevel``), Dirichlet mask (hanging rows
+    included) and hanging-node constraints ``hc`` (None or empty where
+    the level is conforming), and (below the finest) the transfers from
+    the level above: ``masters``/``weights`` [N_above, nn] interpolate
+    this level's nodes to the level above; the Newton state comes down
+    by ``inject`` [N] (this level's nodes picked out of the level above,
+    on a lattice) or by interpolation through ``inj_masters``/
+    ``inj_weights`` [N, nn_above] (on a forest).  ``restrict_idx`` [N, M]
+    (made here) lists, for each node of this level, the slots of
+    ``masters`` that name it: restriction is a gather and a sum over
+    them, in a fixed order on every device."""
     op: object
     mask: torch.Tensor
     masters: torch.Tensor | None = None
     weights: torch.Tensor | None = None
     inject: torch.Tensor | None = None
     restrict_idx: torch.Tensor | None = None
+    inj_masters: torch.Tensor | None = None
+    inj_weights: torch.Tensor | None = None
+    hc: object = None
 
     def __post_init__(self):
         if self.masters is not None and self.restrict_idx is None:
             amap = build_assembly_map(self.masters.cpu().numpy(),
-                                      self.inject.shape[0])
+                                      self.mask.shape[0])
             self.restrict_idx = amap.idx.to(self.masters.device)
+
+    def down(self, x):
+        """A nodal state of the level above -> this level (injection or
+        interpolation)."""
+        if self.inject is not None:
+            return x[self.inject]
+        return torch.einsum("nm,nmc->nc", self.inj_weights,
+                            x[self.inj_masters])
+
+    def hc_distribute(self, u):
+        return u if self.hc is None else self.hc.distribute(u)
+
+    def hc_transpose(self, R):
+        return R if self.hc is None else self.hc.distribute_transpose(R)
 
 
 def prolong(level: Level, vc):
-    """This level's nodal field -> the level above, by interpolation."""
+    """This level's nodal field -> the level above, by interpolation
+    (its constrained rows, which the cycle keeps at zero, filled from
+    their masters first)."""
+    vc = level.hc_distribute(vc)
     return torch.einsum("fm,fmc->fc", level.weights, vc[level.masters])
 
 
@@ -100,8 +135,115 @@ def restrict(level: Level, rf):
     """A residual on the level above -> this level (the transpose of
     ``prolong``), as a gather-sum: no atomics, so the cycle adds in the
     same order on every run."""
-    return assemble(level.weights[:, :, None] * rf[:, None, :],
-                    level.restrict_idx)
+    return level.hc_transpose(assemble(
+        level.weights[:, :, None] * rf[:, None, :], level.restrict_idx))
+
+
+def _coarsen_forest(forest):
+    """One-level-coarser forest: merge every complete sibling family,
+    then re-balance (levels never exceed the input's anywhere)."""
+    from ..fem.forest import Forest
+    new = Forest.__new__(Forest)
+    new.base = forest.base
+    new.dim = forest.dim
+    new.leaves = [set(s) for s in forest.leaves]
+    new._adjacency = forest._adjacency
+    b_arr, lvl, idx = forest._leaf_arrays_only()
+    new.coarsen(np.column_stack([b_arr, lvl, idx]))
+    new.balance()
+    return new
+
+
+def forest_transfers(fine_space, fine_forest, fine_elem_of, coarse_space,
+                     coarse_forest, coarse_elem_of, device, dtype) -> dict:
+    """The transfers between two spaces on nested forests (or one forest
+    and two degrees), through base-cell reference coordinates: every fine
+    node located in the coarse forest (``masters``/``weights``, the
+    prolongation) and every coarse node in the fine forest
+    (``inj_masters``/``inj_weights``, the state's interpolation)."""
+    from ..fem.transfer import _new_node_base_positions, locate_in_forest
+    d = fine_space.dim
+    bc_f, bp_f = _new_node_base_positions(fine_space, fine_forest,
+                                          fine_elem_of)
+    elem_c, ref_c = locate_in_forest(bc_f, bp_f, coarse_forest,
+                                     coarse_elem_of, d)
+    bc_c, bp_c = _new_node_base_positions(coarse_space, coarse_forest,
+                                          coarse_elem_of)
+    elem_f, ref_f = locate_in_forest(bc_c, bp_c, fine_forest, fine_elem_of,
+                                     d)
+    kw = dict(dtype=dtype, device=device)
+
+    def idx(a):
+        return torch.as_tensor(a.astype(np.int64), device=device)
+
+    return dict(
+        masters=idx(coarse_space.elem_nodes[elem_c]),
+        weights=torch.as_tensor(
+            coarse_space.basis.tabulate_values(ref_c), **kw),
+        inj_masters=idx(fine_space.elem_nodes[elem_f]),
+        inj_weights=torch.as_tensor(
+            fine_space.basis.tabulate_values(ref_f), **kw))
+
+
+def hanging_level(space, nc_faces, bcs, device, dtype):
+    """(Dirichlet mask [N, d+1] with the hanging rows set, hanging
+    constraints) of a forest level on ``space``; the GD hierarchy keeps
+    the mask's velocity columns."""
+    from ..fem.constraints import build_hanging_constraints
+    from ..solvers.boundary import BoundaryHandler
+    hc = build_hanging_constraints(space, nc_faces).to(device, dtype)
+    mask = BoundaryHandler(space, bcs, dtype=dtype, device=device).mask
+    if hc.n:
+        mask = mask.clone()
+        mask[hc.ids] = True
+    return mask, hc
+
+
+def build_forest_hierarchy(solver, min_elems: int = 64) -> list[Level]:
+    """Levels through the solver's forest, finest first: the Q1 p-level
+    on the same forest mesh for degree > 1, then one forest level coarser
+    at a time while the level has more than ``min_elems`` cells and the
+    forest still coarsens (at most ``MAX_LEVELS``), each with its own
+    hanging constraints (see the module's note)."""
+    from ..solvers.gls import GLSOperator
+    kw = dict(dtype=solver.dtype, device=solver.device)
+    space, bcs = solver.space, solver.prm.boundary_conditions
+    d = space.dim
+    mask0 = solver.bh.mask
+    if solver.hc.n:
+        mask0 = mask0.clone()
+        mask0[solver.hc.ids] = True
+    levels = [Level(op=solver.op, mask=mask0, hc=solver.hc)]
+    cur_forest, cur_space, cur_elem_of = (solver.forest, space,
+                                          solver._elem_of)
+
+    def add_level(cspace, n_q1d, nc_faces, forest, elem_of):
+        # the coarse levels store the Jacobian state as the fine one does
+        cop = GLSOperator(cspace, solver.op.nu, n_q1d=n_q1d,
+                          stab=solver.op.stab,
+                          state_dtype=solver.op.state_dtype, **kw)
+        mask, hc = hanging_level(cspace, nc_faces, bcs, **kw)
+        levels.append(Level(op=cop, mask=mask, hc=hc, **forest_transfers(
+            cur_space, cur_forest, cur_elem_of, cspace, forest, elem_of,
+            **kw)))
+
+    if space.degree > 1:
+        # p-coarsening first: a Q1 level on the SAME forest mesh
+        cspace = FESpace(space.mesh, 1)
+        add_level(cspace, 2, solver._nc_faces, cur_forest, cur_elem_of)
+        cur_space = cspace
+    while len(levels) < MAX_LEVELS and cur_space.n_elements > min_elems:
+        cforest = _coarsen_forest(cur_forest)
+        if cforest.n_leaves() >= cur_forest.n_leaves():
+            break
+        cmesh, c_elem_of, c_ncf = cforest.build_mesh()
+        # the deck's periodic seams live on the fine mesh
+        cmesh.periodic = list(space.mesh.periodic)
+        cspace = FESpace(cmesh, cur_space.degree)
+        add_level(cspace, int(round(solver.op.n_q ** (1 / d))), c_ncf,
+                  cforest, c_elem_of)
+        cur_forest, cur_space, cur_elem_of = cforest, cspace, c_elem_of
+    return levels
 
 
 def build_hierarchy(solver, min_elems: int = 256) -> list[Level]:
@@ -110,8 +252,9 @@ def build_hierarchy(solver, min_elems: int = 256) -> list[Level]:
     A structured lattice coarsens in degree first (a Q1 level on the
     same lattice for degree > 1), then by halving the lattice while
     every axis is even and the coarse lattice keeps ``min_elems`` cells.
-    Any other mesh gets only its own level (the forest hierarchy is not
-    ported), and the solver then uses block-Jacobi."""
+    Any other mesh coarsens through the solver's forest when it has one
+    (``build_forest_hierarchy``); without one it gets only its own level,
+    and the solver then uses block-Jacobi."""
     from ..solvers.boundary import BoundaryHandler
     from ..solvers.gls import GLSOperator
     space = solver.space
@@ -119,6 +262,8 @@ def build_hierarchy(solver, min_elems: int = 256) -> list[Level]:
     levels = [Level(op=solver.op, mask=solver.bh.mask)]
     mesh = space.mesh
     if mesh.structured_shape is None:
+        if solver.forest is not None:
+            return build_forest_hierarchy(solver)
         return levels
     ne = tuple(mesh.structured_shape)
     lo = mesh.vertices.min(axis=0)
@@ -189,8 +334,9 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
 
     ``builder.state(u, uprev, fq, alpha0, sdt, fine_mask)`` returns the
     once-per-linearization state (per level: the operator's
-    linearization at the injected state, the Dirichlet mask and the
-    node-block inverses); pass it as ``pstate`` to reuse it.
+    linearization at the restricted state with its hanging rows filled,
+    the Dirichlet mask and the node-block inverses at the restricted
+    state, as in the JAX package); pass it as ``pstate`` to reuse it.
     """
     n_levels = len(levels)
 
@@ -200,11 +346,12 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
         for li, lvl in enumerate(levels):
             op = lvl.op
             if li > 0:
-                ul, upl = ul[lvl.inject], upl[lvl.inject]
+                ul, upl = lvl.down(ul), lvl.down(upl)
                 fql = u.new_zeros((op.space.n_elements, op.n_q, op.dim))
                 mask = lvl.mask
             blocks = op.node_blocks(ul, mask, upl, fql, alpha0, sdt)
-            states.append((op.linearize(ul, upl, fql, alpha0, sdt), mask,
+            states.append((op.linearize(lvl.hc_distribute(ul), upl, fql,
+                                        alpha0, sdt), mask,
                            node_blocks_to_state("block_jacobi", blocks,
                                                 mask)))
         return states
@@ -214,10 +361,11 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
             pstate = build_state(u, uprev, fq, alpha0, sdt, fine_mask)
         mats = []
         for lvl, (lin, mask, bst) in zip(levels, pstate):
-            def matvec(v, op=lvl.op, lin=lin, mask=mask):
+            def matvec(v, lvl=lvl, lin=lin, mask=mask):
                 zero = torch.zeros_like(v)
-                return (torch.where(mask, zero,
-                                    op.jvp(lin, torch.where(mask, zero, v)))
+                dv = lvl.hc_distribute(torch.where(mask, zero, v))
+                dr = lvl.hc_transpose(lvl.op.jvp(lin, dv))
+                return (torch.where(mask, zero, dr)
                         + torch.where(mask, v, zero))
 
             mats.append((matvec, lambda v, bst=bst:

@@ -19,9 +19,18 @@ for the rest of that solve and restored once for the next (see
 the kernel's tangent once per Newton iteration (``GLSOperator.
 element_matrices``).
 
+``mesh adaptation type = kelly`` puts the mesh in a forest
+(``fem/forest.py``, on a generated or a gmsh base mesh): the deck's
+initial refinement happens inside it, hanging nodes are constrained
+(``fem/constraints.py``), GMG coarsens through the forest
+(``ops/multigrid.py``), and ``refine_mesh_kelly`` estimates, flags,
+refines, coarsens and balances on the host, rebuilds the operator and
+carries the solution and the BDF history across (``fem/transfer.py``):
+after every ``frequency``-th time step, or between steady cycles.
+
 A checkpoint is the JAX package's ``.npz`` with the same keys (control,
-pvd, n_nodes, degree, u, previous), so a run of either package continues
-in the other.
+pvd, n_nodes, degree, u, previous, and on a forest its leaves and base
+mesh), so a run of either package continues in the other.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ import dataclasses
 import json
 import os
 import time as _time
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -44,8 +54,10 @@ from ..core.simulation_control import SimulationControl
 from ..core.timer import SectionTimer
 from ..fem.constraints import build_hanging_constraints
 from ..fem.dof import FESpace
+from ..fem.forest import Forest
 from ..fem.geometry import det_and_inv
 from ..fem.mesh import Manifold, Mesh, generate_mesh
+from ..fem.transfer import transfer_solution
 from ..ops.linalg import HostSync, gmres
 from ..ops.multigrid import build_hierarchy, make_vcycle
 from ..ops.operators import assemble
@@ -59,14 +71,9 @@ from . import postprocessing as post
 from .analytical import l2_error
 from .boundary import BoundaryHandler
 from .gls import GLSOperator, StabFlags
+from .kelly import flag_cells, kelly_estimate
 from .newton import (NewtonConfig, NewtonResult, line_search,
                      linear_solve, newton_solve)
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet "
-        f"(ROADMAP.md {item})")
 
 
 def checkpoint_path(prm: SimulationParameters) -> str:
@@ -85,12 +92,114 @@ def write_npz_atomic(path: str, **arrays) -> None:
 
 
 def load_checkpoint(path: str):
-    """The arrays of ``path + ".npz"`` (no pickles).  A checkpoint of an
-    adapted forest is refused: forests are not ported."""
-    data = np.load(path + ".npz", allow_pickle=False)
-    if "forest_leaves" in data:
-        raise _not_ported("a checkpoint of an adapted forest", "A8, D5")
-    return data
+    """The arrays of ``path + ".npz"`` (no pickles)."""
+    return np.load(path + ".npz", allow_pickle=False)
+
+
+# ----------------------------------------------------------------------
+# the forest, shared by the GLS and GD engines
+# ----------------------------------------------------------------------
+def read_base_mesh(prm: SimulationParameters, dim: int,
+                   initial_refinement: int) -> Mesh:
+    """The deck's mesh: a gmsh file (``mesh type = gmsh``, ``file name``
+    relative to the working directory) or a generated grid, refined
+    uniformly ``initial_refinement`` times."""
+    if prm.mesh.type == "gmsh":
+        from ..fem.gmsh_io import read_msh
+        m = read_msh(prm.mesh.file_name, dim)
+        return m.refine_uniform(initial_refinement) \
+            if initial_refinement else m
+    return generate_mesh(prm.mesh.grid_type, prm.mesh.grid_arguments,
+                         dim=dim, initial_refinement=initial_refinement)
+
+
+def add_manifolds(prm: SimulationParameters, mesh: Mesh, dim: int) -> None:
+    """The deck's manifolds on ``mesh``'s boundary ids."""
+    for m in prm.manifolds.manifolds:
+        center = np.array([float(x) for x in m.arg.replace(",", " ").split()]
+                          or [0.0] * dim)
+        mesh.boundary_manifolds[m.id] = Manifold(m.type, center)
+
+
+def add_periodic_pairs(prm: SimulationParameters, mesh: Mesh) -> None:
+    """The deck's periodic boundary pairs on ``mesh`` (before DoF
+    numbering, and on a forest's base mesh before its adjacency)."""
+    for bc in prm.boundary_conditions.bcs:
+        if bc.type == BoundaryType.periodic:
+            pair = (bc.id, bc.periodic_id, bc.periodic_direction)
+            if pair not in mesh.periodic:
+                mesh.periodic.append(pair)
+
+
+def new_forest(base: Mesh, initial_refinement: int):
+    """A forest on ``base`` refined uniformly ``initial_refinement``
+    times, and its mesh: (forest, mesh, elem_of, nc_faces)."""
+    forest = Forest(base)
+    for _ in range(initial_refinement):
+        forest.refine(np.column_stack(forest._leaf_arrays_only()))
+    return (forest,) + tuple(forest.build_mesh())
+
+
+def snapshot_forest(forest):
+    """A copy of ``forest``'s leaf sets (base mesh and adjacency shared),
+    to transfer fields from after ``forest`` changes."""
+    snap = Forest.__new__(Forest)
+    snap.base = forest.base
+    snap.dim = forest.dim
+    snap.leaves = [set(s) for s in forest.leaves]
+    snap._adjacency = forest._adjacency
+    return snap
+
+
+def adapt_forest(forest, eta: np.ndarray, ma, dim: int) -> None:
+    """Flag by ``eta`` (``flag_cells`` with the deck's fractions), clamp
+    to the deck's refinement levels and element budget (the cells of
+    largest eta first), then coarsen, refine and balance ``forest``."""
+    refine_mask, coarsen_mask = flag_cells(
+        eta, fraction_type=ma.fraction_type,
+        refine_fraction=ma.fraction_refinement,
+        coarsen_fraction=ma.fraction_coarsening)
+    b_arr, lvl_arr, idx_arr = forest._leaf_arrays_only()
+    E = len(b_arr)
+    ref_idx = np.where(refine_mask & (lvl_arr < ma.max_refinement_level))[0]
+    budget = (ma.max_number_elements - E) // (2 ** dim - 1)
+    if budget < len(ref_idx):
+        sel = np.argsort(-eta[ref_idx], kind="stable")
+        ref_idx = ref_idx[sel[:max(0, budget)]]
+    coa_idx = np.where(coarsen_mask & (lvl_arr > ma.min_refinement_level))[0]
+    rows = np.column_stack([b_arr, lvl_arr, idx_arr])
+    forest.coarsen(rows[coa_idx])
+    forest.refine(rows[ref_idx])
+    forest.balance()
+
+
+def forest_checkpoint(forest) -> dict:
+    """The forest's part of a checkpoint: every leaf as a row (base cell,
+    level, index...), and the base mesh it must be restored on."""
+    rows = [(b,) + leaf for b, leafset in enumerate(forest.leaves)
+            for leaf in sorted(leafset)]
+    return {"forest_leaves": np.asarray(rows, np.int64),
+            "base_vertices": forest.base.vertices,
+            "base_cells": forest.base.cells}
+
+
+def restore_forest(forest, data):
+    """Set ``forest``'s leaves from a checkpoint's ``data`` and return its
+    (mesh, elem_of, nc_faces); the checkpoint's base mesh must be the
+    deck's."""
+    if forest is None:
+        raise ValueError("checkpoint holds an adapted forest but the deck "
+                         "does not enable kelly adaptation")
+    base = forest.base
+    if (data["base_vertices"].shape != base.vertices.shape
+            or not np.allclose(data["base_vertices"], base.vertices)
+            or not np.array_equal(data["base_cells"], base.cells)):
+        raise ValueError("checkpoint base mesh does not match the deck's")
+    leaves = [set() for _ in range(base.n_cells)]
+    for row in data["forest_leaves"]:
+        leaves[int(row[0])].add(tuple(int(x) for x in row[1:]))
+    forest.leaves = leaves
+    return forest.build_mesh()
 
 
 def new_stats() -> dict:
@@ -132,7 +241,6 @@ class GLSNavierStokesSolver:
             # f32 means f32: no TF32 in any matrix product
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        self._check_supported()
         self.pvd = PVDHandler()
         self.control = SimulationControl(prm.simulation_control)
         self.timer = SectionTimer()
@@ -142,40 +250,37 @@ class GLSNavierStokesSolver:
         self._torque_tables: dict[int, Table] = {}
         self.stats = new_stats()
         self._mesh = mesh
+        self.forest = None
+        self._elem_of = None
         self.setup()
 
     # ------------------------------------------------------------------
-    def _check_supported(self) -> None:
-        prm = self.prm
-        if prm.mesh_adaptation.type == "kelly" or prm.mesh.type == "gmsh":
-            raise _not_ported("Kelly adaptation, forests and gmsh meshes",
-                              "A8, D5")
-
-    def setup(self, mesh: Mesh | None = None) -> None:
-        """read_mesh + setup_dofs + operator/BC construction."""
+    def setup(self, mesh: Mesh | None = None, nc_faces=None) -> None:
+        """read_mesh + setup_dofs + operator/BC construction.  With Kelly
+        adaptation the first call puts the base mesh (with its manifolds
+        and periodic pairs) in a forest and refines it there; a later
+        call takes the adapted forest's mesh and non-conforming faces."""
         prm = self.prm
         if mesh is not None:
             self._mesh = mesh
         if self._mesh is None:
-            self._mesh = generate_mesh(
-                prm.mesh.grid_type, prm.mesh.grid_arguments, dim=self.dim,
-                initial_refinement=prm.mesh.initial_refinement)
-            for m in prm.manifolds.manifolds:
-                center = np.array([float(x) for x in
-                                   m.arg.replace(",", " ").split()]
-                                  or [0.0] * self.dim)
-                self._mesh.boundary_manifolds[m.id] = Manifold(m.type,
-                                                               center)
+            if prm.mesh_adaptation.type == "kelly":
+                base = read_base_mesh(prm, self.dim, 0)
+                add_manifolds(prm, base, self.dim)
+                add_periodic_pairs(prm, base)
+                self.forest, self._mesh, self._elem_of, nc_faces = \
+                    new_forest(base, prm.mesh.initial_refinement)
+            else:
+                self._mesh = read_base_mesh(prm, self.dim,
+                                            prm.mesh.initial_refinement)
+                add_manifolds(prm, self._mesh, self.dim)
         # periodic declarations reach the mesh before DoF numbering
-        for bc in prm.boundary_conditions.bcs:
-            if bc.type == BoundaryType.periodic:
-                pair = (bc.id, bc.periodic_id, bc.periodic_direction)
-                if pair not in self._mesh.periodic:
-                    self._mesh.periodic.append(pair)
+        add_periodic_pairs(prm, self._mesh)
 
         kw = dict(dtype=self.dtype, device=self.device)
         self.space = FESpace(self._mesh, prm.fem.velocity_order)
-        self.hc = build_hanging_constraints(self.space, []).to(
+        self._nc_faces = nc_faces or []
+        self.hc = build_hanging_constraints(self.space, self._nc_faces).to(
             self.device, self.dtype)
         stab = StabFlags(
             supg=prm.stabilization.supg,
@@ -671,6 +776,14 @@ class GLSNavierStokesSolver:
                         u, previous, t, ctrl.dts(), order, verbose=verbose)
             previous = [u] + previous[:2]
             self._after_step(u, t)
+            ma = prm.mesh_adaptation
+            if (ma.type == "kelly" and ma.frequency > 0
+                    and ctrl.iteration % ma.frequency == 0):
+                # the solution and the BDF history move to the new mesh
+                fields = self.refine_mesh_kelly([u] + previous)
+                u, previous = fields[0], list(fields[1:])
+            # the checkpoint comes after the adaptation, so that a restart
+            # resumes on the adapted forest
             self._checkpoint_after(u, previous)
             if on_step is not None:
                 on_step(self, u, t)
@@ -683,24 +796,29 @@ class GLSNavierStokesSolver:
         return u
 
     def solve(self, on_cycle=None):
-        """Full orchestration: steady mesh-adaptation cycles (uniform or
-        none), each cycle a solve + L2-error table row; transient decks
-        delegate to ``run_transient``.  Returns the final solution."""
+        """Full orchestration: steady mesh-adaptation cycles (Kelly,
+        uniform or none), each cycle a solve + L2-error table row, a
+        Kelly cycle starting from the transferred solution; transient
+        decks delegate to ``run_transient``.  Returns the final
+        solution."""
         prm = self.prm
         if not self.control.is_steady():
             return self.run_transient(on_step=on_cycle)
         n_cycles = prm.simulation_control.number_mesh_adaptation + 1
         u = None
         for cycle in range(n_cycles):
+            u0 = None
             if cycle > 0:
-                if prm.mesh_adaptation.type in ("uniform", "none"):
+                if prm.mesh_adaptation.type == "kelly":
+                    u0 = self.refine_mesh_kelly([u])[0]
+                elif prm.mesh_adaptation.type in ("uniform", "none"):
                     self.setup(self._mesh.refine_uniform(1))
                 else:
                     raise ValueError(
                         f"unknown adaptation type "
                         f"{prm.mesh_adaptation.type!r}")
             with self.timer.section("solve"):
-                u, _ = self.solve_steady()
+                u, _ = self.solve_steady(u0=u0)
             if self.exact is not None:
                 ev, ep = self.l2_errors(u)
                 self.tables["L2"].append(
@@ -728,6 +846,43 @@ class GLSNavierStokesSolver:
         if prm.timer.type == "end":
             print(self.timer.report())
         return u
+
+    # ------------------------------------------------------------------
+    # adaptive mesh refinement
+    # ------------------------------------------------------------------
+    def refine_mesh_kelly(self, fields: list):
+        """Kelly estimate -> flag -> forest coarsen/refine/balance ->
+        rebuild the space and operator -> transfer every field (the
+        solution and the BDF history, [N, c*] tensors on the current
+        space).  The estimate runs on the host in NumPy from one copy of
+        u, as in the JAX package.  Returns the fields on the new space."""
+        if self.forest is None:
+            raise ValueError("kelly adaptation requires the forest path "
+                             "(set mesh adaptation type = kelly)")
+        ma = self.prm.mesh_adaptation
+        view = SimpleNamespace(space=self.space, dim=self.dim,
+                               xe=self.space.element_coords(),
+                               elem_nodes=self.space.elem_nodes)
+        with self.timer.section("kelly_estimate"):
+            eta = kelly_estimate(view, fields[0].detach().cpu().numpy(),
+                                 variable=ma.variable,
+                                 nc_faces=self._nc_faces)
+        E = self.space.n_elements
+        old_space, old_elem_of = self.space, self._elem_of
+        snap = snapshot_forest(self.forest)
+        with self.timer.section("refine"):
+            adapt_forest(self.forest, eta, ma, self.dim)
+            mesh, self._elem_of, ncf = self.forest.build_mesh()
+        with self.timer.section("setup"):
+            self.setup(mesh=mesh, nc_faces=ncf)
+        with self.timer.section("transfer"):
+            out = transfer_solution(old_space, snap, old_elem_of,
+                                    self.space, self.forest, self._elem_of,
+                                    fields)
+        if not self.prm.test.enable:
+            print(f"Mesh adaptation: {E} -> {self.space.n_elements} "
+                  f"cells, {self.space.n_dofs(self.dim + 1)} dofs")
+        return out
 
     # ------------------------------------------------------------------
     # postprocessing
@@ -883,8 +1038,10 @@ class GLSNavierStokesSolver:
     def write_checkpoint(self, u, previous) -> None:
         """The JAX package's checkpoint: ``<output path>/<filename>.npz``
         with the control and PVD state as JSON, the space's size and
-        degree, u and the BDF history (newest first) in the run's dtype;
-        written atomically."""
+        degree, u and the BDF history (newest first) in the run's dtype,
+        and on a forest its leaves and base mesh; written atomically."""
+        extras = ({} if self.forest is None
+                  else forest_checkpoint(self.forest))
         with self.timer.section("checkpoint"):
             write_npz_atomic(
                 checkpoint_path(self.prm),
@@ -893,13 +1050,17 @@ class GLSNavierStokesSolver:
                 n_nodes=self.space.n_nodes, degree=self.space.degree,
                 u=u.detach().cpu().numpy(),
                 previous=np.stack([p.detach().cpu().numpy()
-                                   for p in previous]))
+                                   for p in previous]), **extras)
 
     def read_checkpoint(self):
-        """Restore the control and PVD state; returns (u, previous) in
-        the run's dtype and device, from a checkpoint of either package
-        (float32 or float64)."""
+        """Restore the control and PVD state, and a checkpointed forest
+        (the mesh and operator are rebuilt on it); returns (u, previous)
+        in the run's dtype and device, from a checkpoint of either
+        package (float32 or float64)."""
         data = load_checkpoint(checkpoint_path(self.prm))
+        if "forest_leaves" in data:
+            mesh, self._elem_of, ncf = restore_forest(self.forest, data)
+            self.setup(mesh=mesh, nc_faces=ncf)
         if (int(data["n_nodes"]) != self.space.n_nodes
                 or int(data["degree"]) != self.space.degree):
             raise ValueError("checkpoint does not match current mesh/space")

@@ -24,8 +24,16 @@ iteration and ``jvp`` applies J dx.
 
 Time stepping is BDF1-3 or SDIRK2/3 (the stages through the velocity
 history only); a checkpoint is the JAX package's ``.npz`` (u, previous,
-control, pvd, n_dofs), read by either package.  As in the JAX GD engine,
-``solver = pseudo_transient`` is ignored: a steady solve is Newton.
+control, pvd, n_dofs, and on a forest its leaves and base mesh), read by
+either package.  As in the JAX GD engine, ``solver = pseudo_transient``
+is ignored: a steady solve is Newton.
+
+``mesh adaptation type = kelly`` puts the mesh in a forest, as in the
+GLS engine (``solvers/base.py``): both spaces carry hanging-node
+constraints, the velocity-block GMG coarsens through the forest, and
+Kelly on the velocity (an equal-order view of the velocity space)
+adapts between steady cycles or after every ``frequency``-th step,
+carrying the mixed state and its history across.
 """
 
 from __future__ import annotations
@@ -36,6 +44,7 @@ import math
 import os
 import time as _time
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -48,9 +57,11 @@ from ..core.pvd_handler import PVDHandler
 from ..core.sdirk import sdirk_coefficients
 from ..core.simulation_control import SimulationControl
 from ..core.timer import SectionTimer
+from ..fem.constraints import build_hanging_constraints
 from ..fem.dof import FESpace
 from ..fem.geometry import det_and_inv
-from ..fem.mesh import Mesh, generate_mesh
+from ..fem.mesh import Mesh
+from ..fem.transfer import transfer_solution
 from ..ops.batched_kernel import _det_inv_soa
 from ..ops.gd_multigrid import (GDVelocityLevel, build_gd_hierarchy,
                                 make_gd_vcycle)
@@ -62,9 +73,12 @@ from ..ops.structured import StructuredLayout
 from ..utils.tables import Table
 from ..utils.vtu import subcell_connectivity, write_vtu
 from . import postprocessing as post
-from .base import (_not_ported, checkpoint_path, load_checkpoint,
-                   new_stats, record_solve, write_npz_atomic)
+from .base import (adapt_forest, add_periodic_pairs, checkpoint_path,
+                   forest_checkpoint, load_checkpoint, new_forest,
+                   new_stats, read_base_mesh, record_solve, restore_forest,
+                   snapshot_forest, write_npz_atomic)
 from .boundary import BoundaryHandler
+from .kelly import kelly_estimate
 from .newton import NewtonConfig, newton_solve
 
 
@@ -370,28 +384,31 @@ class GDNavierStokesSolver:
             # f32 means f32: no TF32 in any matrix product
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
-        sc = prm.simulation_control
-        if prm.mesh_adaptation.type == "kelly" or prm.mesh.type == "gmsh":
-            raise _not_ported("Kelly adaptation, forests and gmsh meshes",
-                              "A8, D5")
-        self.control = SimulationControl(sc)
+        self.control = SimulationControl(prm.simulation_control)
         self.pvd = PVDHandler()
         self.timer = SectionTimer()
         self._force_tables: dict[int, Table] = {}
         self._torque_tables: dict[int, Table] = {}
         self.tables: dict[str, list] = {"ke": [], "enstrophy": []}
         self.stats = new_stats()
+        self.forest = None
+        self._elem_of = None
+        self._nc_faces = []
         if mesh is None:
-            mesh = generate_mesh(prm.mesh.grid_type, prm.mesh.grid_arguments,
-                                 dim=self.dim,
-                                 initial_refinement=prm.mesh.initial_refinement)
+            if prm.mesh_adaptation.type == "kelly":
+                # the forest owns refinement (as in the GLS engine; the GD
+                # engine's deck manifolds are not applied, as in the JAX
+                # package)
+                base = read_base_mesh(prm, self.dim, 0)
+                add_periodic_pairs(prm, base)
+                self.forest, mesh, self._elem_of, self._nc_faces = \
+                    new_forest(base, prm.mesh.initial_refinement)
+            else:
+                mesh = read_base_mesh(prm, self.dim,
+                                      prm.mesh.initial_refinement)
         # periodic declarations reach the mesh before the two FE spaces
         # are numbered
-        for bc in prm.boundary_conditions.bcs:
-            if bc.type == BoundaryType.periodic:
-                pair = (bc.id, bc.periodic_id, bc.periodic_direction)
-                if pair not in mesh.periodic:
-                    mesh.periodic.append(pair)
+        add_periodic_pairs(prm, mesh)
         self._mesh = mesh
         self.exact = (VectorExpression(prm.analytical_solution.uvwp)
                       if prm.analytical_solution.enable else None)
@@ -416,23 +433,34 @@ class GDNavierStokesSolver:
         self.setup()
 
     # ------------------------------------------------------------------
-    def setup(self, mesh: Mesh | None = None) -> None:
-        """(Re)build spaces, operator, boundary mask and preconditioner
-        on the current or a given mesh."""
+    def setup(self, mesh: Mesh | None = None, nc_faces=None) -> None:
+        """(Re)build spaces, operator, boundary mask, hanging-node
+        constraints (on both spaces) and preconditioner on the current or
+        a given mesh (an adapted forest's, with its non-conforming
+        faces)."""
         prm = self.prm
         if mesh is not None:
             self._mesh = mesh
+        if nc_faces is not None:
+            self._nc_faces = nc_faces
         kw = dict(dtype=self.dtype, device=self.device)
         self.op = op = GDOperator(
             self._mesh, degree_pressure=prm.fem.pressure_order,
             nu=prm.physical_properties.kinematic_viscosity,
             gamma=prm.stabilization.gamma, **kw)
         self.bh = BoundaryHandler(op.space_v, prm.boundary_conditions, **kw)
+        self.hc_v = build_hanging_constraints(
+            op.space_v, self._nc_faces).to(self.device, self.dtype)
+        self.hc_p = build_hanging_constraints(
+            op.space_p, self._nc_faces).to(self.device, self.dtype)
         d = self.dim
-        # flat Dirichlet mask over [Nv*d + Np]
-        self._mask = torch.cat([
-            self.bh.mask[:, :d].reshape(-1),
-            torch.zeros(op.Np, dtype=torch.bool, device=self.device)])
+        # flat Dirichlet mask over [Nv*d + Np]; hanging rows act like
+        # extra Dirichlet rows for masking and preconditioning
+        mask_v = self.bh.mask[:, :d].clone()
+        mask_v[self.hc_v.ids] = True
+        mask_p = torch.zeros(op.Np, dtype=torch.bool, device=self.device)
+        mask_p[self.hc_p.ids] = True
+        self._mask = torch.cat([mask_v.reshape(-1), mask_p])
         self._mp = op.pressure_lumped_mass()
         self._zero_prev = torch.zeros((op.Nv, d), **kw)
         # velocity-block GMG: the GD analogue of the reference
@@ -457,6 +485,20 @@ class GDNavierStokesSolver:
             print(f"linear solver: preconditioner 'auto' resolves to {what}")
 
     # ------------------------------------------------------------------
+    def _hc_distribute(self, x):
+        if self.hc_v.n == 0 and self.hc_p.n == 0:
+            return x
+        v, p = self.op.split(x)
+        return self.op.join(self.hc_v.distribute(v),
+                            self.hc_p.distribute(p[:, None])[:, 0])
+
+    def _hc_transpose(self, R):
+        if self.hc_v.n == 0 and self.hc_p.n == 0:
+            return R
+        v, p = self.op.split(R)
+        return self.op.join(self.hc_v.distribute_transpose(v),
+                            self.hc_p.distribute_transpose(p[:, None])[:, 0])
+
     def _bc_values_flat(self, t):
         vals = self.bh.values(t)[:, :self.dim]
         return torch.cat([vals.reshape(-1), vals.new_zeros(self.op.Np)])
@@ -476,12 +518,12 @@ class GDNavierStokesSolver:
         velocity block: with GMG one V-cycle on rv - B^T zp, else
         node-block Jacobi on rv."""
         op, d = self.op, self.dim
-        mask_v = self.bh.mask[:, :d]
+        mask_v = self._mask[:op.Nv * d].reshape(op.Nv, d)
         schur_scale = -(op.nu + op.gamma)
         eye = torch.eye(d, dtype=self.dtype, device=self.device)
 
         def gmg(x):
-            v_lin, _ = op.split(x)
+            v_lin, _ = op.split(self._hc_distribute(x))
             vcycle = self._mg_builder(v_lin, alpha0)
             lv0 = self.mg_levels[0].op
 
@@ -523,17 +565,20 @@ class GDNavierStokesSolver:
         t0 = _time.perf_counter()
         op, mask = self.op, self._mask
         x0 = torch.where(mask, self._bc_values_flat(t), x0)
+        x0 = self._hc_distribute(x0)
         fq = self._source_q(t)
 
         def residual(x):
-            R = op.residual_free(x, combo, fq, alpha0)
+            R = op.residual_free(self._hc_distribute(x), combo, fq, alpha0)
+            R = self._hc_transpose(R)
             return torch.where(mask, torch.zeros_like(R), R)
 
         def jacobian(x):
-            state = op.linearize(x, combo, fq, alpha0)
+            state = op.linearize(self._hc_distribute(x), combo, fq, alpha0)
 
             def matvec(v):
-                dR = op.jvp(state, v)
+                dR = self._hc_transpose(op.jvp(state,
+                                               self._hc_distribute(v)))
                 return torch.where(mask, torch.zeros_like(dR), dR)
 
             return matvec
@@ -542,6 +587,8 @@ class GDNavierStokesSolver:
             residual, jacobian, x0,
             precond_builder=self._precond_builder(alpha0),
             config=self.newton_cfg)
+        if self.hc_v.n or self.hc_p.n:
+            res = res._replace(u=self._hc_distribute(res.u))
         record_solve(self.stats, res, _time.perf_counter() - t0,
                      self.newton_cfg.tolerance)
         return res
@@ -599,7 +646,8 @@ class GDNavierStokesSolver:
 
     # ------------------------------------------------------------------
     def solve(self, on_step=None):
-        """Steady cycles (uniform refinement between them) or the
+        """Steady cycles (Kelly or uniform refinement between them, a
+        Kelly cycle starting from the transferred solution) or the
         transient loop.  Returns the final solution."""
         prm = self.prm
         if not self.control.is_steady():
@@ -607,9 +655,13 @@ class GDNavierStokesSolver:
         x = None
         for cycle in range(prm.simulation_control.number_mesh_adaptation
                            + 1):
+            x0 = None
             if cycle > 0:
-                self.setup(self._mesh.refine_uniform(1))
-            x, _ = self.solve_steady()
+                if prm.mesh_adaptation.type == "kelly":
+                    x0 = self.refine_mesh_kelly([x])[0]
+                else:
+                    self.setup(self._mesh.refine_uniform(1))
+            x, _ = self.solve_steady(x0=x0)
             if self.exact is not None:
                 ev, ep = self.l2_errors(x)
                 prec = prm.simulation_control.log_precision
@@ -679,6 +731,14 @@ class GDNavierStokesSolver:
                     print(f"L2 error velocity : {ev:.{prec}e}")
             if ctrl.is_output_iteration():
                 self.write_output(x, t)
+            ma = prm.mesh_adaptation
+            if (ma.type == "kelly" and ma.frequency > 0
+                    and ctrl.iteration % ma.frequency == 0):
+                # the solution and the BDF history move to the new mesh
+                fields = self.refine_mesh_kelly([x] + previous)
+                x, previous = fields[0], list(fields[1:])
+            # the checkpoint comes after the adaptation, as in the GLS
+            # engine
             if (prm.restart.checkpoint
                     and ctrl.iteration % prm.restart.frequency == 0):
                 self.write_checkpoint(x, previous)
@@ -688,6 +748,45 @@ class GDNavierStokesSolver:
         if prm.timer.type == "end":
             print(self.timer.report())
         return x
+
+    # ------------------------------------------------------------------
+    def refine_mesh_kelly(self, fields: list):
+        """Kelly estimate on the velocity (through an equal-order view of
+        the velocity space) -> flag -> forest coarsen/refine/balance ->
+        rebuild both spaces -> transfer every flat mixed field, its
+        velocity and pressure each on its own space."""
+        if self.forest is None:
+            raise ValueError("kelly adaptation requires the forest path "
+                             "(set mesh adaptation type = kelly)")
+        ma = self.prm.mesh_adaptation
+        op = self.op
+        view = SimpleNamespace(space=op.space_v, dim=self.dim,
+                               xe=op.space_v.element_coords(),
+                               elem_nodes=op.space_v.elem_nodes)
+        v0, _ = op.split(fields[0])
+        eta = kelly_estimate(view, v0.detach().cpu().numpy(),
+                             variable="velocity", nc_faces=self._nc_faces)
+        E = op.space_v.mesh.n_cells
+        old_sv, old_sp = op.space_v, op.space_p
+        old_elem_of = self._elem_of
+        snap = snapshot_forest(self.forest)
+        adapt_forest(self.forest, eta, ma, self.dim)
+        mesh, self._elem_of, ncf = self.forest.build_mesh()
+        self.setup(mesh=mesh, nc_faces=ncf)
+        out = []
+        nsv, nsp = self.op.space_v, self.op.space_p
+        for f in fields:
+            v, p = op.split(f)
+            (vn,) = transfer_solution(old_sv, snap, old_elem_of, nsv,
+                                      self.forest, self._elem_of, [v])
+            (pn,) = transfer_solution(old_sp, snap, old_elem_of, nsp,
+                                      self.forest, self._elem_of,
+                                      [p[:, None]])
+            out.append(self.op.join(vn, pn[:, 0]))
+        if not self.prm.test.enable:
+            print(f"Mesh adaptation: {E} -> {self.op.space_v.mesh.n_cells}"
+                  f" cells, {self.op.n_dofs} dofs")
+        return out
 
     # ------------------------------------------------------------------
     def _pin_pressure(self, x):
@@ -805,18 +904,26 @@ class GDNavierStokesSolver:
     # ------------------------------------------------------------------
     def write_checkpoint(self, x, previous) -> None:
         """The JAX GD engine's checkpoint: u and the history (newest
-        first) in the run's dtype, the control and PVD state as JSON and
-        the DoF count; written atomically."""
+        first) in the run's dtype, the control and PVD state as JSON, the
+        DoF count and on a forest its leaves and base mesh; written
+        atomically."""
+        extras = ({} if self.forest is None
+                  else forest_checkpoint(self.forest))
         write_npz_atomic(
             checkpoint_path(self.prm), u=x.detach().cpu().numpy(),
             previous=np.stack([p.detach().cpu().numpy() for p in previous]),
             control=json.dumps(self.control.serialize()),
-            pvd=json.dumps(self.pvd.serialize()), n_dofs=self.op.n_dofs)
+            pvd=json.dumps(self.pvd.serialize()), n_dofs=self.op.n_dofs,
+            **extras)
 
     def read_checkpoint(self):
-        """Restore the control and PVD state; returns (x, previous) in the
-        run's dtype and device, from a checkpoint of either package."""
+        """Restore the control and PVD state, and a checkpointed forest
+        (both spaces rebuilt on it); returns (x, previous) in the run's
+        dtype and device, from a checkpoint of either package."""
         data = load_checkpoint(checkpoint_path(self.prm))
+        if "forest_leaves" in data:
+            mesh, self._elem_of, ncf = restore_forest(self.forest, data)
+            self.setup(mesh=mesh, nc_faces=ncf)
         if int(data["n_dofs"]) != self.op.n_dofs:
             raise ValueError("checkpoint does not match current mesh")
         self.control.deserialize(json.loads(str(data["control"])))

@@ -1,11 +1,11 @@
 """The PyTorch package's CLI on the CPU in float64.
 
 It reproduces the JAX package's golden outputs under the same numeric
-diff (``tests/test_golden_apps.py::numdiff``, rtol 2e-3), prints what the
-JAX package's CLI prints on decks with SDIRK, pseudo-transient
-continuation, checkpoints and additive Schwarz, refuses what it cannot
-do (Kelly adaptation and forests) instead of doing something else, and
-says so.
+diff (``tests/test_golden_apps.py::numdiff``, rtol 2e-3), the Kelly
+deck's among them, and prints what the JAX package's CLI prints on
+decks with SDIRK, pseudo-transient continuation, checkpoints, additive
+Schwarz and Kelly adaptation; a checkpoint of an adapted forest
+restarts in either package.
 """
 
 import contextlib
@@ -31,7 +31,8 @@ def _run(dim, argv, tmp_path, monkeypatch, solver="gls"):
     return buf.getvalue()
 
 
-@pytest.mark.parametrize("name", ["couette_gls", "mms_bdf2", "periodic_gls"])
+@pytest.mark.parametrize("name", ["couette_gls", "mms_bdf2", "periodic_gls",
+                                  "kelly_steady"])
 def test_cli_reproduces_golden_output(name, tmp_path, monkeypatch):
     deck = os.path.join(GOLDEN_DIR, name + ".prm")
     out = _run(2, [deck, "--device", "cpu", "--dtype", "float64"],
@@ -188,40 +189,123 @@ _KELLY = ("subsection test\n", "subsection mesh adaptation\n  set type = "
           "kelly\nend\nsubsection test\n")
 
 
-@pytest.mark.parametrize("old,new,match", [_KELLY + ("A8, D5",)],
-                         ids=["kelly"])
-def test_cli_refuses_what_is_not_ported(old, new, match, tmp_path,
-                                        monkeypatch):
-    text = _golden("couette_gls")
-    assert text.count(old) == 1
-    deck = _write(tmp_path, "deck.prm", text.replace(old, new))
-    with pytest.raises(NotImplementedError, match=match):
-        _run(2, [deck, "--device", "cpu"], tmp_path, monkeypatch)
+# tests/test_gd_solver.py::test_gd_kelly_steady_cycles's deck: Poiseuille
+# flow, which Q2-Q1 holds exactly on any mesh
+_GD_POISEUILLE_KELLY = """
+subsection mesh adaptation
+  set type = kelly
+  set fraction type = number
+  set fraction refinement = 0.25
+end
+subsection boundary conditions
+  set number = 4
+""" + "".join(f"""  subsection bc {i}
+    set id = {i}
+    set type = function
+    subsection u
+      set Function expression = 4*y*(1-y)
+    end
+  end
+""" for i in (0, 1)) + "".join(f"""  subsection bc {i}
+    set id = {i}
+    set type = noslip
+  end
+""" for i in (2, 3)) + """end
+subsection analytical solution
+  set enable = true
+  subsection uvwp
+    set Function expression = 4*y*(1-y); 0; -8*0.05*x
+  end
+end
+subsection test
+  set enable = true
+end
+"""
 
 
-@pytest.mark.parametrize("old,new,match", [_KELLY + ("A8, D5",)],
-                         ids=["kelly"])
-def test_gd_cli_refuses_what_is_not_ported(old, new, match, tmp_path,
-                                           monkeypatch):
-    text = _golden("gd_mms_bdf2")
-    assert text.count(old) == 1
-    deck = _write(tmp_path, "deck.prm", text.replace(old, new))
-    with pytest.raises(NotImplementedError, match=match):
-        _run(2, [deck, "--device", "cpu"], tmp_path, monkeypatch,
-             solver="gd")
-
-
-def test_cli_refuses_a_forest_checkpoint(tmp_path, monkeypatch):
-    """A checkpoint that holds an adapted forest is refused by name."""
+@pytest.mark.parametrize("name", ["steady_cycles", "transient",
+                                  "checkpoint"])
+def test_gd_cli_kelly_matches_jax(name, tmp_path, monkeypatch):
+    """GD decks with Kelly adaptation through the port's GD CLI (CPU,
+    float64) print what the JAX package's prints (analogues of
+    ``tests/test_gd_solver.py::test_gd_kelly_*``): steady cycles on the
+    Poiseuille channel of ``test_gd_kelly_steady_cycles``, the BDF2 MMS
+    deck adapting every step, and the same writing its forest checkpoint
+    every step, which both packages write alike."""
     import numpy as np
-    text = _golden("sdirk_np8").replace(
-        "subsection test\n", "subsection restart\n  set restart = true\n"
-        "  set filename = forest\nend\nsubsection test\n")
+    if name == "steady_cycles":
+        from tests.test_gd_solver import BASE
+        text = BASE.format(nu=0.05, refine=2, extra=_GD_POISEUILLE_KELLY)
+        head = "subsection simulation control\n"
+        assert text.count(head) == 1
+        text = text.replace(head, head + "  set number mesh adapt = 2\n"
+                            "  set output frequency = 0\n")
+    else:
+        text = _golden("gd_mms_bdf2").replace(*_KELLY)
+    if name == "checkpoint":
+        text = text.replace("subsection test\n", "subsection restart\n  set "
+                            "checkpoint = true\n  set filename = gd_forest\n"
+                            "end\nsubsection test\n")
     deck = _write(tmp_path, "deck.prm", text)
-    np.savez(tmp_path / "forest.npz", forest_leaves=np.zeros((1, 4),
-                                                            np.int64))
-    with pytest.raises(NotImplementedError, match="A8, D5"):
-        _run(2, [deck, "--device", "cpu"], tmp_path, monkeypatch)
+    (tmp_path / "jax").mkdir()
+    want = _jax_cli(2, deck, tmp_path / "jax", monkeypatch, solver="gd")
+    out = _run(2, [deck, "--device", "cpu", "--dtype", "float64"],
+               tmp_path, monkeypatch, solver="gd")
+    assert out.count("L2 error velocity") >= 3
+    numdiff(out, want, rtol=1e-6)
+    if name == "checkpoint":
+        port = np.load(tmp_path / "gd_forest.npz")
+        ref = np.load(tmp_path / "jax" / "gd_forest.npz")
+        assert sorted(port.files) == sorted(ref.files)
+        for key in ("forest_leaves", "base_cells", "n_dofs"):
+            np.testing.assert_array_equal(port[key], ref[key])
+        np.testing.assert_allclose(port["u"], ref["u"], rtol=0,
+                                   atol=1e-9 * np.abs(ref["u"]).max())
+
+
+def _forest_solver(pkg, outdir, t_end, checkpoint, restart):
+    """The forest restart deck of ``tests/test_restart_forest.py`` (Kelly
+    every 3 steps, a checkpoint every 4) in the JAX package or the
+    port."""
+    from tests.test_restart_forest import KELLY_DECK
+    text = KELLY_DECK.format(t_end=t_end, outdir=outdir, fname="ck",
+                             checkpoint=str(checkpoint).lower(),
+                             restart=str(restart).lower())
+    if pkg == "jax":
+        from softx_2020_200_tpu.core.parameters import SimulationParameters
+        from softx_2020_200_tpu.solvers.base import GLSNavierStokesSolver
+        return GLSNavierStokesSolver(SimulationParameters.from_text(text,
+                                                                    dim=2))
+    from softx_2020_200_tpu_torch.core.parameters import SimulationParameters
+    from softx_2020_200_tpu_torch.solvers.base import GLSNavierStokesSolver
+    return GLSNavierStokesSolver(SimulationParameters.from_text(text, dim=2),
+                                 device="cpu", dtype=torch.float64)
+
+
+@pytest.mark.parametrize("writer,reader", [("jax", "port"), ("port", "jax")])
+def test_forest_checkpoint_restarts_across_packages(writer, reader,
+                                                    tmp_path):
+    """A checkpoint of an adapted forest (4 steps, Kelly after step 3)
+    written by one package restarts in the other: the restarted run's
+    last 4 steps (another adaptation after step 6) end on the same
+    leaves and state as the writer's own restart."""
+    import numpy as np
+    out = {}
+    for who in (writer, reader):
+        d = tmp_path / who
+        d.mkdir()
+        if who == writer:
+            _forest_solver(who, d, 0.2, True, False).solve()
+        else:
+            import shutil
+            shutil.copy(tmp_path / writer / "ck.npz", d / "ck.npz")
+        s = _forest_solver(who, d, 0.4, False, True)
+        u = s.solve()
+        out[who] = (np.asarray(u.numpy() if torch.is_tensor(u) else u),
+                    [set(x) for x in s.forest.leaves])
+    (ua, la), (ub, lb) = out[writer], out[reader]
+    assert lb == la
+    np.testing.assert_allclose(ub, ua, rtol=0, atol=1e-9 * np.abs(ua).max())
 
 
 def test_cli_device_and_device_count(tmp_path, monkeypatch):

@@ -37,7 +37,8 @@ PORT_PKG = os.path.join(ROOT, "softx_2020_200_tpu_torch")
 COPIES = ["core/prm.py", "core/parameters.py", "core/bdf.py",
           "core/sdirk.py", "core/simulation_control.py",
           "core/pvd_handler.py", "core/timer.py", "fem/quadrature.py",
-          "fem/basis.py", "fem/mesh.py", "fem/dof.py", "utils/tables.py",
+          "fem/basis.py", "fem/mesh.py", "fem/dof.py", "fem/forest.py",
+          "fem/gmsh_io.py", "solvers/kelly.py", "utils/tables.py",
           "utils/vtu.py", "native.py",
           "apps/navier_stokes_parameter_template.py"]
 
@@ -54,7 +55,15 @@ FUNCTION_COPIES = [
      "_transfer_maps"),
     ("ops/pallas_lattice_gd.py", "_gd_affine_tables",
      "ops/lattice_gd_kernel.py", "gd_affine_tables"),
-]
+    ("ops/multigrid.py", "_coarsen_forest", "ops/multigrid.py",
+     "_coarsen_forest"),
+    ("fem/geometry.py", "det_and_inv", "fem/host_geometry.py",
+     "det_and_inv"),
+    ("fem/geometry.py", "face_measure_and_normal", "fem/host_geometry.py",
+     "face_measure_and_normal"),
+] + [("fem/transfer.py", name, "fem/transfer.py", name)
+     for name in ("_new_node_base_positions", "_locate_in_forest_loop",
+                  "_encode", "locate_in_forest")]
 
 
 class _StripImports(ast.NodeTransformer):
@@ -188,7 +197,8 @@ def test_apps_never_import_jax(tmp_path):
     modules, and running tiny GLS and GD decks on the CPU (lattices: the
     strided layout and the lattice kernels' plain versions; SDIRK2 with
     additive Schwarz and a checkpoint, a restart of it, pseudo-transient
-    continuation) leaves jax out of sys.modules."""
+    continuation; Kelly cycles on a forest with forest multigrid) leaves
+    jax out of sys.modules."""
     decks = {}
     sdirk = [("time end      = 0.2", "time end      = {end}"),
              ("subsection linear solver\n", "subsection linear solver\n"
@@ -206,7 +216,8 @@ def test_apps_never_import_jax(tmp_path):
                "subsection non-linear solver\n"
                "  set solver = pseudo_transient\n")]),
             ("sdirk_a", "sdirk_np8", sdirk),
-            ("sdirk_b", "sdirk_np8", sdirk)):
+            ("sdirk_b", "sdirk_np8", sdirk),
+            ("kelly_steady", "kelly_steady", [])):
         decks[name] = tmp_path / f"{name}.prm"
         text = open(os.path.join(ROOT, "tests", "golden",
                                  f"{src}.prm")).read()
@@ -223,7 +234,8 @@ def test_apps_never_import_jax(tmp_path):
                           ("gd_navier_stokes_2d", "gd_mms_bdf2"),
                           ("gls_navier_stokes_2d", "couette_ptc"),
                           ("gls_navier_stokes_2d", "sdirk_a"),
-                          ("gls_navier_stokes_2d", "sdirk_b")))
+                          ("gls_navier_stokes_2d", "sdirk_b"),
+                          ("gls_navier_stokes_2d", "kelly_steady")))
     code = (
         "import sys\n"
         "pre = {m for m in sys.modules if m.split('.')[0] == 'jax'}\n"

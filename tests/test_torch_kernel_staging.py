@@ -449,3 +449,53 @@ def test_tile_config_mirrors_the_kernel_layout():
     assert cfg["smem_bytes"] == 4 * (640 + 2 * stage + (3 * 40 + 32) * 32)
     assert lattice_kernel.tile_config(3, 1, 2, 1, pt.REGISTERS)[
         "smem_bytes"] == 0
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_staged_route_with_three_points_matches_plain_kernel(dim):
+    """Q1 with 3 Gauss points per axis (the forest multigrid's levels
+    below a Q2 mesh's Q1 p-level), which B1 compiles on its STAGED route
+    only: phase A over nq = 3^d points, phase B over nn = 2^d nodes."""
+    space = _space(dim, 1, "moved")
+    frozen = StabFlags(frozen_tau=True)
+    op = GLSOperator(space, nu=NU, n_q1d=3, stab=frozen, device="cpu",
+                     dtype=torch.float64)
+    k = op.kernel
+    assert (k.nq, k.nn, k.q1d) == (3 ** dim, 2 ** dim, 3)
+    rng = np.random.default_rng(5)
+    N, c, E = op.n_nodes, dim + 1, space.n_elements
+    ue = op._soa(torch.as_tensor(rng.standard_normal((N, c)) * 0.3))
+    due = op._soa(torch.as_tensor(rng.standard_normal((N, c))))
+    up = op._soa(torch.as_tensor(rng.standard_normal((N, dim)) * 0.2))
+    fq = op._fq_soa(torch.as_tensor(rng.standard_normal((E, k.nq, dim))))
+    xe, h = op.xe_soa.double(), op.h.double()
+    args = (xe, up, fq, h, A0, SDT)
+    got = _staged(k, "primal", StabFlags(), ue, xe, up, fq, h)
+    assert _rel(got, k.plain(StabFlags())(ue, *args)) < RTOL
+    got = _staged(k, "tangent", frozen, ue, xe, up, fq, h, due=due)
+    assert _rel(got, tangent_batched(k.plain(frozen), ue, due, *args)) < RTOL
+
+
+def test_three_point_rule_launch_plan_and_tiles(monkeypatch):
+    """The three-point Q1 variants fit one block (288 threads in 2D, 432
+    in 3D, one per point) and always take the STAGED route, even when
+    REGISTERS is asked for; a rule that is not compiled is refused."""
+    for dim, threads in ((2, 288), (3, 432)):
+        for mode in range(3):
+            cfg = gls_kernel.tile_config(dim, 1, mode, points=3)
+            assert cfg["threads"] == threads
+            assert 0 < cfg["smem_bytes"] <= pt.SMEM_LIMIT
+            assert cfg["rows"][4] == 3 ** dim * dim
+    monkeypatch.setattr(pt, "sm_count", lambda device: 132)
+    monkeypatch.setattr(gls_kernel, "config_on_card",
+                        lambda *a, **kw: (2, 0, 288))
+    device = torch.device("cuda", 0)
+    space = _space(2, 1, "moved")
+    k = GLSOperator(space, nu=NU, n_q1d=3, device="cpu",
+                    dtype=torch.float64).kernel
+    for route in ("auto", "registers"):
+        assert k._plan(1, 10 ** 6, device, route, None)[0] == pt.STAGED
+    k4 = GLSOperator(space, nu=NU, n_q1d=4, device="cpu",
+                     dtype=torch.float64).kernel
+    with pytest.raises(ValueError, match="no variant"):
+        k4._plan(1, 100, device, "auto", None)
