@@ -92,9 +92,22 @@ Phases (each prints its own lines; any failed check raises):
    and the 3D sphere at its base mesh with one Kelly cycle; then B1 is
    compared with its plain version and timed at every (dim, degree,
    points per axis, E) those runs launched and phase 3b did not time, on
-   the launching operator's own geometry and state.
+   the launching operator's own geometry and state;
+13. the multi-device path, 4 shards on the one card through
+   ``run_app(..., devices=[cuda:0] * 4)`` (B1 per shard at the
+   shard-padded E, the coarse multigrid levels whole on B1): phase 7's
+   MMS deck (Newton and FGMRES against the JAX package's 4-way run, L2
+   per step against its f64 values and phase 7's run), phase 12's
+   cylinder (the JAX cells, Cd and Cl against JAX f64 and phase 12's
+   run) and its restart from 4 shards to 2, the golden restart decks at
+   128^2 from 4 shards to 2 against the uninterrupted run, the golden GD
+   MMS deck over 4 shards and 1 (plain torch); each run prints its
+   shards' owned and ghost nodes, the bytes per refresh and its seconds
+   per Newton iteration beside the 1-device run's; then B1 is compared
+   and timed at every shard shape those runs launched.  ``--phases 13``
+   runs phases 7 and 12 first.
 
-Phases 4-12 hold their physics numbers against the JAX package run on the
+Phases 4-13 hold their physics numbers against the JAX package run on the
 CPU in float64 on the same decks (``JAX_REFERENCE`` below; where float32
 moves a count or a flagged cell, against its float32 run) and check
 which kernel each deck launched.  The line before the last lists the
@@ -490,9 +503,17 @@ JAX_REFERENCE = {
         "fgmres_per_newton": 4.0},
     # 4 solves, 8 Newton and 68 FGMRES iterations (each solve reaches
     # 1e-10 in its second iteration): scripts/jax_newton_counts.py
-    # mms_q2_r8.prm 2 (at tolerance 1e-10 the same L2 to 7 digits)
+    # mms_q2_r8.prm 2 (at tolerance 1e-10 the same L2 to 7 digits).
+    # Over 4 shards (phase 13; scripts/jax_newton_counts.py mms_q2_r8.prm
+    # 2 --shards 4 on 4 virtual CPU devices): f64 the same 8 Newton and
+    # 68 FGMRES iterations (2 and 17 per solve) and the same L2 to 9
+    # digits; f32 23 Newton and 435 FGMRES, every solve ending above
+    # 1e-5 (the XLA kernel's float32 floor on this mesh: absolute element
+    # coordinates in J, the time derivative scaled after interpolation;
+    # L2 at step 3 5.22e-5), so the f64 run is the witness
     "mms_q2_r8.prm": {
-        "l2_velocity": [1.16326913e-04, 7.90071723e-05, 3.32106954e-05]},
+        "l2_velocity": [1.16326913e-04, 7.90071723e-05, 3.32106954e-05],
+        "newton_4way": 8, "fgmres_4way": 68},
     # 1 solve, 2 Newton iterations (residual 1.6018 -> 1.4325e-3 ->
     # 7.2114e-6) and 272 FGMRES iterations:
     # scripts/jax_newton_counts.py gd_cavity_r8.prm 2 gd
@@ -1822,24 +1843,55 @@ def _b1_states(store: dict):
         GLSElementKernel._launch = launch
 
 
+@contextlib.contextmanager
+def _shard_reports(reports: list):
+    """Appends to ``reports`` the ``shard_report()`` of every sharded
+    solver the apps wire inside the block (per shard owned and ghost
+    nodes, bytes per refresh)."""
+    from softx_2020_200_tpu_torch.parallel.sharded import ShardedGLSSolver
+    from softx_2020_200_tpu_torch.parallel.sharded_gd import ShardedGDSolver
+    saved = {cls: cls.__dict__["from_solver"]
+             for cls in (ShardedGLSSolver, ShardedGDSolver)}
+
+    def wrapped(inner):
+        def from_solver(cls, *args, **kwargs):
+            sh = inner.__func__(cls, *args, **kwargs)
+            reports.append(sh.shard_report())
+            return sh
+        return classmethod(from_solver)
+
+    for cls, inner in saved.items():
+        cls.from_solver = wrapped(inner)
+    try:
+        yield
+    finally:
+        for cls, inner in saved.items():
+            cls.from_solver = inner
+
+
 def drive_app(torch, dim: int, deck: str, kernel: str | None,
               solver: str = "gls", workdir: str | None = None,
               engines: list | None = None,
-              b1_states: dict | None = None) -> dict:
+              b1_states: dict | None = None,
+              devices: list | None = None) -> dict:
     """Run the deck through the port's CLI entry point on the card (the
     ``solver`` app: ``gls`` or ``gd``) in ``workdir`` (a new temporary
     directory by default); its output is echoed and returned with the
     launch counts and memory.  Checks that it launched ``kernel`` (None:
     none of the kernels) and no other.  ``engines`` collects the engine
     the app builds; ``b1_states`` records B1's launch states per shape
-    (``_b1_states``)."""
+    (``_b1_states``); ``devices`` shards the run over them (phase 13),
+    and the result's ``shards`` holds each sharded solver's report."""
     from softx_2020_200_tpu_torch.apps.common import run_app
     counters = _launch_counters()
+    reports = []
     with contextlib.ExitStack() as stack:
         if engines is not None:
             stack.enter_context(_engine_kept(solver, engines))
         if b1_states is not None:
             stack.enter_context(_b1_states(b1_states))
+        if devices is not None:
+            stack.enter_context(_shard_reports(reports))
         tmp = workdir or stack.enter_context(tempfile.TemporaryDirectory())
         path = os.path.join(tmp, deck)
         with open(path, "w") as fh:
@@ -1856,7 +1908,7 @@ def drive_app(torch, dim: int, deck: str, kernel: str | None,
         try:
             with contextlib.redirect_stdout(buf):
                 rc = run_app(dim, [path], solver=solver, device="cuda",
-                             dtype=torch.float32)
+                             dtype=torch.float32, devices=devices)
             torch.cuda.synchronize()
         finally:
             os.chdir(cwd)
@@ -1878,7 +1930,7 @@ def drive_app(torch, dim: int, deck: str, kernel: str | None,
     check(stats is not None, f"{deck}: no Newton summary line")
     peak = torch.cuda.max_memory_allocated() / 2 ** 20
     res = dict(deck=deck, out=out, seconds=seconds, launches=launches,
-               launches_by_shape=by_shape, peak_mib=peak,
+               launches_by_shape=by_shape, peak_mib=peak, shards=reports,
                newton_solves=int(stats.group(1)),
                newton_iterations=int(stats.group(2)),
                linear_iterations=int(stats.group(3)),
@@ -2734,20 +2786,23 @@ def _sphere(torch, states: dict) -> dict:
     return res
 
 
-def _forest_shapes(torch, states: dict, times: dict) -> float:
-    """The pass after phase 12's runs: at every (dim, degree, points per
-    axis, E) at which B1 launched and that phase 3b did not time, B1's
-    primal, tangent and node blocks on the recorded operator's own
-    geometry and state (and a seeded direction), against the plain
-    version, then timed beside it.  Returns the worst max-abs error."""
+def _recorded_shapes(torch, states: dict, times: dict, kind: str,
+                     registry: dict) -> float:
+    """The pass after phase 12's (``kind`` "forest") or phase 13's
+    ("shard") runs: at every (dim, degree, points per axis, E) at which
+    B1 launched and that no earlier pass timed, B1's primal, tangent and
+    node blocks on the recorded operator's own geometry and state (and a
+    seeded direction), against the plain version, then timed beside it;
+    each shape's label goes to ``registry``.  Returns the worst max-abs
+    error."""
     import dataclasses
     from softx_2020_200_tpu_torch.ops import batched_kernel as bk
     timed = {(*_shape_keys("gls_element")[label], row["E"])
              for label, row in times.items()}
     worst = 0.0
     todo = sorted(k for k in states if k not in timed)
-    print(f" -- B1 at the {len(todo)} forest shapes these decks launched "
-          f"that phase 3b did not time (kernel, and plain version, ms)")
+    print(f" -- B1 at the {len(todo)} {kind} shapes these decks launched "
+          f"that no earlier pass timed (kernel, and plain version, ms)")
     for key in todo:
         dim, degree, q1d, E = key
         k, ue, args = states.pop(key)
@@ -2764,8 +2819,8 @@ def _forest_shapes(torch, states: dict, times: dict) -> float:
                                                        *args),
                  "node blocks": lambda: bk.node_blocks_batched(frozen, ue,
                                                                *args)}
-        label = f"forest {dim}D Q{degree} q{q1d} E={E}"
-        FOREST_SHAPES[label] = (dim, degree, q1d)
+        label = f"{kind} {dim}D Q{degree} q{q1d} E={E}"
+        registry[label] = (dim, degree, q1d)
         worst = max(worst, _check_outputs(torch, label, E, kernel,
                                           _outputs(torch, plain)))
         _time_variants(torch, label, E, kernel, plain, times)
@@ -2794,8 +2849,350 @@ def phase_forest(torch, times_b1: dict) -> tuple[list, float]:
     _gd_kelly(torch)
     print(" -- 3D sphere (BASELINE #5) at its base mesh, one Kelly cycle")
     b1.append(_sphere(torch, states))
-    worst = _forest_shapes(torch, states, times_b1)
+    worst = _recorded_shapes(torch, states, times_b1, "forest",
+                             FOREST_SHAPES)
     return b1, worst
+
+
+# ----------------------------------------------------------------------
+# phase 13: the multi-device path on one card
+# ----------------------------------------------------------------------
+# Shards per run: the apps' ``devices=[cuda:0] * SHARDS``, every exchange,
+# reduction and per-shard B1 launch on the one card this script needs
+# (multi-card speed is not measured here)
+SHARDS = 4
+# B1's shapes that phase 13's runs launched and earlier passes did not
+# time: label -> (dim, degree, points per axis), filled by its pass
+SHARD_SHAPES: dict = {}
+# phase 13's float32 4-shard runs: the MMS L2 per step against the JAX
+# package's f64 values, relative, and twice that against phase 7's
+# float32 run; the cylinder's Cd and Cl per step against the JAX
+# package's f64 forces, over |Cd| (Cd = 20 F_x, Cl = 20 F_y), and twice
+# that against phase 12's float32 run (each float32 run carries its own
+# error against f64: phase 7's 1.3e-3 at step 3, phase 12's up to 3.0e-5
+# of |Cd|); the MMS FGMRES count against the JAX package's 4-way run,
+# relative
+SHARD_L2_RTOL = 1e-3
+SHARD_FORCE_RTOL = 3e-5
+SHARD_FGMRES_RTOL = 0.05
+# the GD deck's final L2 velocity error (3.2100e-5 in the JAX package's
+# f64 golden, tests/golden/gd_mms_bdf2.output) over 4 shards against 1
+# shard and against the golden,
+# relative.  Newton stops at 1e-5 in float32 (at 1e-6 a float32 solve on
+# the CPU grinds through 23 Newton and 15,796 FGMRES iterations), and
+# the iterate it stops at moves this small error by up to 0.8 % between
+# runs (an H100: 4 shards 3.2351e-5, 1 shard 3.2143e-5; the CPU in
+# float32: 3.2216e-5 and 3.1855e-5)
+SHARD_GD_L2_RTOL = 1e-2
+GD_MMS_L2_F64 = 3.2100e-05
+DECKS.update({
+    # the golden GD MMS deck (Q2-Q1, BDF2 with its startup sub-step, 3
+    # steps) at its own refinement 2 (4^2 cells), Newton to 1e-5 (C4),
+    # outside test mode: over shards it takes the JAX sharded path's
+    # block-Schur preconditioner (velocity node blocks, no multigrid),
+    # whose FGMRES counts grow with the mesh: at refinement 3 it took
+    # 4,653 iterations and 155 s over 4 shards on an H100
+    "gd_mms_r2.prm": ("tests/golden/gd_mms_bdf2.prm", [
+        ("tolerance", "1e-5"),
+        ("text", ("subsection test\n  set enable = true",
+                  "subsection test\n  set enable = false"))]),
+})
+# the golden restart decks (tests/golden/restart_adaptive_{a,b}.prm: MMS,
+# Q1, BDF2, a checkpoint every 2 steps; leg a ends at t = 0.2, leg b
+# restarts and runs on to t = 0.35) at refinement 7 (128^2 cells, 'auto'
+# -> GMG on 4 levels), with its residuals printed, a fixed dt of 0.05
+# (with the decks' CFL-adaptive dt leg a's last step is clipped to end at
+# 0.2, and no uninterrupted run takes the steps the two legs take) and
+# Newton to 1e-4: a shard count sums in its own order, and a solve that
+# ends near the float32 floor can take another Newton iteration over
+# other shards (on the CPU in float32 at 32^2 with 1e-5, the last solve
+# of a 2-shard restart took 9 iterations where 4 shards took 2); and the
+# same run uninterrupted
+_RESTART_R7 = [("initial refinement", "7"), ("adapt", "false"),
+               ("text", ("set verbosity      = quiet\n  set tolerance      "
+                         "= 1e-10", "set verbosity      = verbose\n  set "
+                         "tolerance      = 1e-4"))]
+DECKS.update({
+    "restart_r7_a.prm": ("tests/golden/restart_adaptive_a.prm", _RESTART_R7),
+    "restart_r7_b.prm": ("tests/golden/restart_adaptive_b.prm", _RESTART_R7),
+    "restart_r7.prm": ("tests/golden/restart_adaptive_b.prm", _RESTART_R7 + [
+        ("checkpoint", "false"), ("restart", "false")]),
+})
+
+
+def _print_shards(res: dict, one: dict | None, label: str) -> None:
+    """The shards of a run (owned and ghost nodes per shard, bytes per
+    refresh; the first and the last sharded solver of the run), its
+    seconds per Newton iteration and kernel launches beside the 1-shard
+    run ``one`` (not held: one card runs every shard)."""
+    reports = res["shards"]
+    check(reports, f"{res['deck']}: no sharded solver was built")
+    for what, (rows, nbytes) in (("first", reports[0]),
+                                 ("last", reports[-1]))[:len(reports)]:
+        print(f"  shards ({what} of {len(reports)} layouts): owned/ghost "
+              f"nodes {rows}; {nbytes:,} bytes per refresh")
+    if one is not None:
+        print(f"  {res['s_per_newton']:.4f} s per Newton iteration "
+              f"({len(rows)} shards on one card) against {label}'s "
+              f"{one['s_per_newton']:.4f}; kernel launches "
+              f"{res['launches']} against {one['launches']}")
+
+
+def _sharded_mms(torch, devices, one: dict, states: dict) -> dict:
+    """Phase 7's deck over the shards: converged, Newton equal to the JAX
+    package's 4-way run (f64: its f32 run stalls, JAX_REFERENCE), FGMRES
+    within SHARD_FGMRES_RTOL of it, the L2 errors per step within
+    SHARD_L2_RTOL of the JAX package's f64 values (phase 7's witness) and
+    within twice that of phase 7's float32 run, which is itself up to
+    1.3e-3 off the f64 value at step 3, where the error is smallest."""
+    deck = "mms_q2_r8.prm"
+    ref = JAX_REFERENCE[deck]
+    res = drive_app(torch, 2, deck, "gls_element", b1_states=states,
+                    devices=devices)
+    _print_shards(res, one, "phase 7")
+    _check_converged(deck, res)
+    its, lin = res["newton_iterations"], res["linear_iterations"]
+    print(f"  Newton {its} (JAX CPU 4-way {ref['newton_4way']}), FGMRES "
+          f"{lin} (JAX {ref['fgmres_4way']}; bound {SHARD_FGMRES_RTOL:.0%})")
+    check(its == ref["newton_4way"], f"{deck}: {its} Newton iterations")
+    check(_close(lin, ref["fgmres_4way"], SHARD_FGMRES_RTOL),
+          f"{deck}: {lin} FGMRES iterations")
+    pat = rf"L2 error velocity : {_NUM}\n"
+    got = [float(x) for x in re.findall(pat, res["out"])]
+    one_l2 = [float(x) for x in re.findall(pat, one["out"])]
+    want = ref["l2_velocity"]
+    check(len(got) == len(one_l2) == len(want), f"{deck}: {len(got)} L2 "
+          "lines")
+    for step, (g, w, o) in enumerate(zip(got, want, one_l2), start=1):
+        print(f"  step {step}: L2 error velocity {g:.8e} ({SHARDS} shards), "
+              f"JAX CPU f64 {w:.8e}, rel diff {abs(g - w) / w:.3e} (bound "
+              f"{SHARD_L2_RTOL:g}); phase 7 {o:.8e}, rel diff "
+              f"{abs(g - o) / o:.3e} (bound {2 * SHARD_L2_RTOL:g})")
+        check(_close(g, w, SHARD_L2_RTOL), f"{deck} step {step}: L2 {g}")
+        check(_close(g, o, 2 * SHARD_L2_RTOL),
+              f"{deck} step {step}: L2 {g} against phase 7's {o}")
+    return res
+
+
+def _sharded_cylinder(torch, devices, one: dict, states: dict) -> dict:
+    """Phase 12's cylinder over the shards (the forest re-sharded after
+    every adaptation): the JAX package's cells at every adaptation, Cd
+    and Cl per step within SHARD_FORCE_RTOL of |Cd| of the JAX package's
+    f64 forces (phase 12's witness) and within twice that of phase 12's
+    1-device float32 run (read from that run's output), which is itself
+    up to 3.0e-5 of |Cd| off the f64 forces (ROADMAP C7)."""
+    deck = "cylinder_kelly.prm"
+    ref = JAX_REFERENCE[deck]
+    res = drive_app(torch, 2, deck, "gls_element", b1_states=states,
+                    devices=devices)
+    _print_shards(res, one, "phase 12")
+    cells = [int(b) for _, b, _ in _ADAPT.findall(res["out"])]
+    print(f"  cells after each adaptation {cells} (JAX CPU f32 "
+          f"{ref['cells_f32']}; phase 12 {one['cells']})")
+    check(cells == ref["cells_f32"], f"{deck}: cells {cells}")
+    res["cells"] = cells
+    got, one_f = _forces(res["out"], 3), _forces(one["out"], 3)
+    check(len(got) == len(one_f) == len(ref["forces"]),
+          f"{deck}: {len(got)} steps")
+    for step, ((fx, fy), (rx, ry), (ox, oy)) in enumerate(
+            zip(got, ref["forces"], one_f), start=1):
+        err = max(abs(fx - rx), abs(fy - ry)) / abs(rx)
+        err1 = max(abs(fx - ox), abs(fy - oy)) / abs(ox)
+        print(f"  step {step}: Cd {20 * fx: .6e} Cl {20 * fy: .6e}; JAX CPU "
+              f"f64 Cd {20 * rx: .6e} Cl {20 * ry: .6e}, difference "
+              f"{err:.2e} of |Cd| (bound {SHARD_FORCE_RTOL:g}); phase 12 Cd "
+              f"{20 * ox: .6e} Cl {20 * oy: .6e}, difference {err1:.2e} "
+              f"(bound {2 * SHARD_FORCE_RTOL:g})")
+        check(err <= SHARD_FORCE_RTOL, f"{deck}: step {step}: force "
+              f"({fx}, {fy}) against ({rx}, {ry})")
+        check(err1 <= 2 * SHARD_FORCE_RTOL, f"{deck}: step {step}: force "
+              f"({fx}, {fy}) against phase 12's ({ox}, {oy})")
+    above = res["solves_above_tolerance"]
+    print(f"  solves above tolerance: {above} of {res['newton_solves']} "
+          f"(phase 12: {one['solves_above_tolerance']}, the startup's)")
+    check(above <= ref["solves_above_tolerance_f32"],
+          f"{deck}: {above} solves above tolerance")
+    return res
+
+
+def _leg_files(tmp: str, n: int) -> None:
+    """Leg a's checkpoint in ``tmp``: one file per shard (n of them) and
+    a manifest without fields."""
+    import glob
+    import numpy as np
+    found = sorted(glob.glob(os.path.join(tmp, "**", "*.shard*.npz"),
+                             recursive=True))
+    check(found, "restart: leg a wrote no shard files")
+    base = found[0].rsplit(".shard", 1)[0]
+    files = [os.path.basename(f) for f in found]
+    with np.load(base + ".npz") as man:
+        fields = sorted(set(man.files) & {"u", "previous"})
+    print(f"  leg a wrote {files} and a manifest with fields {fields}")
+    name = os.path.basename(base)
+    check(files == [f"{name}.shard{p}.npz" for p in range(n)],
+          f"restart: shard files {files}")
+    check(not fields, "restart: the manifest holds fields")
+
+
+# what a run prints per step: the step with its time and dt, the L2
+# error, each solve's Newton and Krylov counts (not the Newton residuals:
+# at the float32 floor their last printed digits are noise)
+_STEP = re.compile(r"^\*\*\* Time step.*$", re.M)
+_L2_LINE = re.compile(rf"^L2 error velocity : {_NUM}$", re.M)
+
+
+def _sharded_restart_mms(torch, dev, states: dict) -> list:
+    """The golden restart decks at refinement 7 across shard counts: leg
+    a over 4 shards (a checkpoint every 2 steps: the engine's manifest
+    and one file per shard), leg b restarted over 2 shards.  Held to the
+    uninterrupted 4-shard run: leg a equal in every printed step, time,
+    dt, L2 digit and count (the same shards); leg b's steps, times and
+    dts equal as printed, its L2 errors within SHARD_L2_RTOL, each
+    solve's Newton iterations equal and Krylov iterations within 1
+    (float32 sums in another order over 2 shards)."""
+    whole = drive_app(torch, 2, "restart_r7.prm", "gls_element",
+                      b1_states=states, devices=[dev] * 4)
+    with tempfile.TemporaryDirectory() as tmp:
+        a = drive_app(torch, 2, "restart_r7_a.prm", "gls_element",
+                      workdir=tmp, b1_states=states, devices=[dev] * 4)
+        _leg_files(tmp, 4)
+        b = drive_app(torch, 2, "restart_r7_b.prm", "gls_element",
+                      workdir=tmp, b1_states=states, devices=[dev] * 2)
+    for run in (whole, a, b):
+        _print_shards(run, None, "")
+    steps = _STEP.findall(whole["out"])
+    na = len(_STEP.findall(a["out"]))
+    l2 = [float(x) for x in _L2_LINE.findall(whole["out"])]
+    solves = _per_solve("restart", whole["out"])
+    n_solves_a = len(_per_solve("leg a", a["out"]))
+    print(f"  leg a {na} steps, leg b {len(_STEP.findall(b['out']))}, "
+          f"uninterrupted {len(steps)}")
+    check(_STEP.findall(a["out"]) == steps[:na]
+          and [float(x) for x in _L2_LINE.findall(a["out"])] == l2[:na]
+          and _per_solve("leg a", a["out"]) == solves[:n_solves_a],
+          "restart: leg a differs from the uninterrupted run")
+    got_steps = _STEP.findall(b["out"])
+    check(got_steps == steps[na:], f"restart: leg b's steps {got_steps}")
+    for line, g, w in zip(got_steps, _L2_LINE.findall(b["out"]), l2[na:]):
+        g = float(g)
+        print(f"  {line}: L2 error velocity {g:.4e} (leg b, 2 shards), "
+              f"{w:.4e} (uninterrupted, 4 shards)")
+        check(_close(g, w, SHARD_L2_RTOL), f"restart: {line}: L2 {g}")
+    legs = _per_solve("leg b", b["out"])
+    full = solves[n_solves_a:]
+    print(f"  leg b Newton and Krylov per solve {legs}; uninterrupted "
+          f"{full}")
+    check(len(legs) == len(full) and all(
+        n == n0 and abs(k - k0) <= 1 for (n, k), (n0, k0) in zip(legs, full)),
+        f"restart: leg b per solve {legs} against {full}")
+    return [whole, a, b]
+
+
+def _sharded_restart(torch, dev, whole: dict, states: dict) -> list:
+    """The cylinder in two legs across shard counts: leg a over 4 shards
+    writes the engine's manifest (forest, control; no fields) and one
+    file per shard after step 2's adaptation; leg b restarts over 2
+    shards for steps 3-4.  Held to the uninterrupted 4-shard run: leg a
+    equal in every printed force digit (the same shards); the cells and
+    each solve's Newton iterations equal, its Krylov iterations within 1,
+    and the forces per step within SHARD_FORCE_RTOL of |F_x| (float32
+    sums in another order over 2 shards: the lift's 4th digit and a
+    Krylov iteration moved in a debug run)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        a = drive_app(torch, 2, "cylinder_kelly_a.prm", "gls_element",
+                      workdir=tmp, b1_states=states, devices=[dev] * 4)
+        _leg_files(tmp, 4)
+        b = drive_app(torch, 2, "cylinder_kelly_b.prm", "gls_element",
+                      workdir=tmp, b1_states=states, devices=[dev] * 2)
+    for leg in (a, b):
+        _print_shards(leg, None, "")
+    out = a["out"] + b["out"]
+    lines = re.findall(r"^Force boundary 3 : .*$", whole["out"], re.M)
+    check(re.findall(r"^Force boundary 3 : .*$", a["out"], re.M)
+          == lines[:2], "cylinder restart: leg a's forces differ")
+    got, want = _forces(out, 3), _forces(whole["out"], 3)[:4]
+    check(len(got) == 4, f"cylinder restart: {len(got)} steps")
+    for step, ((fx, fy), (wx, wy)) in enumerate(zip(got, want), start=1):
+        err = max(abs(fx - wx), abs(fy - wy)) / abs(wx)
+        print(f"  step {step} (leg {'ab'[step > 2]}): force ({fx}, {fy}); "
+              f"uninterrupted ({wx}, {wy}); difference {err:.2e} of |F_x| "
+              f"(bound {SHARD_FORCE_RTOL:g})")
+        check(err <= SHARD_FORCE_RTOL, f"cylinder restart step {step}")
+    cells = [int(c) for _, c, _ in _ADAPT.findall(out)]
+    check(cells == whole["cells"][:3], f"cylinder restart: cells {cells}")
+    legs = _per_solve("cylinder restart", out)
+    full = _per_solve("cylinder", whole["out"])[:len(legs)]
+    print(f"  cells {cells}; Newton and Krylov per solve {legs}; "
+          f"uninterrupted {full}")
+    check(len(legs) == 5 and all(n == n0 and abs(k - k0) <= 1
+                                 for (n, k), (n0, k0) in zip(legs, full)),
+          f"cylinder restart across shard counts: per solve {legs}")
+    return [a, b]
+
+
+def _sharded_gd(torch, dev) -> dict:
+    """The GD MMS deck over 4 shards against 1 shard (plain torch, the
+    block-Schur preconditioner): both converged, the final velocity L2
+    error within SHARD_GD_L2_RTOL of each other and of the f64 golden;
+    the final velocity fields' largest difference is printed (the
+    enclosed flow's pressure is fixed up to a constant)."""
+    deck = "gd_mms_r2.prm"
+    l2, final, runs = {}, {}, {}
+    for n in (1, SHARDS):
+        engines = []
+        runs[n] = drive_app(torch, 2, deck, None, solver="gd",
+                            engines=engines, devices=[dev] * n)
+        _check_converged(deck, runs[n])
+        engine = engines.pop()
+        l2[n] = [float(e) for e in engine.l2_errors(engine.final,
+                                                    engine.control.time)]
+        final[n] = engine.final[:engine.op.Nv * engine.dim]
+        del engine
+    _print_shards(runs[SHARDS], runs[1], "the 1-shard run")
+    diff = float((final[SHARDS] - final[1]).abs().max()
+                 / final[1].abs().max())
+    print(f"  final velocity: largest difference {diff:.3e} of the "
+          f"largest value")
+    for what, g, w in zip(("velocity", "pressure"), l2[SHARDS], l2[1]):
+        print(f"  final L2 error {what} {g:.8e} ({SHARDS} shards), {w:.8e} "
+              f"(1 shard), rel diff {abs(g - w) / w:.3e}")
+    g, w = l2[SHARDS][0], l2[1][0]
+    print(f"  velocity against the f64 golden {GD_MMS_L2_F64:.4e}: rel diff "
+          f"{abs(g - GD_MMS_L2_F64) / GD_MMS_L2_F64:.3e} ({SHARDS} shards), "
+          f"{abs(w - GD_MMS_L2_F64) / GD_MMS_L2_F64:.3e} (1 shard); bound "
+          f"{SHARD_GD_L2_RTOL:g}")
+    check(_close(g, w, SHARD_GD_L2_RTOL) and all(
+        _close(x, GD_MMS_L2_F64, SHARD_GD_L2_RTOL) for x in (g, w)),
+        f"{deck}: final L2 error velocity {g} ({SHARDS} shards), {w}")
+    return runs[SHARDS]
+
+
+def phase_sharded(torch, times_b1: dict, earlier: dict) -> tuple[list,
+                                                                 float]:
+    """Phase 13: the apps over SHARDS shards on cuda:0, then B1 at every
+    shard shape they launched.  ``earlier`` holds phases 7's and 12's
+    1-device runs by deck.  Returns the B1 runs and the worst max-abs
+    error of the per-shape pass."""
+    print(f"== phase 13: the multi-device path, {SHARDS} shards on cuda:0 "
+          f"(B1 per shard, coarse levels whole)")
+    dev = torch.device("cuda", 0)
+    states = {}
+    print(" -- MMS Q2 256^2 (phase 7's deck)")
+    mms = _sharded_mms(torch, [dev] * SHARDS, earlier["mms_q2_r8.prm"],
+                       states)
+    print(" -- the cylinder with Kelly (phase 12's deck, 7 steps)")
+    cyl = _sharded_cylinder(torch, [dev] * SHARDS,
+                            earlier["cylinder_kelly.prm"], states)
+    print(" -- the cylinder restarted across shard counts (4 -> 2)")
+    legs = _sharded_restart(torch, dev, cyl, states)
+    print(" -- the golden restart decks at 128^2 across shard counts "
+          "(4 -> 2)")
+    legs += _sharded_restart_mms(torch, dev, states)
+    print(" -- GD MMS at refinement 2 (plain torch), 4 shards and 1")
+    _sharded_gd(torch, dev)
+    worst = _recorded_shapes(torch, states, times_b1, "shard",
+                             SHARD_SHAPES)
+    return [mms, cyl] + legs, worst
 
 
 # ----------------------------------------------------------------------
@@ -2819,7 +3216,7 @@ def _shape_keys(kernel: str) -> dict:
     if kernel == "gd_lattice":
         return {s[0]: (s[1], 2, 3) for s in B3_SHAPES}
     return {**{s[0]: (s[1], s[2], s[2] + 1) for s in B1_SHAPES},
-            **FOREST_SHAPES}
+            **FOREST_SHAPES, **SHARD_SHAPES}
 
 
 def _shape_bound(kernel: str, label: str, what: str, E: int):
@@ -2952,7 +3349,7 @@ def _print_bounds(times: dict, kernel: str) -> None:
 
 
 PHASES = ("2", "3", "3b", "3c", "3d", "4", "5", "6", "7", "8", "9", "10",
-          "11", "12")
+          "11", "12", "13")
 
 
 def main(argv=None) -> int:
@@ -2961,8 +3358,9 @@ def main(argv=None) -> int:
                         help="write the main-path decks to DIR and stop")
     parser.add_argument("--phases", metavar="LIST",
                         help="run only these phases (comma-separated, "
-                        "e.g. 2,3c; phase 1 always runs, and phase 2 with "
-                        "any of 3-3d); prints no contract line")
+                        "e.g. 2,3c; phase 1 always runs, phase 2 with any "
+                        "of 3-3d, and phases 7 and 12 with 13, which holds "
+                        "its runs to theirs); prints no contract line")
     parser.add_argument("--parent", metavar="DIR",
                         help="another checkout (a git archive of the parent "
                         "commit): time its B1 and B2 through its own "
@@ -2975,6 +3373,8 @@ def main(argv=None) -> int:
     check(only <= set(PHASES), f"unknown phases {only - set(PHASES)}")
     if only & {"3", "3b", "3c", "3d"}:
         only.add("2")
+    if "13" in only:
+        only |= {"7", "12"}
 
     import torch
     if not torch.cuda.is_available():
@@ -3049,6 +3449,14 @@ def main(argv=None) -> int:
         _print_bounds({k: v for k, v in times_b1.items()
                        if k in FOREST_SHAPES}, "gls_element")
         stamp("12")
+    if "13" in only:
+        b1_shard, worst_shard = phase_sharded(
+            torch, times_b1, {r["deck"]: r for r in b1_runs + b2_runs})
+        b1_runs += b1_shard
+        worst_b1 = max(worst_b1, worst_shard)
+        _print_bounds({k: v for k, v in times_b1.items()
+                       if k in SHARD_SHAPES}, "gls_element")
+        stamp("13")
     if only != set(PHASES):
         print(f"phases {sorted(only)} passed; no contract line")
         return 0

@@ -36,6 +36,14 @@ line a Q1 field is linear between its nodes, so the value is exact.
 A Kelly deck prints its cells per cycle as the solver's own
 ``Mesh adaptation`` lines.  ``--l2`` prints the L2 errors of the final
 solution against the deck's analytical solution at the final time.
+
+``--shards N`` runs a GLS deck through the JAX package's multi-device
+CLI path (``apps/common.py::_run_sharded``, ``ShardedGLSSolver`` over N
+devices) and counts its solves; on the CPU the N devices are virtual:
+
+    JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=4 \
+        PYTHONPATH=<repo> python3 <repo>/scripts/jax_newton_counts.py \
+        mms_q2_r8.prm 2 --shards 4
 """
 
 import sys
@@ -56,9 +64,48 @@ def centerline_u(nodes, u):
     return np.interp(GHIA_Y, nodes[on, 1][order], u[on, 0][order])
 
 
+def sharded(deck: str, dim: int, shards: int, record, total) -> None:
+    """The deck through the JAX CLI over ``shards`` devices, every
+    sharded nonlinear solve counted (BDF steps, SDIRK stages, a steady
+    solve)."""
+    import types
+
+    import jax
+
+    from softx_2020_200_tpu.apps.common import run_app
+    from softx_2020_200_tpu.parallel.sharded import ShardedGLSSolver
+    if len(jax.devices()) < shards:
+        raise SystemExit(f"need {shards} devices, have {len(jax.devices())}")
+
+    def counted(name, pick):
+        inner = getattr(ShardedGLSSolver, name)
+
+        def run(self, *args, **kwargs):
+            out = inner(self, *args, **kwargs)
+            hist, iters, lin = pick(out)
+            record(types.SimpleNamespace(
+                n_iterations=np.asarray(iters).reshape(-1)[0],
+                linear_iters=np.asarray(lin).reshape(-1)[0],
+                res_history=np.asarray(hist).reshape(-1, np.shape(hist)[-1])[0]))
+            return out
+
+        setattr(ShardedGLSSolver, name, run)
+
+    counted("bdf_step", lambda out: out[2:5])
+    counted("solve_local", lambda out: out[1:4])
+    counted("solve", lambda out: out[1:4])
+    print(f"{shards} devices: {jax.devices()[:shards]}", flush=True)
+    run_app(dim, [deck, str(shards)])
+    n = max(total["newton"], 1)
+    print(f"total: {total['solves']} solves, {total['newton']} Newton, "
+          f"{total['krylov']} Krylov iterations, "
+          f"{total['krylov'] / n:.2f} per Newton iteration")
+
+
 def main(deck: str, dim: int, solver: str = "gls",
          pallas_interpret: bool = False, frozen_tau: bool = False,
-         centerline: bool = False, l2: bool = False) -> None:
+         centerline: bool = False, l2: bool = False,
+         shards: int = 1) -> None:
     if solver == "gd":
         from softx_2020_200_tpu.solvers.gd import GDNavierStokesSolver as cls
     else:
@@ -84,6 +131,8 @@ def main(deck: str, dim: int, solver: str = "gls",
         return res
 
     cls._newton = counted
+    if shards > 1:
+        return sharded(deck, dim, shards, record, total)
     if hasattr(cls, "solve_steady_ptc"):
         ptc = cls.solve_steady_ptc
 
@@ -128,8 +177,13 @@ def main(deck: str, dim: int, solver: str = "gls",
 
 if __name__ == "__main__":
     flags = ("--pallas-interpret", "--frozen-tau", "--centerline", "--l2")
-    args = [a for a in sys.argv[1:] if a not in flags]
+    argv = sys.argv[1:]
+    shards = 1
+    if "--shards" in argv:
+        i = argv.index("--shards")
+        shards = int(argv[i + 1])
+        argv = argv[:i] + argv[i + 2:]
+    args = [a for a in argv if a not in flags]
     main(args[0], int(args[1]), *args[2:3],
-         pallas_interpret=flags[0] in sys.argv[1:],
-         frozen_tau=flags[1] in sys.argv[1:],
-         centerline=flags[2] in sys.argv[1:], l2=flags[3] in sys.argv[1:])
+         pallas_interpret=flags[0] in argv, frozen_tau=flags[1] in argv,
+         centerline=flags[2] in argv, l2=flags[3] in argv, shards=shards)

@@ -117,21 +117,28 @@ class GDVelocityLevel:
         """Closed-form assembled node-diagonal blocks [N, d, d] (row:
         equation component, column: unknown component)."""
         d = self.dim
-        B2 = self.B * self.B                                # [q, n]
-        # scalar-diagonal contributions: mass + advection + viscosity
-        m = torch.einsum("qE,qn->nE", self.scale, B2)
-        adv = torch.einsum("qE,qn,qniE,qiE->nE",
-                           self.scale, self.B, self.gB, uq)
-        lap = torch.einsum("qE,qniE,qniE->nE", self.scale, self.gB, self.gB)
-        diag = alpha0 * m + adv + self.nu * lap             # [n, E]
-        # tensor contributions: reaction grad(u) + grad-div
-        react = torch.einsum("qE,qn,qdiE->ndiE", self.scale, B2, guq)
-        gdiv = self.gamma * torch.einsum("qE,qndE,qniE->ndiE",
-                                         self.scale, self.gB, self.gB)
-        blocks = (react + gdiv
-                  + diag[:, None, None, :] * self.eye[None, :, :, None])
+        blocks = element_velocity_blocks(self.B, self.gB, self.scale, uq,
+                                         guq, alpha0, self.nu, self.gamma,
+                                         self.eye)
         out = self._assemble(blocks.reshape(self.nn, d * d, -1))
         return out.reshape(self.N, d, d)
+
+
+def element_velocity_blocks(B, gB, scale, uq, guq, alpha0, nu, gamma, eye):
+    """The node-diagonal blocks of each element's velocity Jacobian in
+    closed form, [nn, d, d, E] (row: equation component, column: unknown
+    component), from the basis B [q, nn], the physical gradients
+    gB [q, nn, i, E], det J * w [q, E] and the state uq, guq."""
+    B2 = B * B                                              # [q, n]
+    # scalar-diagonal contributions: mass + advection + viscosity
+    m = torch.einsum("qE,qn->nE", scale, B2)
+    adv = torch.einsum("qE,qn,qniE,qiE->nE", scale, B, gB, uq)
+    lap = torch.einsum("qE,qniE,qniE->nE", scale, gB, gB)
+    diag = alpha0 * m + adv + nu * lap                      # [n, E]
+    # tensor contributions: reaction grad(u) + grad-div
+    react = torch.einsum("qE,qn,qdiE->ndiE", scale, B2, guq)
+    gdiv = gamma * torch.einsum("qE,qndE,qniE->ndiE", scale, gB, gB)
+    return react + gdiv + diag[:, None, None, :] * eye[None, :, :, None]
 
 
 # ----------------------------------------------------------------------

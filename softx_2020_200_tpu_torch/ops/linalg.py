@@ -40,8 +40,26 @@ def _identity(x):
     return x
 
 
-def _norm(a):
-    return torch.sqrt(torch.sum(a * a))
+def _reduce(x, reduce_fn):
+    return x if reduce_fn is None else reduce_fn(x)
+
+
+def norm(a, reduce_fn=None):
+    """||a||_2 of a tensor, or of a sharded vector with ``reduce_fn``."""
+    return torch.sqrt(_reduce((a * a).sum(), reduce_fn))
+
+
+def _zeros_like(b):
+    return torch.zeros_like(b) if isinstance(b, torch.Tensor) \
+        else b.zeros_like()
+
+
+def _rows(b, k: int, zero: bool = False):
+    """Storage for ``k`` vectors shaped as the flat vector ``b``."""
+    if isinstance(b, torch.Tensor):
+        size = (k, b.shape[0])
+        return b.new_zeros(size) if zero else b.new_empty(size)
+    return b.rows(k, zero)
 
 
 def _back_substitute(R, g):
@@ -55,14 +73,17 @@ def _back_substitute(R, g):
 
 def gmres(matvec, b, x0=None, *, precond=None, m: int = 30,
           max_restarts: int = 10, atol: float = 1e-12,
-          flexible: bool = False, sync: HostSync | None = None):
+          flexible: bool = False, sync: HostSync | None = None,
+          reduce_fn=None):
     """Solve A x = b with restarted right-preconditioned GMRES(m).
 
-    matvec:   v -> A v              (flat vectors [n])
-    precond:  v -> M^{-1} v         (defaults to identity)
-    atol:     absolute residual-norm target
-    flexible: FGMRES — store the preconditioned vectors Z_j so the
-              preconditioner may vary between applications
+    matvec:    v -> A v              (flat vectors [n])
+    precond:   v -> M^{-1} v         (defaults to identity)
+    atol:      absolute residual-norm target
+    flexible:  FGMRES — store the preconditioned vectors Z_j so the
+               preconditioner may vary between applications
+    reduce_fn: the cross-shard sum of inner products (None on one
+               device)
 
     Returns (x, rnorm, iterations, cycles); ``rnorm`` is the Givens
     estimate, ``cycles`` the number of Arnoldi cycles run (each after the
@@ -70,21 +91,20 @@ def gmres(matvec, b, x0=None, *, precond=None, m: int = 30,
     """
     precond = precond or _identity
     sync = sync if sync is not None else HostSync()
-    x = torch.zeros_like(b) if x0 is None else x0
-    n = b.shape[0]
+    x = _zeros_like(b) if x0 is None else x0
     r = b - matvec(x)
-    rnorm = sync(_norm(r))
+    rnorm = sync(norm(r, reduce_fn))
     iters = 0
     restarts = 0
     while rnorm > atol and restarts < max_restarts:
         if restarts > 0:
             r = b - matvec(x)
-            beta = sync(_norm(r))
+            beta = sync(norm(r, reduce_fn))
         else:
             beta = rnorm
-        V = b.new_empty((m + 1, n))
+        V = _rows(b, m + 1)
         V[0] = r / max(beta, 1e-300)
-        Z = b.new_empty((m, n)) if flexible else None
+        Z = _rows(b, m) if flexible else None
         Hc = np.zeros((m + 1, m))
         cs = np.zeros(m)
         sn = np.zeros(m)
@@ -99,11 +119,11 @@ def gmres(matvec, b, x0=None, *, precond=None, m: int = 30,
             w = matvec(z)
             Vj = V[:j + 1]
             # CGS2: two passes of projection against V[0..j]
-            h1 = Vj @ w
+            h1 = _reduce(Vj @ w, reduce_fn)
             w = w - h1 @ Vj
-            h2 = Vj @ w
+            h2 = _reduce(Vj @ w, reduce_fn)
             w = w - h2 @ Vj
-            col = sync(torch.cat([h1 + h2, _norm(w)[None]]))
+            col = sync(torch.cat([h1 + h2, norm(w, reduce_fn)[None]]))
             hnext = col[-1]
             V[j + 1] = w / max(hnext, 1e-300)
             h = np.zeros(m + 1)
@@ -138,7 +158,7 @@ def gmres(matvec, b, x0=None, *, precond=None, m: int = 30,
 
 
 def gmres_fixed(matvec, b, x0=None, *, precond=None, m: int = 4,
-                flexible: bool = False):
+                flexible: bool = False, reduce_fn=None):
     """One cycle of ``m`` right-preconditioned (F)GMRES steps that reads
     nothing back from the device: the multigrid smoother, bottom solve
     and K-cycle, where the JAX package calls its GMRES with
@@ -153,14 +173,15 @@ def gmres_fixed(matvec, b, x0=None, *, precond=None, m: int = 4,
     """
     atol = 1e-30
     precond = precond or _identity
-    x = torch.zeros_like(b) if x0 is None else x0
+    x = _zeros_like(b) if x0 is None else x0
     r = b if x0 is None else b - matvec(x0)
     tiny = 1e-300 if b.dtype == torch.float64 else 1e-30
-    beta = _norm(r)
-    V = b.new_zeros((m + 1, b.shape[0]))
+    beta = norm(r, reduce_fn)
+    V = _rows(b, m + 1, zero=True)
     V[0] = r / torch.clamp_min(beta, tiny)
-    Z = b.new_empty((m, b.shape[0])) if flexible else None
-    H = b.new_zeros((m + 1, m))
+    Z = _rows(b, m) if flexible else None
+    small = dict(dtype=b.dtype, device=b.device)
+    H = torch.zeros((m + 1, m), **small)
     for j in range(m):
         z = precond(V[j])
         if flexible:
@@ -168,16 +189,16 @@ def gmres_fixed(matvec, b, x0=None, *, precond=None, m: int = 4,
         w = matvec(z)
         Vj = V[:j + 1]
         # CGS2: two passes of projection against V[0..j]
-        h1 = Vj @ w
+        h1 = _reduce(Vj @ w, reduce_fn)
         w = w - h1 @ Vj
-        h2 = Vj @ w
+        h2 = _reduce(Vj @ w, reduce_fn)
         w = w - h2 @ Vj
-        hnext = _norm(w)
+        hnext = norm(w, reduce_fn)
         V[j + 1] = w / torch.clamp_min(hnext, tiny)
         H[:j + 1, j] = h1 + h2
         H[j + 1, j] = hnext
     # Givens rotations, in the order the JAX loop applies them
-    g = b.new_zeros(m + 1)
+    g = torch.zeros(m + 1, **small)
     g[0] = beta
     before = [beta]                  # residual before each step
     for j in range(m):
@@ -206,39 +227,43 @@ def gmres_fixed(matvec, b, x0=None, *, precond=None, m: int = 4,
 
 
 def bicgstab(matvec, b, x0=None, *, precond=None, max_iters: int = 1000,
-             atol: float = 1e-12, sync: HostSync | None = None):
+             atol: float = 1e-12, sync: HostSync | None = None,
+             reduce_fn=None):
     """Right-preconditioned BiCGStab (reference: solve_system_BiCGStab).
     Returns (x, rnorm, iterations)."""
     precond = precond or _identity
     sync = sync if sync is not None else HostSync()
-    x = torch.zeros_like(b) if x0 is None else x0
+    x = _zeros_like(b) if x0 is None else x0
     tiny = 1e-300
 
     def safe(a):
         return torch.where(a == 0, torch.full_like(a, tiny), a)
 
+    def dot(a, c):
+        return _reduce((a * c).sum(), reduce_fn)
+
     r = b - matvec(x)
     rhat = r
-    p = torch.zeros_like(b)
-    v = torch.zeros_like(b)
+    p = _zeros_like(b)
+    v = _zeros_like(b)
     one = torch.ones((), dtype=b.dtype, device=b.device)
     rho, alpha, omega = one, one, one
-    rnorm = sync(_norm(r))
+    rnorm = sync(norm(r, reduce_fn))
     k = 0
     while rnorm > atol and k < max_iters:
-        rho_new = torch.sum(rhat * r)
+        rho_new = dot(rhat, r)
         beta = (rho_new / safe(rho)) * (alpha / safe(omega))
         p = r + beta * (p - omega * v)
         ph = precond(p)
         v = matvec(ph)
-        alpha = rho_new / safe(torch.sum(rhat * v))
+        alpha = rho_new / safe(dot(rhat, v))
         s_vec = r - alpha * v
         sh = precond(s_vec)
         t = matvec(sh)
-        omega = torch.sum(t * s_vec) / safe(torch.sum(t * t))
+        omega = dot(t, s_vec) / safe(dot(t, t))
         x = x + alpha * ph + omega * sh
         r = s_vec - omega * t
         rho = rho_new
-        rnorm = sync(_norm(r))
+        rnorm = sync(norm(r, reduce_fn))
         k += 1
     return x, rnorm, k

@@ -319,7 +319,7 @@ def build_hierarchy(solver, min_elems: int = 256) -> list[Level]:
 
 def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
                 smoother: str = "jacobi", krylov_m: int = 4,
-                cycle: str = "v"):
+                cycle: str = "v", level_offset: int = 0):
     """Return builder(u, uprev, fq, alpha0, sdt, fine_mask, pstate=None)
     -> apply(v): one multigrid cycle of the hierarchy, linearized at u.
 
@@ -331,6 +331,10 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
     recursive cycle).  The w/k wrap applies to the first
     ``CYCLE_LEVELS`` coarse levels.  The bottom solve is
     GMRES(``coarse_iters``) preconditioned by block-Jacobi.
+    ``level_offset`` 1 says that ``levels[0]`` is the first coarse level
+    of a larger hierarchy whose finest level lives elsewhere (the
+    sharded path, ``parallel/sharded.py``): the cycle is then that
+    level's coarse correction, wrapped as its parent's would be.
 
     ``builder.state(u, uprev, fq, alpha0, sdt, fine_mask)`` returns the
     once-per-linearization state (per level: the operator's
@@ -409,7 +413,8 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
         def coarse_correct(level, rc):
             """The level-``level`` correction inside the parent cycle:
             plain recursion (v), doubled (w), or FGMRES-wrapped (k)."""
-            wrapped = (cycle in ("w", "k") and level <= CYCLE_LEVELS
+            wrapped = (cycle in ("w", "k")
+                       and level + level_offset <= CYCLE_LEVELS
                        and level + 1 < n_levels)
             if not wrapped:
                 return vcycle(level, rc)
@@ -419,6 +424,8 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
             return solve(level, rc, CYCLE_M, lambda x: vcycle(level, x),
                          flexible=True)
 
+        if level_offset:
+            return lambda v: coarse_correct(0, v)
         return lambda v: vcycle(0, v)
 
     builder.state = build_state

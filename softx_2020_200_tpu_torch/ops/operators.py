@@ -27,18 +27,23 @@ class AssemblyMap:
     max_multiplicity: int
 
 
-def build_assembly_map(elem_nodes: np.ndarray, n_nodes: int) -> AssemblyMap:
+def build_assembly_map(elem_nodes: np.ndarray, n_nodes: int,
+                       exclude_node: int | None = None) -> AssemblyMap:
     """Host-side construction of the gather-based assembly map (the
     native meshkit builds it when the library compiles; NumPy
-    otherwise)."""
+    otherwise).  ``exclude_node`` drops the contributions to that node
+    (a shard layout's trash slot, which its padding elements name)."""
     E, nn = elem_nodes.shape
     flat_nodes = elem_nodes.reshape(-1).astype(np.int64)
+    if exclude_node is not None:
+        flat_nodes = np.where(flat_nodes == exclude_node, n_nodes,
+                              flat_nodes)
     counts = np.bincount(flat_nodes[flat_nodes < n_nodes],
                          minlength=n_nodes)
     M = int(counts.max()) if counts.size else 0
 
     from ..native import assembly_map as native_amap
-    nat = native_amap(elem_nodes, n_nodes, None, max(M, 1), E * nn)
+    nat = native_amap(elem_nodes, n_nodes, exclude_node, max(M, 1), E * nn)
     if nat is not None:
         idx, used = nat
         return AssemblyMap(idx=torch.from_numpy(idx.astype(np.int64)),

@@ -1039,7 +1039,12 @@ class GLSNavierStokesSolver:
         """The JAX package's checkpoint: ``<output path>/<filename>.npz``
         with the control and PVD state as JSON, the space's size and
         degree, u and the BDF history (newest first) in the run's dtype,
-        and on a forest its leaves and base mesh; written atomically."""
+        and on a forest its leaves and base mesh; written atomically.
+        ``u`` None writes the manifest alone: a run over shards keeps the
+        fields in per-shard files (``parallel/sharded.py``)."""
+        fields = {} if u is None else dict(
+            u=u.detach().cpu().numpy(),
+            previous=np.stack([p.detach().cpu().numpy() for p in previous]))
         extras = ({} if self.forest is None
                   else forest_checkpoint(self.forest))
         with self.timer.section("checkpoint"):
@@ -1048,15 +1053,14 @@ class GLSNavierStokesSolver:
                 control=json.dumps(self.control.serialize()),
                 pvd=json.dumps(self.pvd.serialize()),
                 n_nodes=self.space.n_nodes, degree=self.space.degree,
-                u=u.detach().cpu().numpy(),
-                previous=np.stack([p.detach().cpu().numpy()
-                                   for p in previous]), **extras)
+                **fields, **extras)
 
     def read_checkpoint(self):
         """Restore the control and PVD state, and a checkpointed forest
         (the mesh and operator are rebuilt on it); returns (u, previous)
         in the run's dtype and device, from a checkpoint of either
-        package (float32 or float64)."""
+        package (float32 or float64), or (None, None) from a manifest
+        whose fields are in per-shard files."""
         data = load_checkpoint(checkpoint_path(self.prm))
         if "forest_leaves" in data:
             mesh, self._elem_of, ncf = restore_forest(self.forest, data)
@@ -1066,6 +1070,8 @@ class GLSNavierStokesSolver:
             raise ValueError("checkpoint does not match current mesh/space")
         self.control.deserialize(json.loads(str(data["control"])))
         self.pvd.deserialize(json.loads(str(data["pvd"])))
+        if "u" not in data:
+            return None, None
         kw = dict(dtype=self.dtype, device=self.device)
         return (torch.as_tensor(data["u"], **kw),
                 [torch.as_tensor(p, **kw) for p in data["previous"]])

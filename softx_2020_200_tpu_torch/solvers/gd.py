@@ -391,6 +391,7 @@ class GDNavierStokesSolver:
         self._torque_tables: dict[int, Table] = {}
         self.tables: dict[str, list] = {"ke": [], "enstrophy": []}
         self.stats = new_stats()
+        self._sharded_hook = None
         self.forest = None
         self._elem_of = None
         self._nc_faces = []
@@ -561,8 +562,17 @@ class GDNavierStokesSolver:
     def _newton(self, x0, combo, t, alpha0):
         """One nonlinear solve (steady: alpha0 = 0).  The GD weak form
         has no stabilization parameter, so the time step enters only
-        through alpha0 and ``combo``."""
+        through alpha0 and ``combo``.  A ``_sharded_hook`` (set by the
+        apps for N shards, ``parallel/sharded_gd.py``) takes the solve
+        over: ``hook(x0, combo, t, alpha0) -> NewtonResult`` with the
+        global solution; the orchestration around it stays the
+        engine's."""
         t0 = _time.perf_counter()
+        if self._sharded_hook is not None:
+            res = self._sharded_hook(x0, combo, t, alpha0)
+            record_solve(self.stats, res, _time.perf_counter() - t0,
+                         self.newton_cfg.tolerance)
+            return res
         op, mask = self.op, self._mask
         x0 = torch.where(mask, self._bc_values_flat(t), x0)
         x0 = self._hc_distribute(x0)

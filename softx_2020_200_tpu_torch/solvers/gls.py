@@ -134,7 +134,8 @@ class GLSOperator(nn.Module):
                  stab: StabFlags = StabFlags(), *,
                  dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cuda",
-                 state_dtype: torch.dtype | None = None):
+                 state_dtype: torch.dtype | None = None,
+                 lattice: bool = True):
         super().__init__()
         if state_dtype not in (None, torch.bfloat16):
             raise ValueError(f"Jacobian state dtype {state_dtype}: None "
@@ -175,7 +176,7 @@ class GLSOperator(nn.Module):
 
         # the lattice path: a structured block of translates of one box
         self.layout = None
-        if space.mesh.structured_shape is not None:
+        if lattice and space.mesh.structured_shape is not None:
             layout = StructuredLayout(space)
             xe_grid = layout.elem_coords_grid_order()
             if is_translate_lattice(xe_grid, G):

@@ -6,6 +6,10 @@ line search on ||R||; update } until ||R|| < tol, with the JAX package's
 stall guard, best-iterate tracking and skip-Newton.  The loop runs on the
 host: every convergence check reads one number from the device, and the
 driver counts those reads (``NewtonResult.host_syncs``).
+
+``reduce_fn`` is the JAX package's cross-shard hook: over shards
+(``parallel/sharded.py``) the state is a ``ShardVec`` and ``reduce_fn``
+adds the shards' partial sums of every norm and Krylov inner product.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from ..ops.linalg import HostSync, bicgstab, gmres
+from ..ops.linalg import HostSync, bicgstab, gmres, norm
 
 
 @dataclass(frozen=True)
@@ -54,7 +58,7 @@ class NewtonResult(NamedTuple):
 
 
 def linear_solve(jv, precond, R, rnorm: float, config: NewtonConfig,
-                 sync: HostSync):
+                 sync: HostSync, reduce_fn=None):
     """The Newton direction: solve J d = -R to ``max(relative_residual *
     rnorm, minimum_residual)`` with ``jv`` (v[N, c] -> J v) and
     ``precond`` (v[N, c] -> M^-1 v).  Returns (d[N, c], the linear
@@ -73,37 +77,33 @@ def linear_solve(jv, precond, R, rnorm: float, config: NewtonConfig,
         d, lin_rn, lin_it = bicgstab(
             matvec, -R.reshape(-1), precond=pre_flat,
             max_iters=config.gmres_restart * config.max_krylov_cycles,
-            atol=lin_atol, sync=sync)
+            atol=lin_atol, sync=sync, reduce_fn=reduce_fn)
         cycles = 1
     else:
         d, lin_rn, lin_it, cycles = gmres(
             matvec, -R.reshape(-1), precond=pre_flat,
             m=config.gmres_restart,
             max_restarts=config.max_krylov_cycles, atol=lin_atol,
-            flexible=config.flexible, sync=sync)
+            flexible=config.flexible, sync=sync, reduce_fn=reduce_fn)
     return d.reshape(shape), lin_rn, lin_atol, lin_it, cycles
 
 
 def line_search(residual_fn, u, d, rnorm: float, config: NewtonConfig,
-                sync: HostSync):
+                sync: HostSync, reduce_fn=None):
     """The alpha-halving line search on ||R(u + alpha d)||: halve while
     the norm does not fall below ``rnorm``, at most ``max_halvings``
     times, and take the last step tried.  Returns (u + alpha d, its
     residual, the norm, alpha, residual evaluations)."""
     alpha = 1.0
     Rt = residual_fn(u + d)
-    nt = sync(_norm(Rt))
+    nt = sync(norm(Rt, reduce_fn))
     k = 0
     while nt >= rnorm and k < config.max_halvings:
         alpha *= 0.5
         Rt = residual_fn(u + alpha * d)
-        nt = sync(_norm(Rt))
+        nt = sync(norm(Rt, reduce_fn))
         k += 1
     return u + alpha * d, Rt, nt, alpha, 1 + k
-
-
-def _norm(R):
-    return torch.sqrt(torch.sum(R * R))
 
 
 def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
@@ -112,7 +112,8 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
                  precond_state_fn: Callable | None = None,
                  precond_apply_fn: Callable | None = None,
                  on_linear_stall: Callable[[], bool] | None = None,
-                 sync: HostSync | None = None) -> NewtonResult:
+                 sync: HostSync | None = None,
+                 reduce_fn=None) -> NewtonResult:
     """Solve R(u) = 0.
 
     residual_fn:     u[N, c] -> R[N, c] (constrained; zero at Dirichlet)
@@ -128,6 +129,9 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
     ``on_linear_stall()`` runs when a linear solve ends above its
     tolerance; if it returns True (it changed what ``precond_builder``
     builds) the Newton iteration is retried.
+
+    ``reduce_fn`` (None on one device) adds the shards' partial sums of
+    every norm and inner product.
     """
     sync = sync if sync is not None else HostSync()
     start = sync.count
@@ -136,7 +140,7 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
     stateful = precond_state_fn is not None
 
     R = residual_fn(u0)
-    rnorm = sync(_norm(R))
+    rnorm = sync(norm(R, reduce_fn))
     hist = np.full(maxit + 1, np.nan)
     alphas = np.full(maxit, np.nan)
     hist[0] = rnorm
@@ -159,14 +163,14 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
         else:
             precond = precond_builder(u)
         d, lin_rn, lin_atol, lin_it, cycles = linear_solve(
-            jv, precond, R, rnorm, config, sync)
+            jv, precond, R, rnorm, config, sync, reduce_fn)
         restarts += max(cycles - 1, 0)
         lin_total += lin_it
         if (lin_rn > lin_atol and on_linear_stall is not None
                 and on_linear_stall()):
             continue
         u, R, rnorm, alpha, evals = line_search(residual_fn, u, d, rnorm,
-                                                config, sync)
+                                                config, sync, reduce_fn)
         ls_evals += evals
         alphas[it] = alpha
         it += 1

@@ -5,7 +5,10 @@ diff (``tests/test_golden_apps.py::numdiff``, rtol 2e-3), the Kelly
 deck's among them, and prints what the JAX package's CLI prints on
 decks with SDIRK, pseudo-transient continuation, checkpoints, additive
 Schwarz and Kelly adaptation; a checkpoint of an adapted forest
-restarts in either package.
+restarts in either package.  Over N shards on the CPU (``deck.prm N
+--device cpu``) it reproduces the JAX package's multi-device goldens
+(``tests/test_golden_apps.py``, the ``*_np8`` and ``kelly_np4`` decks,
+the GD deck 8-way and the restart across shard counts).
 """
 
 import contextlib
@@ -309,9 +312,93 @@ def test_forest_checkpoint_restarts_across_packages(writer, reader,
 
 
 def test_cli_device_and_device_count(tmp_path, monkeypatch):
+    """N shards on ``--device cpu`` print the golden; N on ``--device
+    cuda`` need N cards; one device on CUDA needs CUDA."""
     deck = os.path.join(GOLDEN_DIR, "couette_gls.prm")
-    with pytest.raises(NotImplementedError, match="one device"):
-        _run(2, [deck, "2", "--device", "cpu"], tmp_path, monkeypatch)
+    out = _run(2, [deck, "2", "--device", "cpu", "--dtype", "float64"],
+               tmp_path, monkeypatch)
+    with open(os.path.join(GOLDEN_DIR, "couette_gls.output")) as fh:
+        numdiff(out, fh.read())
+    if torch.cuda.device_count() < 2:
+        with pytest.raises(RuntimeError, match="need 2 devices"):
+            _run(2, [deck, "2"], tmp_path, monkeypatch)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             _run(2, [deck], tmp_path, monkeypatch)
+
+
+# lines the port's CLI prints outside test mode that the JAX package's
+# does not
+_PORT_ONLY = ("linear solver: ", "Newton summary: ")
+
+
+def _run_shards(name, n, tmp_path, monkeypatch, solver="gls"):
+    """The golden deck ``name`` over ``n`` shards on the CPU in float64
+    (``n`` = 1: one device): its output without the port-only lines."""
+    deck = os.path.join(GOLDEN_DIR, name + ".prm")
+    argv = [deck] + ([str(n)] if n > 1 else []) + ["--device", "cpu",
+                                                   "--dtype", "float64"]
+    out = _run(2, argv, tmp_path, monkeypatch, solver=solver)
+    return "\n".join(ln for ln in out.splitlines()
+                     if not ln.startswith(_PORT_ONLY))
+
+
+@pytest.mark.parametrize("name,solver", [("mms_bdf2_np8", "gls"),
+                                         ("gd_mms_bdf2", "gd")])
+def test_cli_sharded_reproduces_golden_output(name, solver, tmp_path,
+                                              monkeypatch):
+    """8 shards print the golden (``test_golden_mms_bdf2_multidevice``,
+    ``test_golden_gd_mms_bdf2_sharded``)."""
+    out = _run_shards(name, 8, tmp_path, monkeypatch, solver)
+    with open(os.path.join(GOLDEN_DIR, name + ".output")) as fh:
+        numdiff(out, fh.read())
+
+
+@pytest.mark.parametrize("name,n,rtol,atol", [
+    ("sdirk_np8", 8, 1e-5, 1e-9), ("adaptive_np8", 8, 1e-5, 1e-9),
+    ("kelly_np4", 4, 2e-3, 1e-7)])
+def test_cli_sharded_matches_one_device(name, n, rtol, atol, tmp_path,
+                                        monkeypatch):
+    """SDIRK2 stages, CFL-adaptive dt (the sharded CFL reduction drives
+    the dt sequence) and transient Kelly adaptation (gather, adapt,
+    re-shard on the forest, hanging rows per shard): N shards print what
+    one device prints, under the JAX package's tolerances."""
+    (tmp_path / "one").mkdir()
+    one = _run_shards(name, 1, tmp_path / "one", monkeypatch)
+    out = _run_shards(name, n, tmp_path, monkeypatch)
+    numdiff(out, one, rtol=rtol, atol=atol)
+
+
+def test_cli_sharded_restart_across_shard_counts(tmp_path, monkeypatch):
+    """Per-shard checkpoints (``test_golden_restart_sharded_cross_device_
+    count``): leg a 4-way writes the manifest and one file per shard,
+    never the global field; the JAX package's reader gives the port's
+    stacks from those files; leg b restores 8-way and prints the restart
+    golden."""
+    import numpy as np
+
+    from softx_2020_200_tpu.parallel.sharded import \
+        ShardedGLSSolver as JaxSharded
+    from softx_2020_200_tpu_torch.core.parameters import \
+        SimulationParameters
+    from softx_2020_200_tpu_torch.parallel.sharded import ShardedGLSSolver
+    from softx_2020_200_tpu_torch.solvers.base import GLSNavierStokesSolver
+    _run_shards("restart_adaptive_a", 4, tmp_path, monkeypatch)
+    assert (tmp_path / "restart_adaptive.shard3.npz").exists()
+    assert not (tmp_path / "restart_adaptive.shard4.npz").exists()
+    man = np.load(tmp_path / "restart_adaptive.npz")
+    assert "u" not in man and "previous" not in man
+    prm = SimulationParameters.from_file(
+        os.path.join(GOLDEN_DIR, "restart_adaptive_b.prm"), dim=2)
+    s = GLSNavierStokesSolver(prm, device="cpu", dtype=torch.float64)
+    layout = ShardedGLSSolver.from_solver(s, ["cpu"] * 8).layout
+    path = str(tmp_path / "restart_adaptive")
+    got = ShardedGLSSolver.read_checkpoint_shards(path, layout,
+                                                  torch.float64)
+    want = JaxSharded.read_checkpoint_shards(path, layout, np.float64)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a, b)
+    assert np.abs(got[0]).max() > 0
+    out = _run_shards("restart_adaptive_b", 8, tmp_path, monkeypatch)
+    with open(os.path.join(GOLDEN_DIR, "restart_adaptive_b.output")) as fh:
+        numdiff(out, fh.read())

@@ -39,7 +39,7 @@ COPIES = ["core/prm.py", "core/parameters.py", "core/bdf.py",
           "core/pvd_handler.py", "core/timer.py", "fem/quadrature.py",
           "fem/basis.py", "fem/mesh.py", "fem/dof.py", "fem/forest.py",
           "fem/gmsh_io.py", "solvers/kelly.py", "utils/tables.py",
-          "utils/vtu.py", "native.py",
+          "utils/vtu.py", "native.py", "parallel/partition.py",
           "apps/navier_stokes_parameter_template.py"]
 
 # what a copy may leave out of its original: code that needs jax
@@ -193,12 +193,13 @@ def test_parameter_template_roundtrips(capsys):
 
 
 def test_apps_never_import_jax(tmp_path):
-    """Importing the port's apps and kernel, lattice and multigrid
-    modules, and running tiny GLS and GD decks on the CPU (lattices: the
-    strided layout and the lattice kernels' plain versions; SDIRK2 with
-    additive Schwarz and a checkpoint, a restart of it, pseudo-transient
-    continuation; Kelly cycles on a forest with forest multigrid) leaves
-    jax out of sys.modules."""
+    """Importing the port's apps and kernel, lattice, multigrid and
+    sharded modules, and running tiny GLS and GD decks on the CPU
+    (lattices: the strided layout and the lattice kernels' plain
+    versions; SDIRK2 with additive Schwarz and a checkpoint, a restart of
+    it, pseudo-transient continuation; Kelly cycles on a forest with
+    forest multigrid; the Couette and GD decks over 2 shards) leaves jax
+    out of sys.modules."""
     decks = {}
     sdirk = [("time end      = 0.2", "time end      = {end}"),
              ("subsection linear solver\n", "subsection linear solver\n"
@@ -228,14 +229,17 @@ def test_apps_never_import_jax(tmp_path):
             text = text.replace(old, new)
         decks[name].write_text(text)
     runs = "".join(
-        f"rc = {app}.main([{str(decks[name])!r}] + args)\n"
+        f"rc = {app}.main([{str(decks[name])!r}] + {shards} + args)\n"
         "assert rc == 0\n"
-        for app, name in (("gls_navier_stokes_2d", "couette_gls"),
-                          ("gd_navier_stokes_2d", "gd_mms_bdf2"),
-                          ("gls_navier_stokes_2d", "couette_ptc"),
-                          ("gls_navier_stokes_2d", "sdirk_a"),
-                          ("gls_navier_stokes_2d", "sdirk_b"),
-                          ("gls_navier_stokes_2d", "kelly_steady")))
+        for app, name, shards in (
+            ("gls_navier_stokes_2d", "couette_gls", []),
+            ("gd_navier_stokes_2d", "gd_mms_bdf2", []),
+            ("gls_navier_stokes_2d", "couette_ptc", []),
+            ("gls_navier_stokes_2d", "sdirk_a", []),
+            ("gls_navier_stokes_2d", "sdirk_b", []),
+            ("gls_navier_stokes_2d", "kelly_steady", []),
+            ("gls_navier_stokes_2d", "couette_gls", ["2"]),
+            ("gd_navier_stokes_2d", "gd_mms_bdf2", ["2"])))
     code = (
         "import sys\n"
         "pre = {m for m in sys.modules if m.split('.')[0] == 'jax'}\n"
@@ -248,6 +252,8 @@ def test_apps_never_import_jax(tmp_path):
         "from softx_2020_200_tpu_torch.ops import (cuda_build, "
         "gd_multigrid, lattice_gd_kernel, lattice_kernel, multigrid, "
         "structured)\n"
+        "from softx_2020_200_tpu_torch.parallel import (partition, "
+        "sharded, sharded_gd)\n"
         "args = ['--device', 'cpu', '--dtype', 'float64']\n"
         + runs +
         "new = {m for m in sys.modules if m.split('.')[0] == 'jax'} - pre\n"
@@ -261,6 +267,7 @@ def test_apps_never_import_jax(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stdout + out.stderr
     assert "NO_JAX_OK" in out.stdout
-    # the Couette decks print one L2 line each, the GD deck one per step,
-    # the SDIRK legs one per step (two, then one after the restart)
-    assert out.stdout.count("L2 error velocity") == 8
+    # the Couette decks print one L2 line each, the GD deck one per step
+    # (three), the SDIRK legs one per step (two, then one after the
+    # restart); the Couette and GD decks again over 2 shards
+    assert out.stdout.count("L2 error velocity") == 12
