@@ -105,7 +105,28 @@ Phases (each prints its own lines; any failed check raises):
    shards' owned and ghost nodes, the bytes per refresh and its seconds
    per Newton iteration beside the 1-device run's; then B1 is compared
    and timed at every shard shape those runs launched.  ``--phases 13``
-   runs phases 7 and 12 first.
+   runs phases 7 and 12 first;
+14. the bf16 operand build (``GLSOperator`` and ``GDOperator`` with
+   ``dtype=torch.bfloat16``: every row, the direction, the tables and the
+   output in bf16, float32 arithmetic inside): (a) each bf16-operand
+   instance of B1 and B2 (primal, tangent, probe) and of B3 (primal,
+   tangent) against its plain version on the card (the bf16 operands
+   widened, the float32 plain kernel, the output rounded to bf16) within
+   ``BF16OP_RTOL`` of scale, on every route, in rows that take TMA and in
+   rows at a pitch that takes 4-byte cp.async, with E % 4 != 0 and below
+   one tile, B1 on non-affine meshes, B2 on a box and a sheared lattice
+   (whose REGISTERS launch is refused), B3 bounded, periodic and sheared;
+   (b) each at full width (B2 TGV 32^3 and the 64^3 box, B1 TC r5 and 3D
+   Q1 moved 32^3, B3 2D 256^2 and 3D 16^3), compared and timed beside the
+   float32 and the bf16-state tangent, the plain version and the bound;
+   (c) the bf16 operator's residual and tangent through gathers, kernel
+   and assembly at TGV 32^3 (B2), TC r5 (B1) and the GD cavity at 256^2
+   (B3), within ``BF16_OPERATOR_RTOL`` of the float32 operator, its launch
+   counters showing one primal_bf16op and one tangent_bf16op launch;
+   (d) the lattice matvec at the 64^3 box in three builds (float32,
+   float32 with a bf16 state, bf16 operands): seconds per matvec and
+   GDoF/s.  No deck selects the dtype, so these instances have no
+   main-path launches.  ``--phases 14`` runs the build and this phase.
 
 Phases 4-13 hold their physics numbers against the JAX package run on the
 CPU in float64 on the same decks (``JAX_REFERENCE`` below; where float32
@@ -114,7 +135,9 @@ which kernel each deck launched.  The line before the last lists the
 kernels with their launch counts in the main-path runs (in total and per
 shape and variant), errors, times (the kernel's, the plain version's and,
 with ``--parent``, the parent's; ``ms_parent`` is null without it) and
-bounds; the last line of standard output is the
+bounds, each kernel's bf16-operand instances with their own errors
+(``bf16op``) and, per shape, times and bounds; the last line of standard
+output is the
 JSON contract line ``{"ok": true, "device": {...}}``.  Exits non-zero
 without CUDA.
 """
@@ -840,23 +863,23 @@ def phase_build(parent=None) -> None:
         print(f" {os.path.relpath(source, ROOT)} -> "
               f"{os.path.relpath(build.path, ROOT)} ({build.seconds:.2f} s)")
         # ptxas reports each template instance <dim, [degree, points per
-        # axis,] mode[, split][, state bytes][, points per axis]> by its
-        # mangled name, then its spills and registers
+        # axis,] mode[, split][, state bytes], operand bytes[, points per
+        # axis]> by its mangled name, then its spills and registers
         entry = None
         for line in build.log.splitlines():
             inst = re.search(rf"({name}(?:_reg)?_kernel)I((?:Li\d+E)+)E",
                              line)
             if inst and "Compiling entry" in line:
                 args = re.findall(r"Li(\d+)E", inst.group(2))
-                # B1's STAGED instances end in their points per axis; B1's
-                # and B2's then in their state's bytes (4: f32, 2: bf16),
-                # and B1's register route, before it, in its threads per
-                # element
+                # B1's STAGED instances end in their points per axis; every
+                # instance then in its operands' bytes (4: f32, 2: bf16),
+                # B1's and B2's before it in their state's bytes, and B1's
+                # register route, before that, in its threads per element
                 points = (args.pop() if inst.group(1) == "gls_element_kernel"
                           else None)
-                state = ""
-                if name != "gd_lattice":
-                    state = " bf16" if args.pop() == "2" else ""
+                state = " bf16op" if args.pop() == "2" else ""
+                if name != "gd_lattice" and args.pop() == "2" and not state:
+                    state = " bf16"
                 split = (f" split={args.pop()}"
                          if inst.group(1) == "gls_element_reg_kernel" else "")
                 *shape, mode = args
@@ -878,22 +901,26 @@ def phase_build(parent=None) -> None:
     lattice_gd_kernel.get_build()
     # each variant's shared memory against the Python mirror (the CPU
     # tests hold that to the card's 227 KB), and its blocks per SM; the
-    # tangent and the probe with float32 and with bf16 state
+    # tangent and the probe with float32 and with bf16 state, every mode
+    # with bf16 operands (state and operand bytes: 4, 4; 2, 4; 2, 2)
     for name, mod in (("B1", gls_kernel), ("B2", lattice_kernel)):
         for shape in sorted(mod.SUPPORTED):
             variants = [(0, 1)]
             if shape in mod.REGISTER_SHAPES:
                 variants += [(1, n) for n in (gls_kernel.REG_SPLITS[shape[0]]
                                               if mod is gls_kernel else (1,))]
-            for (route, n), mode, sb in (
-                    (v, m, sb) for v in variants for m in range(3)
-                    for sb in ((4, 2) if m in mod.BF16_MODES else (4,))):
+            for (route, n), mode, (sb, ob) in (
+                    (v, m, b) for v in variants for m in range(3)
+                    for b in (((4, 4), (2, 4), (2, 2))
+                              if m in mod.BF16_MODES else ((4, 4), (2, 2)))):
                 extra = (n,) if mod is gls_kernel else ()
                 blocks, smem, threads = mod.config_on_card(
-                    *shape, mode, route, *extra, state_bytes=sb)
+                    *shape, mode, route, *extra, state_bytes=sb,
+                    operand_bytes=ob)
                 cfg = mod.tile_config(*shape, mode, route, *extra,
-                                      state_bytes=sb)
-                tag = mod.MODES[mode] + (" bf16" if sb == 2 else "")
+                                      state_bytes=sb, operand_bytes=ob)
+                tag = mod.MODES[mode] + (" bf16op" if ob == 2 else
+                                         " bf16" if sb == 2 else "")
                 print(f"  {name} {shape} {('staged', 'registers')[route]:9s} "
                       f"/{n} {tag:12s}: {threads} threads, {smem} "
                       f"B shared memory, {blocks} blocks per SM")
@@ -903,12 +930,17 @@ def phase_build(parent=None) -> None:
                       f"threads (mirror {cfg}), {blocks} blocks per SM")
     for shape in sorted(gls_kernel.OTHER_POINTS):
         for mode in range(3):
-            for sb in (4, 2) if mode in gls_kernel.BF16_MODES else (4,):
+            for sb, ob in (((4, 4), (2, 4), (2, 2))
+                           if mode in gls_kernel.BF16_MODES
+                           else ((4, 4), (2, 2))):
                 blocks, smem, threads = gls_kernel.config_on_card(
-                    *shape[:2], mode, 0, state_bytes=sb, points=shape[2])
+                    *shape[:2], mode, 0, state_bytes=sb, points=shape[2],
+                    operand_bytes=ob)
                 cfg = gls_kernel.tile_config(*shape[:2], mode, 0,
-                                             state_bytes=sb, points=shape[2])
-                tag = gls_kernel.MODES[mode] + (" bf16" if sb == 2 else "")
+                                             state_bytes=sb, points=shape[2],
+                                             operand_bytes=ob)
+                tag = gls_kernel.MODES[mode] + (" bf16op" if ob == 2 else
+                                                " bf16" if sb == 2 else "")
                 print(f"  B1 {shape} staged    /1 {tag:12s}: {threads} "
                       f"threads, {smem} B shared memory, {blocks} blocks per "
                       "SM")
@@ -919,15 +951,17 @@ def phase_build(parent=None) -> None:
     gk = lattice_gd_kernel
     for dim in (2, 3):
         for route in (0, 1) if dim in gk.REGISTER_DIMS else (0,):
-            for mode in range(2):
-                blocks, smem, threads = gk.config_on_card(dim, mode, route)
-                cfg = gk.tile_config(dim, mode, route)
+            for mode, ob in ((m, b) for m in range(2) for b in (4, 2)):
+                blocks, smem, threads = gk.config_on_card(
+                    dim, mode, route, operand_bytes=ob)
+                cfg = gk.tile_config(dim, mode, route, operand_bytes=ob)
+                tag = gk.MODES[mode] + (" bf16op" if ob == 2 else "")
                 print(f"  B3 d={dim} {gk.ROUTE_NAMES[route]:9s} "
-                      f"{gk.MODES[mode]:7s}: {threads} threads, {smem} B "
+                      f"{tag:14s}: {threads} threads, {smem} B "
                       f"shared memory, {blocks} blocks per SM")
                 check(smem == cfg["smem_bytes"] and threads == cfg["threads"]
                       and blocks >= 1,
-                      f"B3 d={dim} {mode} {route}: {smem} B, {threads} "
+                      f"B3 d={dim} {tag} {route}: {smem} B, {threads} "
                       f"threads (mirror {cfg}), {blocks} blocks per SM")
 
 
@@ -970,6 +1004,9 @@ def _inputs(torch, op, seed: int):
 
 
 def _rel(torch, a, b) -> tuple[float, float]:
+    """(max-abs error, over the max-abs scale of ``b``), in float32 (bf16
+    outputs are widened first)."""
+    a, b = a.float(), b.float()
     err = float((a - b).abs().max())
     return err, err / float(b.abs().max())
 
@@ -1144,25 +1181,33 @@ def _outputs(torch, calls) -> dict:
     return out
 
 
-def _check_outputs(torch, label: str, E: int, kernel, want) -> float:
+def _check_outputs(torch, label: str, E: int, kernel, want,
+                   rtol: float = KERNEL_RTOL, rels=None) -> float:
     """Each kernel output against the plain one (``want``, computed
-    once); the worst max-abs error.  Raises if one is off by more than
-    KERNEL_RTOL of scale."""
+    once); the worst max-abs error (each relative error is appended to
+    ``rels`` when given).  Raises if one is off by more than ``rtol`` of
+    scale, or is not of the plain one's dtype."""
     worst = 0.0
     for what in kernel:
         got = kernel[what]()
         torch.cuda.synchronize()
         err, rel = _rel(torch, got, want[what])
         worst = max(worst, err)
+        if rels is not None:
+            rels.append(rel)
         print(f"  {label:44s} E={E:7d} {what:11s} max_abs_err {err:.3e}  "
               f"rel {rel:.3e}")
-        check(rel < KERNEL_RTOL and bool(torch.isfinite(got).all()),
-              f"kernel {what} {label} E={E}: rel error {rel:.3e}")
+        check(rel < rtol and bool(torch.isfinite(got.float()).all())
+              and got.dtype == want[what].dtype,
+              f"kernel {what} {label} E={E}: rel error {rel:.3e} "
+              f"({got.dtype})")
     return worst
 
 
-def _compare(torch, label: str, E: int, kernel, plain) -> float:
-    return _check_outputs(torch, label, E, kernel, _outputs(torch, plain))
+def _compare(torch, label: str, E: int, kernel, plain,
+             rtol: float = KERNEL_RTOL) -> float:
+    return _check_outputs(torch, label, E, kernel, _outputs(torch, plain),
+                          rtol)
 
 
 def _settings(has_registers: bool, dim: int | None = None) -> list:
@@ -1179,12 +1224,14 @@ def _settings(has_registers: bool, dim: int | None = None) -> list:
 
 
 def _check_settings(torch, label, E, kernel, forced, want, has_registers,
-                    dim=None) -> float:
+                    dim=None, rtol: float = KERNEL_RTOL, rels=None) -> float:
     """The default calls and every forced route against ``want``."""
-    worst = _check_outputs(torch, f"{label} [default]", E, kernel, want)
+    worst = _check_outputs(torch, f"{label} [default]", E, kernel, want,
+                           rtol, rels)
     for name, route, split in _settings(has_registers, dim):
         worst = max(worst, _check_outputs(torch, f"{label} [{name}]", E,
-                                          forced(route, split), want))
+                                          forced(route, split), want, rtol,
+                                          rels))
     return worst
 
 
@@ -1269,8 +1316,9 @@ def _time_variants(torch, label, E, kernel, plain, times, parent_fns=None,
     ``settings`` (``_settings``) through ``forced``; and the plain
     version's event-timed call (median of 5, of 2 for the plain node
     blocks, whose nn*c forward-mode passes take up to seconds; None
-    without ``time_plain``).  A shape's row gathers the variants of
-    several calls (float32 and bf16 state)."""
+    without ``time_plain``, or for the variants not named in it).  A
+    shape's row gathers the variants of several calls (float32, bf16
+    state, bf16 operands)."""
     row = times.setdefault(label, {"E": E})
     for what in kernel:
         r = row[what] = {}
@@ -1289,14 +1337,15 @@ def _time_variants(torch, label, E, kernel, plain, times, parent_fns=None,
             fn = forced(route, split)[what]
             r["settings"][name] = (_graph_ms(torch, fn),
                                    _median_ms(torch, fn))
+        timed = time_plain is True or (time_plain and what in time_plain)
         r["plain_ms"] = (_median_ms(torch, plain[what],
                                     reps=2 if "node blocks" in what else 5)
-                         if time_plain else None)
+                         if timed else None)
         alt = "".join(f"; {n} {t:.4f} (call {c:.4f})"
                       for n, (t, c) in r["settings"].items())
         prev = (f"; parent {r['ms_parent']:.4f} (call "
                 f"{r['call_ms_parent']:.4f})" if "ms_parent" in r else "")
-        pl = (f"; plain {r['plain_ms']:.4f} ms" if time_plain else
+        pl = (f"; plain {r['plain_ms']:.4f} ms" if timed else
               "; plain not timed")
         print(f"  {label:32s} E={E:7d} {what:16s} kernel [default] "
               f"{r['ms']:.4f} ms (call {r['call_ms']:.4f}){prev}{alt}{pl}")
@@ -1465,7 +1514,7 @@ def _sheared_lattices(torch, device) -> float:
         fq = torch.zeros(dim * k.nq, E, device=device)
         out = torch.empty_like(ue)
         err = lk.get_build().lib.gls_lattice_launch(
-            dim, 1, 2, 1, 4, ue.data_ptr(), ue.data_ptr(), up.data_ptr(),
+            dim, 1, 2, 1, 4, 4, ue.data_ptr(), ue.data_ptr(), up.data_ptr(),
             fq.data_ptr(), k.tables.data_ptr(), k._host_tables_ptr,
             out.data_ptr(), E, E, k.nu, k.h, 1.5, 20.0, 1, 1, 1, 0, 0, 0,
             pt.REGISTERS, 1, pt.load_path(E, [ue.data_ptr()]),
@@ -1521,19 +1570,32 @@ def phase_lattice_kernel(torch, device, parent=None) -> tuple[dict, float]:
     return times, worst
 
 
+def _build_of(variant: str) -> tuple[str, int, int]:
+    """(mode, state bytes, operand bytes) of a timed variant: "... bf16"
+    has bf16 state rows only (the direction and the output f32), "...
+    bf16op" every operand and the output in bf16."""
+    if variant.endswith(" bf16op"):
+        return variant[:-len(" bf16op")], 2, 2
+    if variant.endswith(" bf16"):
+        return variant[:-len(" bf16")], 2, 4
+    return variant, 4, 4
+
+
 def _bound(dim: int, degree: int, variant: str, E: int, lattice: bool,
            n_q1d: int | None = None):
     """(bound_ms, bound_by) for one call of a variant on E elements (with
     ``n_q1d`` Gauss points per axis, k + 1 by default): the
     bytes that call must move (each input row read once, each output
-    written once; f32, and the state rows ue, xe, up, fq and h at 2 bytes
-    in a "... bf16" variant) over the card's memory rate, against its
-    operations over the f32 rate.  Operations count 2 per multiply-add
-    of the contractions, and the pointwise physics as written in the
-    kernels (about 5d^2 + 14d + 12 a point, 4d^2 + 8d more for a
-    tangent)."""
-    variant, tag, _ = variant.partition(" bf16")
-    state_bytes = 2 if tag else 4
+    written once) over the card's memory rate, against its operations
+    over the f32 rate.  Bytes: f32 throughout, but two bf16 kinds at 2
+    bytes an element: in a "... bf16" variant (bf16 state) the state rows
+    ue, xe, up, fq and h only, the direction and the output staying f32;
+    in a "... bf16op" variant (bf16 operands) every input row, the
+    direction included, and the output.  Operations count 2 per
+    multiply-add of the contractions, and the pointwise physics as
+    written in the kernels (about 5d^2 + 14d + 12 a point, 4d^2 + 8d more
+    for a tangent); the bf16 builds do the same f32 operations."""
+    variant, state_bytes, operand_bytes = _build_of(variant)
     d, n1 = dim, degree + 1
     nn, nq = n1 ** d, (n_q1d or n1) ** d
     c = d + 1
@@ -1554,16 +1616,16 @@ def _bound(dim: int, degree: int, variant: str, E: int, lattice: bool,
         dinterp = nq * (2 * c * nn * (1 + d) + 2 * c * d * d + 2 * d * nn)
         primal_ops = nq * per_q
         inputs = c * nn + 2 * d * nn + d * nq + 1     # ue, xe, up, fq, h
-    # f32 words besides the state: the output (and the tangent's direction)
+    # words besides the state: the output (and the tangent's direction)
     if variant == "primal":
-        ops, f32_words = primal_ops, c * nn
+        ops, words = primal_ops, c * nn
     elif variant == "tangent":
-        ops, f32_words = primal_ops + dinterp + nq * dpw, 2 * c * nn
+        ops, words = primal_ops + dinterp + nq * dpw, 2 * c * nn
     else:   # node blocks: nn*c probes, each without a direction stream
         ops = nn * c * (primal_ops + nq * dpw)
-        f32_words = nn * c * c
+        words = nn * c * c
     return _bound_of(ops, 0, E,
-                     nbytes=state_bytes * inputs + 4 * f32_words)
+                     nbytes=state_bytes * inputs + operand_bytes * words)
 
 
 def _bound_of(ops: float, words: float, E: int, nbytes: float | None = None):
@@ -1621,13 +1683,17 @@ def _gd_ops(dim: int, variant: str, dense: bool = False) -> int:
 def _bound_gd(dim: int, variant: str, E: int, dense: bool = False):
     """(bound_ms, bound_by) for one call of B3 on E elements: the bytes
     it must move (ue, vpe, fq in, out in the primal; ue, due in, out in
-    the tangent; f32) against the operations of its function
-    (``_gd_ops``; ``dense`` counts them as dense products)."""
+    the tangent; f32, or every row and the output at 2 bytes in a "...
+    bf16op" variant: B3 has no bf16-state kind) against the operations of
+    its function (``_gd_ops``; ``dense`` counts them as dense products),
+    which the bf16 build does in f32 too."""
     d = dim
+    variant, _, operand_bytes = _build_of(variant)
     rows = d * 3 ** d + 2 ** d
     words = (2 * rows + 2 * d * 3 ** d if variant == "primal"
              else 3 * rows)
-    return _bound_of(_gd_ops(dim, variant, dense), words, E)
+    return _bound_of(_gd_ops(dim, variant, dense), 0, E,
+                     nbytes=operand_bytes * words)
 
 
 # ----------------------------------------------------------------------
@@ -1662,15 +1728,8 @@ def _gd_variants(torch, dim, cells, periodic, device, seed, shear=0.0,
     ``forced(route)`` gives the kernel's calls on a forced route; the
     parent's calls (its own wrapper on the same tables and inputs) are
     None without ``parent``."""
-    from softx_2020_200_tpu_torch.fem import mesh as M
-    from softx_2020_200_tpu_torch.solvers.gd import GDOperator
-    m = M.subdivided_hyper_rectangle([0.0] * dim, [1.0, 0.7, 1.3][:dim],
-                                     list(cells), True, dim=dim)
-    m.vertices[:, 0] += shear * m.vertices[:, 1]
-    if periodic:
-        m.periodic += [(2 * a, 2 * a + 1, a) for a in range(dim)]
-    op = GDOperator(m, nu=0.01, gamma=0.8, dtype=torch.float32,
-                    device=device)
+    op = _gd_operator(torch, dim, cells, periodic, device, torch.float32,
+                      shear)
     g = torch.Generator().manual_seed(seed)
 
     def rnd(*shape, s=1.0):
@@ -1742,8 +1801,8 @@ def phase_gd_kernel(torch, device, parent=None) -> tuple[dict, float]:
     ue = torch.zeros(k.rows, E, device=device)
     out = torch.empty_like(ue)
     err = gk.get_build().lib.gd_lattice_launch(
-        dim, 1, 1, ue.data_ptr(), ue.data_ptr(), None, None,
-        k._host_tables.ctypes.data, out.data_ptr(), E, k.nu, k.gamma, 1.5,
+        dim, 1, 1, 4, ue.data_ptr(), ue.data_ptr(), None, None,
+        k._host_tables_ptr, out.data_ptr(), E, E, k.nu, k.gamma, 1.5,
         pt.REGISTERS, 1, pt.load_path(E, [ue.data_ptr()]),
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
@@ -3196,16 +3255,468 @@ def phase_sharded(torch, times_b1: dict, earlier: dict) -> tuple[list,
 
 
 # ----------------------------------------------------------------------
+# phase 14: the bf16 operand build
+# ----------------------------------------------------------------------
+# a bf16-operand instance against its plain version on the same bf16
+# operands: both round one float32 value per output to bf16, and the two
+# values differ only by the order of their float32 sums: two bf16 ulps
+# (2 x 2^-8) of the output's scale
+BF16OP_RTOL = 8e-3
+# a bf16 operator against the float32 operator on the same inputs: the
+# JAX package's bound for its all-bf16 build
+# (tests/test_pallas_lattice.py::test_lattice_all_bf16_build)
+BF16_OPERATOR_RTOL = 3e-2
+# (a) B1 on non-affine meshes (dim, degree, points per axis, cells): E % 4
+# != 0 (195 and 210 elements: 4-byte loads) and below one tile (9, 12),
+# each shape of SUPPORTED, and Q1 with 3 points per axis (STAGED only)
+B1_BF16OP = tuple(
+    (d, k, None, c) for d, k in ((2, 1), (2, 2), (3, 1), (3, 2))
+    for c in (((15, 13), (3, 3)) if d == 2 else ((7, 6, 5), (2, 2, 3)))
+) + ((2, 1, 3, (15, 13)), (3, 1, 3, (7, 6, 5)))
+# (a) B2 on box lattices: the same sizes, every compiled shape
+B2_BF16OP = tuple(entry for entry in B2_PARITY
+                  if entry[3] not in ((12, 9), (5, 4, 3)))
+# (a) B3: bounded and periodic with E % 4 != 0, 3D, below one tile
+B3_BF16OP = ((2, (15, 13), False), (2, (15, 13), True),
+             (3, (7, 6, 5), False), (2, (3, 3), False),
+             (3, (2, 2, 3), False))
+# (b) the full-width shapes, as phases 3b-3d label them: (kernel, label,
+# what the operators are built on)
+BF16OP_SHAPES = (
+    ("gls_lattice", "3D Q1 TGV 32^3", ("lattice", 3, 1, (32,) * 3, True)),
+    ("gls_lattice", "3D Q1 box 64^3", ("lattice", 3, 1, (64,) * 3, False)),
+    ("gls_element", "2D Q2 Taylor-Couette r5", ("space", 2, 2, 5)),
+    ("gls_element", "3D Q1 32^3 (moved)", ("space", 3, 1, 32)),
+    ("gd_lattice", "2D Q2-Q1 256^2 (GD cavity)", ("gd", 2, (256,) * 2,
+                                                  False)),
+    ("gd_lattice", "3D Q2-Q1 16^3 (GD TGV)", ("gd", 3, (16,) * 3, True)))
+
+
+def _gls_ops(torch, space, device, lsic=False, n_q1d=None, builds=("f32",
+                                                                  "bf16")):
+    """GLS operators on one space with frozen-tau flags: "f32", "state"
+    (float32 with a bf16 Jacobian state) and "bf16" (bf16 operands)."""
+    from softx_2020_200_tpu_torch.solvers.gls import GLSOperator, StabFlags
+    kw = dict(nu=0.01, n_q1d=n_q1d, device=device,
+              stab=StabFlags(lsic=lsic, frozen_tau=True))
+    dtypes = {"f32": dict(dtype=torch.float32),
+              "state": dict(dtype=torch.float32,
+                            state_dtype=torch.bfloat16),
+              "bf16": dict(dtype=torch.bfloat16)}
+    return {b: GLSOperator(space, **kw, **dtypes[b]) for b in builds}
+
+
+def _bf16op_calls(torch, op, x, skewed: bool = False):
+    """(kernel calls, plain calls, forced) of a bf16 GLS operator's kernel
+    (B1 or B2) on its rows of the bf16 inputs ``x`` (``_inputs``): the
+    primal, the frozen-tau tangent and the node blocks of the bf16-operand
+    instances, in the operator's rows (``narrow_rows``: TMA where the
+    pointers allow it) or, ``skewed``, every row at a pitch that takes the
+    4-byte cp.async path.  The plain calls are the module's plain version
+    (widen, the float32 plain kernel, round) on the same rows."""
+    k = op.kernel
+    if op.layout is None:
+        ue, due = op._soa(x["u"]), op._soa(x["v"])
+        state = [op.xe_state, op._soa(x["prev"]), op._fq_soa(x["fq"]),
+                 op.h_state]
+    else:
+        ue, due = op._rows(x["u"]), op._rows(x["v"])
+        state = [op._rows(x["prev"]), op._fq_rows(x["fq"])]
+    if skewed:
+        ue, due = _skewed_rows(torch, ue), _skewed_rows(torch, due)
+        state = [_skewed_rows(torch, t) for t in state]
+    args = (*state, 1.5, 20.0)
+    kernel = {"primal bf16op": lambda: k.residual(ue, *args),
+              "tangent bf16op": lambda: k.tangent(ue, due, *args),
+              "node blocks bf16op": lambda: k.node_blocks(ue, *args)}
+    plain = {"primal bf16op": lambda: k.plain_residual(ue, *args),
+             "tangent bf16op": lambda: k.plain_tangent(ue, due, *args),
+             "node blocks bf16op": lambda: k.plain_node_blocks(ue, *args)}
+
+    def forced(route, split=None):
+        kw = {} if split is None else {"split": split}
+        return {what: (lambda m=m, d=d: k._call(m, ue, d, args, route, **kw))
+                for what, m, d in (("primal bf16op", 0, None),
+                                   ("tangent bf16op", 1, due),
+                                   ("node blocks bf16op", 2, None))}
+
+    return kernel, plain, forced
+
+
+def _gd_operator(torch, dim, cells, periodic, device, dtype, shear=0.0):
+    """A GD operator on a box lattice (x sheared by ``shear`` y)."""
+    from softx_2020_200_tpu_torch.fem import mesh as M
+    from softx_2020_200_tpu_torch.solvers.gd import GDOperator
+    m = M.subdivided_hyper_rectangle([0.0] * dim, [1.0, 0.7, 1.3][:dim],
+                                     list(cells), True, dim=dim)
+    m.vertices[:, 0] += shear * m.vertices[:, 1]
+    if periodic:
+        m.periodic += [(2 * a, 2 * a + 1, a) for a in range(dim)]
+    return GDOperator(m, nu=0.01, gamma=0.8, dtype=dtype, device=device)
+
+
+def _gd_inputs(torch, op, seed: int):
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=g, dtype=torch.float64)
+                ).to(op.device, op.dtype)
+
+    return dict(x=rnd(op.n_dofs, s=0.3), dx=rnd(op.n_dofs),
+                vprev=rnd(op.Nv, op.dim, s=0.2),
+                fq=rnd(op.space_v.n_elements, op.n_q, op.dim, s=0.1))
+
+
+def _gd_bf16op_calls(torch, op, x, skewed: bool = False):
+    """(kernel calls, plain calls, forced) of B3's bf16-operand instances
+    on a bf16 GD operator's rows of ``x`` (``_gd_inputs``), as
+    ``_bf16op_calls``."""
+    k, a0 = op.kernel, 1.5
+    ue, due = op._rows(x["x"]), op._rows(x["dx"])
+    vpe, fq = op._vrows(x["vprev"]), op._fq_rows(x["fq"])
+    if skewed:
+        ue, due, vpe, fq = (_skewed_rows(torch, t) for t in (ue, due, vpe, fq))
+    kernel = {"primal bf16op": lambda: k.residual(ue, vpe, fq, a0),
+              "tangent bf16op": lambda: k.tangent(ue, due, a0)}
+    plain = {"primal bf16op": lambda: k.plain_residual(ue, vpe, fq, a0),
+             "tangent bf16op": lambda: k.plain_tangent(ue, due, a0)}
+
+    def forced(route, split=None):
+        return {"primal bf16op": lambda: k._call(0, ue, None, vpe, fq, a0,
+                                                 route),
+                "tangent bf16op": lambda: k._call(1, ue, due, None, None,
+                                                  a0, route)}
+
+    return kernel, plain, forced
+
+
+def _check_bf16op(torch, label, E, calls, has_registers, dim=None):
+    """(worst max-abs error, worst relative error) of the bf16-operand
+    instances against their plain version (computed once, on the rows of
+    the default layout), on every route, in both row layouts."""
+    err, rels, want = 0.0, [], None
+    for skewed in (False, True):
+        kernel, plain, forced = calls(skewed)
+        want = want or _outputs(torch, plain)
+        err = max(err, _check_settings(
+            torch, f"{label}{' skewed' if skewed else ''}", E, kernel, forced,
+            want, has_registers, dim, BF16OP_RTOL, rels))
+    return err, max(rels)
+
+
+def _worse(a, b):
+    """The larger max-abs error and the larger relative one of two
+    (abs, rel) pairs."""
+    return max(a[0], b[0]), max(a[1], b[1])
+
+
+def _bf16op_parity(torch, device) -> dict:
+    """(a): every bf16-operand instance of B1, B2 and B3 against its plain
+    version on the card; the launch counters hold only bf16-operand
+    launches afterwards.  Returns the worst (abs, rel) error per kernel."""
+    import numpy as np
+    from softx_2020_200_tpu_torch.ops import gls_kernel as gk1
+    from softx_2020_200_tpu_torch.ops import lattice_gd_kernel as gk3
+    from softx_2020_200_tpu_torch.ops import lattice_kernel as lk
+    from softx_2020_200_tpu_torch.ops import persistent_tiles as pt
+    counters = _launch_counters()
+    for cls in counters.values():
+        cls.launches, cls.launches_by_shape = 0, {}
+    worst = {name: (0.0, 0.0) for name in KERNELS}
+
+    def note(name, w):
+        worst[name] = _worse(worst[name], w)
+
+    for dim, degree, q1d, cells in B1_BF16OP:
+        space = _space(dim, degree, cells, seed=dim * 10 + degree)
+        op = _gls_ops(torch, space, device, lsic=dim == 2, n_q1d=q1d,
+                      builds=("bf16",))["bf16"]
+        check(op.layout is None, "B1 bf16 parity mesh took the lattice path")
+        x = _inputs(torch, op, seed=dim * 10 + degree)
+        reg = q1d is None and (dim, degree) in gk1.REGISTER_SHAPES
+        label = f"B1 d={dim} k={degree}{f' q={q1d}' if q1d else ''} bf16op"
+        note("gls_element", _check_bf16op(
+            torch, label, space.n_elements,
+            lambda sk: _bf16op_calls(torch, op, x, sk), reg, dim))
+    for dim, degree, q1d, cells in B2_BF16OP:
+        space = _lattice(dim, degree, cells)
+        op = _gls_ops(torch, space, device, lsic=dim == 3, n_q1d=q1d,
+                      builds=("bf16",))["bf16"]
+        check(op.layout is not None, "B2 bf16 parity lattice took B1")
+        x = _inputs(torch, op, seed=dim * 10 + degree)
+        reg = (dim, degree, q1d) in lk.REGISTER_SHAPES
+        note("gls_lattice", _check_bf16op(
+            torch, f"B2 d={dim} k={degree} q={q1d} bf16op",
+            space.n_elements, lambda sk: _bf16op_calls(torch, op, x, sk),
+            reg))
+    # a box and a sheared lattice of one size: the box takes REGISTERS by
+    # default, the sheared one STAGED, and the entry point refuses a
+    # REGISTERS launch of the bf16-operand instance on the sheared tables
+    for dim, cells in B2_SHEARED:
+        for shear in (0.0, B2_SHEAR):
+            space = _lattice(dim, 1, cells, shear=shear)
+            op = _gls_ops(torch, space, device, n_q1d=2,
+                          builds=("bf16",))["bf16"]
+            k, E = op.kernel, space.n_elements
+            x = _inputs(torch, op, seed=dim)
+            label = f"B2 d={dim} {'sheared' if shear else 'box'} bf16op"
+            kernel, plain, _ = _bf16op_calls(torch, op, x)
+            rels = []
+            err = _check_outputs(torch, label, E, kernel,
+                                 _outputs(torch, plain), BF16OP_RTOL, rels)
+            note("gls_lattice", (err, max(rels)))
+            routes = {r for key, (r, _) in k._plans.items()}
+            want = pt.STAGED if shear else pt.REGISTERS
+            print(f"  {label:44s} E={E:7d} routes taken {sorted(routes)}")
+            check(routes == {want}, f"{label}: routes {routes}")
+        ue = op._rows(x["u"])
+        up, fq = op._rows(x["prev"]), op._fq_rows(x["fq"])
+        out = torch.empty_like(ue)
+        err = lk.get_build().lib.gls_lattice_launch(
+            dim, 1, 2, 1, 2, 2, ue.data_ptr(), ue.data_ptr(), up.data_ptr(),
+            fq.data_ptr(), k.tables.data_ptr(), k._host_tables_ptr,
+            out.data_ptr(), E, pt.row_pitch(ue), k.nu, k.h, 1.5, 20.0, 1, 1,
+            1, 0, 0, 0, pt.REGISTERS, 1, pt.LOAD_CP_ASYNC_4,
+            int(k.laplacian_free), torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        print(f"  B2 d={dim} sheared bf16op: a REGISTERS launch returns CUDA "
+              f"error {err}")
+        check(err == 1, f"bf16op REGISTERS on sheared tables returned {err}")
+    for dim, cells, periodic in B3_BF16OP + ((*B3_SHEARED, False),):
+        shear = B2_SHEAR if (dim, cells) == B3_SHEARED else 0.0
+        op = _gd_operator(torch, dim, cells, periodic, device,
+                          torch.bfloat16, shear)
+        check(op.layout_v is not None and op.kernel._host_tables is not None,
+              "B3 bf16 parity lattice took SoA")
+        if shear:
+            Jinv = op.kernel.geometry[0]
+            check(np.abs(Jinv - np.diag(np.diag(Jinv))).max() > 0,
+                  "B3 sheared lattice has a diagonal J^-1")
+        x = _gd_inputs(torch, op, seed=dim)
+        label = (f"B3 d={dim}{' periodic' if periodic else ''}"
+                 f"{' sheared' if shear else ''} bf16op")
+        note("gd_lattice", _check_bf16op(
+            torch, label, op.space_v.n_elements,
+            lambda sk: _gd_bf16op_calls(torch, op, x, sk),
+            dim in gk3.REGISTER_DIMS))
+    other = {f"{name}: {key}" for name, cls in counters.items()
+             for key in cls.launches_by_shape if not key[4].endswith("bf16op")}
+    check(not other, f"bf16 parity launched other instances: {other}")
+    launches = [cls.launches for cls in counters.values()]
+    print(f"  bf16-operand launches {launches}, every one a bf16op instance")
+    return worst
+
+
+def _time_builds(torch, name, label, ops, x, times, forced_settings):
+    """(b): at one full-width shape, the bf16-operand instances compared
+    with their plain version and then timed (kernel, forced routes, plain
+    primal and tangent) beside the float32 tangent and, for B1 and B2, the
+    bf16-state tangent (timed here where phases 3b-3d did not)."""
+    from softx_2020_200_tpu_torch.ops.persistent_tiles import state_rows
+    op16 = ops["bf16"]
+    gd = name == "gd_lattice"
+    calls = ((lambda sk: _gd_bf16op_calls(torch, op16, x, sk)) if gd else
+             (lambda sk: _bf16op_calls(torch, op16, x, sk)))
+    kernel, plain, forced = calls(False)
+    E = (op16.space_v if gd else op16.space).n_elements
+    has_reg, dim = forced_settings
+    want, rels = _outputs(torch, plain), []
+    err = _check_settings(torch, f"{label} bf16op", E, kernel, forced, want,
+                          has_reg, dim, BF16OP_RTOL, rels)
+    del want
+    _time_variants(torch, label, E, kernel, plain, times, None,
+                   _settings(has_reg, dim), forced,
+                   time_plain=("primal bf16op", "tangent bf16op"))
+    row = times[label]
+    if "tangent" not in row:
+        op32 = ops["f32"]
+        k = op32.kernel
+        x32 = {key: v.float() for key, v in x.items()}
+        if gd:
+            ue, due = op32._rows(x32["x"]), op32._rows(x32["dx"])
+            base = {"tangent": lambda: k.tangent(ue, due, 1.5)}
+        else:
+            if op32.layout is None:
+                ue, due = op32._soa(x32["u"]), op32._soa(x32["v"])
+                st = [op32.xe_soa, op32._soa(x32["prev"]),
+                      op32._fq_soa(x32["fq"]), op32.h]
+            else:
+                ue, due = op32._rows(x32["u"]), op32._rows(x32["v"])
+                st = [op32._rows(x32["prev"]), op32._fq_rows(x32["fq"])]
+            s16 = [state_rows(t) for t in [ue] + st]
+            base = {"tangent": lambda: k.tangent(ue, due, *st, 1.5, 20.0),
+                    "tangent bf16": lambda: k.tangent(s16[0], due, *s16[1:],
+                                                      1.5, 20.0)}
+        _time_variants(torch, label, E, base, base, times, time_plain=False)
+    return err, max(rels)
+
+
+def _operator_check(torch, name, label, ops, x) -> dict:
+    """(c): the bf16 operator's residual and frozen-tau (GD: exact)
+    Jacobian action, through its gathers, kernel and assembly, against
+    the float32 operator's on the same (rounded) inputs; the bf16 run
+    launches exactly one primal_bf16op and one tangent_bf16op instance."""
+    counters = _launch_counters()
+    cls = counters[name]
+    op16, op32 = ops["bf16"], ops["f32"]
+    x32 = {key: v.float() for key, v in x.items()}
+    out = {}
+    for build, op, z in (("bf16", op16, x), ("f32", op32, x32)):
+        cls.launches, cls.launches_by_shape = 0, {}
+        if name == "gd_lattice":
+            r = op.residual_free(z["x"], z["vprev"], z["fq"], 1.5)
+            d = op.jvp(op.linearize(z["x"], z["vprev"], z["fq"], 1.5),
+                       z["dx"])
+        else:
+            r = op.residual_free(z["u"], z["prev"], z["fq"], 1.5, 20.0)
+            d = op.jvp(op.linearize(z["u"], z["prev"], z["fq"], 1.5, 20.0),
+                       z["v"])
+        torch.cuda.synchronize()
+        out[build] = (r, d, dict(cls.launches_by_shape))
+    variants = sorted(key[4] for key in out["bf16"][2])
+    res = {"kernel": name, "label": label}
+    for i, what in enumerate(("residual", "jvp")):
+        err, rel = _rel(torch, out["bf16"][i], out["f32"][i])
+        res[what] = rel
+        print(f"  {label:32s} {what:8s} bf16 operator against float32: "
+              f"max_abs_err {err:.3e} rel {rel:.3e} ({out['bf16'][i].dtype})")
+        check(out["bf16"][i].dtype == torch.bfloat16
+              and bool(torch.isfinite(out["bf16"][i].float()).all())
+              and rel < BF16_OPERATOR_RTOL,
+              f"{label} bf16 {what}: rel {rel:.3e}")
+    print(f"  {label:32s} launches of the bf16 operator: "
+          f"{out['bf16'][2]}")
+    check(variants == ["primal_bf16op", "tangent_bf16op"]
+          and all(n == 1 for n in out["bf16"][2].values()),
+          f"{label}: the bf16 operator launched {out['bf16'][2]}")
+    return res
+
+
+def _matvec_builds(torch, ops, x) -> list:
+    """(d): the lattice matvec (strided gather, B2's tangent, strided
+    scatter) at the 64^3 Q1 box in the three builds: seconds per matvec
+    (CUDA events around one call, the host's launches included; and the
+    device time of a CUDA graph of 20) and GDoF/s."""
+    rows = []
+    for build in ("f32", "state", "bf16"):
+        op = ops[build]
+        z = {key: v.to(op.dtype) for key, v in x.items()}
+        st = op.linearize(z["u"], z["prev"], z["fq"], 1.5, 20.0)
+        cls = _launch_counters()["gls_lattice"]
+        cls.launches_by_shape = {}
+        op.jvp(st, z["v"])
+        torch.cuda.synchronize()
+        variant = [key[4] for key in cls.launches_by_shape]
+        call = _median_ms(torch, lambda: op.jvp(st, z["v"]))
+        graph = _graph_ms(torch, lambda: op.jvp(st, z["v"]))
+        n_dofs = op.n_nodes * op.nc
+        rows.append({"build": build, "variant": variant, "n_dofs": n_dofs,
+                     "s_per_matvec": call / 1e3,
+                     "device_s_per_matvec": graph / 1e3,
+                     "gdofs": n_dofs / (call / 1e3) / 1e9,
+                     "device_gdofs": n_dofs / (graph / 1e3) / 1e9})
+        print(f"  64^3 Q1 matvec {build:5s} ({variant}): "
+              f"{call / 1e3:.6e} s per matvec, {rows[-1]['gdofs']:.3f} "
+              f"GDoF/s; device {graph / 1e3:.6e} s, "
+              f"{rows[-1]['device_gdofs']:.3f} GDoF/s ({n_dofs} DoF)")
+        del st, z
+        torch.cuda.empty_cache()
+    want = {"f32": ["tangent"], "state": ["tangent_bf16"],
+            "bf16": ["tangent_bf16op"]}
+    check(all(r["variant"] == want[r["build"]] for r in rows),
+          f"matvec builds launched {[r['variant'] for r in rows]}")
+    return rows
+
+
+def phase_bf16_operands(torch, device, times: dict) -> tuple[dict, dict]:
+    """Phase 14.  Returns the worst (abs, rel) error of the bf16-operand
+    instances per kernel, and the operator and matvec results; adds the
+    full-width times to ``times`` (kernel -> label -> row)."""
+    from softx_2020_200_tpu_torch.ops import gls_kernel as gk1
+    from softx_2020_200_tpu_torch.ops import lattice_gd_kernel as gk3
+    from softx_2020_200_tpu_torch.ops import lattice_kernel as lk
+    print("== phase 14: the bf16 operand build (B1, B2, B3 with every "
+          "operand in bf16; instances against their plain version within "
+          f"{BF16OP_RTOL:g} of scale, operators against float32 within "
+          f"{BF16_OPERATOR_RTOL:g})")
+    t0 = time.perf_counter()
+    worst = _bf16op_parity(torch, device)
+    print(f"  (a) done at {time.perf_counter() - t0:.1f} s")
+    results = {"operators": [], "matvec": None}
+    for name, label, (kind, *spec) in BF16OP_SHAPES:
+        if kind == "gd":
+            dim, cells, periodic = spec
+            ops = {b: _gd_operator(torch, dim, cells, periodic, device, dt)
+                   for b, dt in (("f32", torch.float32),
+                                 ("bf16", torch.bfloat16))}
+            x = _gd_inputs(torch, ops["bf16"], seed=5)
+            settings = (dim in gk3.REGISTER_DIMS, None)
+        else:
+            if kind == "lattice":
+                dim, degree, cells, periodic = spec
+                space = _lattice(dim, degree, cells, periodic=periodic)
+                q1d = degree + 1
+                settings = ((dim, degree, q1d) in lk.REGISTER_SHAPES, None)
+            else:
+                dim, degree, cells = spec
+                space = _space(dim, degree, cells, seed=7)
+                settings = ((dim, degree) in gk1.REGISTER_SHAPES, dim)
+            builds = (("f32", "state", "bf16") if label == "3D Q1 box 64^3"
+                      else ("f32", "bf16"))
+            ops = _gls_ops(torch, space, device, builds=builds)
+            x = _inputs(torch, ops["bf16"], seed=3)
+        note = _time_builds(torch, name, label, ops, x,
+                            times.setdefault(name, {}), settings)
+        worst[name] = _worse(worst[name], note)
+        if label in ("3D Q1 TGV 32^3", "2D Q2 Taylor-Couette r5",
+                     "2D Q2-Q1 256^2 (GD cavity)"):
+            results["operators"].append(
+                _operator_check(torch, name, label, ops, x))
+        if label == "3D Q1 box 64^3":
+            results["matvec"] = _matvec_builds(torch, ops, x)
+        del ops, x
+        torch.cuda.empty_cache()
+        print(f"  {label} done at {time.perf_counter() - t0:.1f} s")
+    for name in KERNELS:
+        row_times = times.get(name, {})
+        for label, row in row_times.items():
+            if "tangent bf16op" not in row:
+                continue
+            bound = (_bound_gd if name == "gd_lattice" else None)
+            dims = _shape_keys(name)[label]
+            b = {what: (bound(dims[0], what, row["E"])[0] if bound else
+                        _bound(*dims[:2], what, row["E"],
+                               name == "gls_lattice", dims[2])[0])
+                 for what in ("tangent", "tangent bf16", "tangent bf16op")
+                 if name != "gd_lattice" or what != "tangent bf16"}
+            got = {what: row[what]["ms"] for what in b if what in row}
+            print(f"  {name} {label:32s} tangent ms: "
+                  + ", ".join(f"{w.replace('tangent', '') or ' f32'} "
+                              f"{got.get(w, float('nan')):.4f} (bound "
+                              f"{b[w]:.4f})" for w in b))
+    print(f"  bf16op worst (abs, rel) per kernel: {worst}")
+    return worst, results
+
+
+# ----------------------------------------------------------------------
 # the variants of each kernel's timed shapes, as _time_variants names
 # them, and the launch variant each one's time is per launch of
 VARIANTS = {"gls_element": ("primal", "tangent", "node blocks",
-                            "tangent bf16", "node blocks bf16"),
+                            "tangent bf16", "node blocks bf16",
+                            "primal bf16op", "tangent bf16op",
+                            "node blocks bf16op"),
             "gls_lattice": ("primal", "tangent", "node blocks",
-                            "tangent bf16", "node blocks bf16"),
-            "gd_lattice": ("primal", "tangent")}
+                            "tangent bf16", "node blocks bf16",
+                            "primal bf16op", "tangent bf16op",
+                            "node blocks bf16op"),
+            "gd_lattice": ("primal", "tangent", "primal bf16op",
+                           "tangent bf16op")}
 LAUNCH_MODE = {"primal": "primal", "tangent": "tangent",
                "node blocks": "probe", "tangent bf16": "tangent_bf16",
-               "node blocks bf16": "probe_bf16"}
+               "node blocks bf16": "probe_bf16",
+               "primal bf16op": "primal_bf16op",
+               "tangent bf16op": "tangent_bf16op",
+               "node blocks bf16op": "probe_bf16op"}
 
 
 def _shape_keys(kernel: str) -> dict:
@@ -3280,14 +3791,15 @@ def _device_seconds(by_shape: list, key: str, kernel: str) -> float | None:
     """Device seconds of one main-path run: the main-path launches of each
     timed shape times the device time per launch (``key`` "ms" or
     "ms_parent"; a probe launch is 1/(nn*c) of the node blocks' time).
-    The parent's sum counts the float32-state variants, which it has.
-    None where a time is missing."""
+    The parent's sum counts the float32 variants, which it has (the bf16
+    variants have no main-path launches but those of phase 10's bf16-state
+    decks).  None where a time is missing."""
     total = 0.0
     for entry in by_shape:
         n = entry["launches"]
         for what in VARIANTS[kernel]:
             mode = LAUNCH_MODE[what]
-            if (key == "ms_parent" and mode.endswith("_bf16")
+            if (key == "ms_parent" and "_bf16" in mode
                     or entry[what] is None):
                 continue
             ms = entry[what][key]
@@ -3300,14 +3812,18 @@ def _device_seconds(by_shape: list, key: str, kernel: str) -> float | None:
     return total
 
 
-def _entry(name, source, replaces, runs, worst, row, bound, times=None):
+def _entry(name, source, replaces, runs, worst, row, bound, times=None,
+           bf16op=None):
     """One kernel's line: its tangent (the Krylov matvec, most of its
     launches) at its main-path shape ``row``: kernel and plain times, and
     (bound ms, bound by); launches in total and per (dim, degree, points
     per axis, E, variant[, route]) over the main-path ``runs``; with
     ``times`` the parent's time (``ms_parent``, null without
-    ``--parent``), every timed shape and the device seconds of one
-    main-path run, the kernel's and the parent's."""
+    ``--parent``), every timed shape (the bf16-operand instances'
+    variants where phase 14 timed them) and the device seconds of one
+    main-path run, the kernel's and the parent's; ``bf16op`` phase 14's
+    worst errors of the bf16-operand instances against their plain
+    version (``max_abs_err`` stays the float32 and bf16-state one)."""
     bound_ms, bound_by = bound
     t = row["tangent"]
     per_shape = {}
@@ -3321,6 +3837,8 @@ def _entry(name, source, replaces, runs, worst, row, bound, times=None):
              "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
              "launches_by_shape": {",".join(map(str, k)): n
                                    for k, n in sorted(per_shape.items())}}
+    if bf16op is not None:
+        entry["bf16op"] = bf16op
     if times is not None:
         entry["ms_parent"] = t.get("ms_parent")
         entry["by_shape"] = _by_shape(times, name, per_shape)
@@ -3349,7 +3867,7 @@ def _print_bounds(times: dict, kernel: str) -> None:
 
 
 PHASES = ("2", "3", "3b", "3c", "3d", "4", "5", "6", "7", "8", "9", "10",
-          "11", "12", "13")
+          "11", "12", "13", "14")
 
 
 def main(argv=None) -> int:
@@ -3359,8 +3877,8 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", metavar="LIST",
                         help="run only these phases (comma-separated, "
                         "e.g. 2,3c; phase 1 always runs, phase 2 with any "
-                        "of 3-3d, and phases 7 and 12 with 13, which holds "
-                        "its runs to theirs); prints no contract line")
+                        "of 3-3d and 14, and phases 7 and 12 with 13, which "
+                        "holds its runs to theirs); prints no contract line")
     parser.add_argument("--parent", metavar="DIR",
                         help="another checkout (a git archive of the parent "
                         "commit): time its B1 and B2 through its own "
@@ -3371,7 +3889,7 @@ def main(argv=None) -> int:
         return 0
     only = set(args.phases.split(",")) if args.phases else set(PHASES)
     check(only <= set(PHASES), f"unknown phases {only - set(PHASES)}")
-    if only & {"3", "3b", "3c", "3d"}:
+    if only & {"3", "3b", "3c", "3d", "14"}:
         only.add("2")
     if "13" in only:
         only |= {"7", "12"}
@@ -3399,7 +3917,7 @@ def main(argv=None) -> int:
         phase_build(parent)
         stamp("2")
     worst_b1 = worst_b2 = 0.0
-    times_b1 = times_b2 = {}
+    times_b1, times_b2, times_b3 = {}, {}, {}
     if "3" in only:
         worst_b1 = phase_kernel_parity(torch, device)
         stamp("3")
@@ -3457,6 +3975,11 @@ def main(argv=None) -> int:
         _print_bounds({k: v for k, v in times_b1.items()
                        if k in SHARD_SHAPES}, "gls_element")
         stamp("13")
+    if "14" in only:
+        worst_bf16op, bf16_results = phase_bf16_operands(
+            torch, device, {"gls_element": times_b1, "gls_lattice": times_b2,
+                            "gd_lattice": times_b3})
+        stamp("14")
     if only != set(PHASES):
         print(f"phases {sorted(only)} passed; no contract line")
         return 0
@@ -3465,17 +3988,28 @@ def main(argv=None) -> int:
                                               lattice_kernel)
     b1, b2 = times_b1["2D Q2 Taylor-Couette r5"], times_b2["3D Q1 TGV 32^3"]
     b3 = times_b3["2D Q2-Q1 256^2 (GD cavity)"]
+    # the bf16-operand instances: phase 14's worst errors against their
+    # plain version, its operator checks and (B2) the three matvec builds
+    bf16op = {}
+    for name in KERNELS:
+        err, rel = worst_bf16op[name]
+        bf16op[name] = {"max_abs_err": err, "max_rel_err": rel,
+                        "operators": [r for r in bf16_results["operators"]
+                                      if r["kernel"] == name]}
+    bf16op["gls_lattice"]["matvec_64cubed"] = bf16_results["matvec"]
     entries = [
         _entry("gls_element", gls_kernel.SOURCE,
                "softx_2020_200_tpu/ops/pallas_gls.py:218", b1_runs, worst_b1,
-               b1, _bound(2, 2, "tangent", b1["E"], False), times_b1),
+               b1, _bound(2, 2, "tangent", b1["E"], False), times_b1,
+               bf16op["gls_element"]),
         _entry("gls_lattice", lattice_kernel.SOURCE,
                "softx_2020_200_tpu/ops/pallas_lattice.py:103", b2_runs,
                worst_b2, b2, _bound(3, 1, "tangent", b2["E"], True),
-               times_b2),
+               times_b2, bf16op["gls_lattice"]),
         _entry("gd_lattice", lattice_gd_kernel.SOURCE,
                "softx_2020_200_tpu/ops/pallas_lattice_gd.py:59", b3_runs,
-               worst_b3, b3, _bound_gd(2, "tangent", b3["E"]), times_b3),
+               worst_b3, b3, _bound_gd(2, "tangent", b3["E"]), times_b3,
+               bf16op["gd_lattice"]),
     ]
     print(smi)
     print(json.dumps({"kernels": entries}))

@@ -35,6 +35,17 @@
 // products are f32 on the CUDA cores: no tensor cores, so no TF32, as the
 // TPU kernel's HIGHEST-precision dots.
 //
+// Operand type (OE, bytes per element of every row, the tables and the
+// output): both modes are also compiled with every operand in bf16 (OE =
+// 2), B3 built with a bf16 compute dtype (pallas_lattice_gd.py:60, :70,
+// :86-89, :208): ue, due, vpe and fq arrive as bf16 rows at one even
+// pitch, the 81 packed tables (and J^-1) are bf16 in the kernel
+// parameters, and each output is rounded once to bf16 (round to nearest
+// even) where it is stored, at the rows' pitch.  The arithmetic inside
+// stays f32: the TPU kernel's dots return its compute dtype op by op, a
+// rounding sequence no second compiler reproduces (a difference of
+// rounding, not of function).
+//
 // Layout: mixed component-major rows with the element index fastest, as
 // B3's: ue[RS, E] with RS = d*nnv + nnp (velocity component i at rows
 // i*nnv + n, then the pressure at rows d*nnv + m), due like ue,
@@ -96,27 +107,31 @@ constexpr int BE = 32;       // elements of a STAGED tile: one warp
 using tiles::pad32;
 
 // The 1D tables of the reference element and the lattice's J^-1, packed
-// on the host (ops/lattice_gd_kernel.py::gd_1d_tables, same order).
-struct Tables {
-  float V[3][3];     // Q2 values       V[q][n]
-  float D[3][3];     // Q2 derivatives  D[q][n]
-  float Vp[3][2];    // Q1 values       Vp[q][m]
-  float VW[3][3];    // V * w[q]        (axes 1, 2 of the projection)
-  float DW[3][3];    // D * w[q]
-  float VpW[3][2];   // Vp * w[q]
-  float VW0[3][3];   // V * w[q] * det J  (axis 0)
-  float DW0[3][3];
-  float VpW0[3][2];
-  float Jinv[3][3];  // Jinv[a][j] = d xi_a / d x_j (top-left d x d)
+// on the host (ops/lattice_gd_kernel.py::gd_1d_tables, same order), as
+// f32 or, in the bf16-operand instances, bf16 (TT)
+template <class TT>
+struct TablesT {
+  TT V[3][3];     // Q2 values       V[q][n]
+  TT D[3][3];     // Q2 derivatives  D[q][n]
+  TT Vp[3][2];    // Q1 values       Vp[q][m]
+  TT VW[3][3];    // V * w[q]        (axes 1, 2 of the projection)
+  TT DW[3][3];    // D * w[q]
+  TT VpW[3][2];   // Vp * w[q]
+  TT VW0[3][3];   // V * w[q] * det J  (axis 0)
+  TT DW0[3][3];
+  TT VpW0[3][2];
+  TT Jinv[3][3];  // Jinv[a][j] = d xi_a / d x_j (top-left d x d)
 };
-constexpr int TABLE_FLOATS = sizeof(Tables) / sizeof(float);
+constexpr int TABLE_FLOATS = sizeof(TablesT<float>) / sizeof(float);
 static_assert(TABLE_FLOATS == 81, "Tables layout");
+static_assert(sizeof(TablesT<__nv_bfloat16>) == 2 * TABLE_FLOATS,
+              "bf16 Tables layout");
 
 struct Physics {
   float nu, gamma, alpha0;
 };
 
-template <int D, int MODE>
+template <int D, int MODE, int OE = 4>
 struct Shape {
   static constexpr int NNV = (D == 2) ? 9 : 27;   // Q2 velocity nodes
   static constexpr int NNP = (D == 2) ? 4 : 8;    // Q1 pressure nodes
@@ -125,14 +140,15 @@ struct Shape {
   static constexpr int PENC = NNV / 3;            // pencils of a pass
   static constexpr int THREADS = PENC * BE;
   static constexpr bool TAN = MODE == TANGENT;
-  // ring inputs: ue, due, vpe, fq
+  // ring inputs: ue, due, vpe, fq, OE-byte elements
   static constexpr int R_UE = RS, R_DUE = TAN ? RS : 0,
                        R_VPE = TAN ? 0 : D * NNV, R_FQ = TAN ? 0 : D * NQ;
-  static constexpr int O_UE = 0, O_DUE = O_UE + pad32(R_UE * BE),
-                       O_VPE = O_DUE + pad32(R_DUE * BE),
-                       O_FQ = O_VPE + pad32(R_VPE * BE),
-                       STAGE = O_FQ + pad32(R_FQ * BE);
-  static constexpr int STAGE_BYTES = 4 * BE * (R_UE + R_DUE + R_VPE + R_FQ);
+  static constexpr int O_UE = 0,
+                       O_DUE = O_UE + tiles::box_words(R_UE, BE, OE),
+                       O_VPE = O_DUE + tiles::box_words(R_DUE, BE, OE),
+                       O_FQ = O_VPE + tiles::box_words(R_VPE, BE, OE),
+                       STAGE = O_FQ + tiles::box_words(R_FQ, BE, OE);
+  static constexpr int STAGE_BYTES = OE * BE * (R_UE + R_DUE + R_VPE + R_FQ);
   // scratch rows per element.  2D: S0 holds both groups' first pass
   // (velocity components of group g at rows g*36 + c*18, the pressure at
   // 72), S1 the first transposed pass (42 rows).  3D: S0 holds a group's
@@ -159,8 +175,8 @@ struct PointIn {
 // The coefficients at one point: a_v against phi, the reference-frame
 // gradient coefficients b[i][a] = sum_j J^-1[a][j] a_g[i][j] against
 // d phi / d xi_a, and a_p against psi.
-template <int D, int MODE>
-__device__ __forceinline__ void physics(const Tables& T, const Physics& ph,
+template <int D, int MODE, class Tab>
+__device__ __forceinline__ void physics(const Tab& T, const Physics& ph,
                                         const PointIn<D>& in, float (&a_v)[D],
                                         float (&b)[D][D], float& a_p) {
   float g[D][D];     // physical gradients of u: g[i][j] = d u_i / d x_j
@@ -170,7 +186,7 @@ __device__ __forceinline__ void physics(const Tables& T, const Physics& ph,
     for (int j = 0; j < D; ++j) {
       float s = 0.0f;
 #pragma unroll
-      for (int a = 0; a < D; ++a) s += in.gr[i][a] * T.Jinv[a][j];
+      for (int a = 0; a < D; ++a) s += in.gr[i][a] * tiles::widen(T.Jinv[a][j]);
       g[i][j] = s;
     }
   float a_g[D][D];
@@ -198,7 +214,8 @@ __device__ __forceinline__ void physics(const Tables& T, const Physics& ph,
       for (int j = 0; j < D; ++j) {
         float s = 0.0f;
 #pragma unroll
-        for (int a = 0; a < D; ++a) s += in.xgr[i][a] * T.Jinv[a][j];
+        for (int a = 0; a < D; ++a)
+          s += in.xgr[i][a] * tiles::widen(T.Jinv[a][j]);
         dg[i][j] = s;
       }
     float ddiv = 0.0f;
@@ -224,26 +241,28 @@ __device__ __forceinline__ void physics(const Tables& T, const Physics& ph,
     for (int a = 0; a < D; ++a) {
       float s = 0.0f;
 #pragma unroll
-      for (int j = 0; j < D; ++j) s += T.Jinv[a][j] * a_g[i][j];
+      for (int j = 0; j < D; ++j) s += tiles::widen(T.Jinv[a][j]) * a_g[i][j];
       b[i][a] = s;
     }
 }
 
-// y[o] = sum_k M[o][k] x[k] over 3 (or 2) terms, o = 0..2
-template <int K>
-__device__ __forceinline__ float dot1(const float (&M)[3][K], int o,
+// y[o] = sum_k M[o][k] x[k] over 3 (or 2) terms, o = 0..2 (a table of
+// f32 or bf16 entries, each widened to f32)
+template <class TT, int K>
+__device__ __forceinline__ float dot1(const TT (&M)[3][K], int o,
                                       const float (&x)[K]) {
-  float s = M[o][0] * x[0];
+  float s = tiles::widen(M[o][0]) * x[0];
 #pragma unroll
-  for (int k = 1; k < K; ++k) s += M[o][k] * x[k];
+  for (int k = 1; k < K; ++k) s += tiles::widen(M[o][k]) * x[k];
   return s;
 }
 
 // transposed: y[n] = sum_q M[q][n] x[q], q = 0..2
-template <int K>
-__device__ __forceinline__ float tdot1(const float (&M)[3][K], int n,
+template <class TT, int K>
+__device__ __forceinline__ float tdot1(const TT (&M)[3][K], int n,
                                        const float (&x)[3]) {
-  return M[0][n] * x[0] + M[1][n] * x[1] + M[2][n] * x[2];
+  return tiles::widen(M[0][n]) * x[0] + tiles::widen(M[1][n]) * x[1] +
+         tiles::widen(M[2][n]) * x[2];
 }
 
 // ------------------------------------------------------------- STAGED --
@@ -256,13 +275,17 @@ struct Rows {
     return base[row * BE + el];
   }
 };
-struct CRows {
-  const float* base;
+// read-only rows of f32 (scratch, f32 input rows) or bf16 (bf16 input
+// rows), widened to f32
+template <class T>
+struct CRowsT {
+  const T* base;
   int el;
   __device__ __forceinline__ float operator[](int row) const {
-    return base[row * BE + el];
+    return tiles::widen(base[row * BE + el]);
   }
 };
+using CRows = CRowsT<float>;
 
 // Pass over axis 0, pencil pc (the other axes' node indices, 3^(d-1) of
 // them): from u's nodes n0 + 3 pc of each velocity component (rows c*NNV)
@@ -270,9 +293,9 @@ struct CRows {
 // D[q0][n0] u (field 1, NNV rows on), component c at c*(2 or 1)*NNV of
 // `s`; with PRES and pc < NNP/2, the pressure (rows D*NNV + m0 + 2 pc) to
 // P0[q0 + 3 pc] of `sp`.
-template <int D, bool GRAD, bool PRES>
-__device__ __forceinline__ void pass0(const Tables& T, CRows u, Rows s,
-                                      Rows sp, int pc) {
+template <int D, bool GRAD, bool PRES, class Tab, class U>
+__device__ __forceinline__ void pass0(const Tab& T, U u, Rows s, Rows sp,
+                                      int pc) {
   constexpr int NNV = D == 2 ? 9 : 27, NNP = D == 2 ? 4 : 8;
   constexpr int CS = GRAD ? 2 * NNV : NNV;
 #pragma unroll
@@ -302,8 +325,8 @@ __device__ __forceinline__ void pass0(const Tables& T, CRows u, Rows s,
 // D.A (field 1), BA = V.B (field 2) at [q0 + 3 q1 + 9 n2] (component
 // stride 81, or 27); the pressure, pc = (q0, m2) < 6, from
 // P0[q0 + 3 m1 + 6 m2] to P1[q0 + 3 q1 + 9 m2].
-template <bool GRAD, bool PRES>
-__device__ __forceinline__ void pass1(const Tables& T, CRows s, CRows sp,
+template <bool GRAD, bool PRES, class Tab>
+__device__ __forceinline__ void pass1(const Tab& T, CRows s, CRows sp,
                                       Rows o, Rows op, int pc) {
   constexpr int CI = GRAD ? 54 : 27, CO = GRAD ? 81 : 27;
   const int q0 = pc % 3, hi = pc / 3;
@@ -343,8 +366,8 @@ __device__ __forceinline__ void pass1(const Tables& T, CRows s, CRows sp,
 // every earlier axis, field f >= 1 D on axis d-1-f.  G selects the
 // group: 1 fills u's value and reference gradients, 2 the second group's
 // (x, and xgr with GRAD); PRES fills the pressure from sp.
-template <int D, int G, bool GRAD, bool PRES>
-__device__ __forceinline__ void last_pass(const Tables& T, CRows s, CRows sp,
+template <int D, int G, bool GRAD, bool PRES, class Tab>
+__device__ __forceinline__ void last_pass(const Tab& T, CRows s, CRows sp,
                                           int pc, PointIn<D> (&pt)[3]) {
   constexpr int NNV = D == 2 ? 9 : 27, LS = D == 2 ? 3 : 9;
   constexpr int NF = GRAD ? D : 1, CS = NF * NNV;
@@ -386,23 +409,27 @@ __device__ __forceinline__ void last_pass(const Tables& T, CRows s, CRows sp,
   }
 }
 
+template <int OE>
 struct Params {
   tiles::Inputs in;
-  float* out;
+  tiles::state_t<OE>* out;
   int64_t E;
   Physics ph;
   int path;
-  Tables tab;
+  TablesT<tiles::state_t<OE>> tab;
 };
 
-template <int D, int MODE>
-__global__ void __launch_bounds__(Shape<D, MODE>::THREADS)
-    gd_lattice_kernel(const __grid_constant__ Params p) {
-  using S = Shape<D, MODE>;
+template <int D, int MODE, int OE>
+__global__ void __launch_bounds__(Shape<D, MODE, OE>::THREADS)
+    gd_lattice_kernel(const __grid_constant__ Params<OE> p) {
+  using S = Shape<D, MODE, OE>;
+  using TO = tiles::state_t<OE>;
   constexpr int NNV = S::NNV, NNP = S::NNP, NQ = S::NQ;
   constexpr int LS = D == 2 ? 3 : 9;
   constexpr bool TAN = S::TAN;
-  const Tables& T = p.tab;
+  const TablesT<TO>& T = p.tab;
+  // the output's row pitch: E for f32, the rows' pitch for bf16
+  const int64_t OP = OE == 4 ? p.E : p.in.narrow_pitch;
 
   extern __shared__ __align__(128) float smem[];
   __shared__ __align__(8) uint64_t bars[tiles::STAGES];
@@ -411,7 +438,7 @@ __global__ void __launch_bounds__(Shape<D, MODE>::THREADS)
   float* s1 = s0 + S::S0 * BE;
   const tiles::Ring<BE, S::THREADS, 4> ring{stages, S::STAGE, bars, p.path};
   constexpr int off[4] = {S::O_UE, S::O_DUE, S::O_VPE, S::O_FQ};
-  constexpr int esz[4] = {4, 4, 4, 4};           // f32 rows only
+  constexpr int esz[4] = {OE, OE, OE, OE};
 
   const int tid = threadIdx.x;
   const int el = tid % BE;
@@ -435,8 +462,9 @@ __global__ void __launch_bounds__(Shape<D, MODE>::THREADS)
     ring.wait(it);
     __syncthreads();
     const float* st = ring.stage(s);
-    const CRows ue{st + S::O_UE * 1, el};
-    const CRows xin{st + (TAN ? S::O_DUE : S::O_VPE), el};
+    const CRowsT<TO> ue{reinterpret_cast<const TO*>(st + S::O_UE), el};
+    const CRowsT<TO> xin{
+        reinterpret_cast<const TO*>(st + (TAN ? S::O_DUE : S::O_VPE)), el};
 
     // ---- interpolation: u (group 1), then due or u_prev (group 2) ----
     PointIn<D> pt[3];
@@ -472,7 +500,8 @@ __global__ void __launch_bounds__(Shape<D, MODE>::THREADS)
       for (int q = 0; q < 3; ++q)
 #pragma unroll
         for (int i = 0; i < D; ++i)
-          pt[q].f[i] = st[S::O_FQ + (i * NQ + pc + LS * q) * BE + el];
+          pt[q].f[i] =
+              tiles::ld<TO>(st + S::O_FQ, (i * NQ + pc + LS * q) * BE + el);
     }
 
     // ---- physics and the transposed pass over axis d-1, in registers ----
@@ -493,12 +522,15 @@ __global__ void __launch_bounds__(Shape<D, MODE>::THREADS)
       for (int c = 0; c < D; ++c)
 #pragma unroll
         for (int n = 0; n < 3; ++n) {
-          acc[c][0][n] += T.VW[q][n] * a_v[c] + T.DW[q][n] * b[c][D - 1];
+          acc[c][0][n] +=
+              tiles::widen(T.VW[q][n]) * a_v[c] +
+              tiles::widen(T.DW[q][n]) * b[c][D - 1];
 #pragma unroll
-          for (int f = 1; f < D; ++f) acc[c][f][n] += T.VW[q][n] * b[c][D - 1 - f];
+          for (int f = 1; f < D; ++f)
+            acc[c][f][n] += tiles::widen(T.VW[q][n]) * b[c][D - 1 - f];
         }
 #pragma unroll
-      for (int m = 0; m < 2; ++m) accp[m] += T.VpW[q][m] * a_p;
+      for (int m = 0; m < 2; ++m) accp[m] += tiles::widen(T.VpW[q][m]) * a_p;
     }
     // stored at [pc + LS*n] per component (stride D*NNV) and field
     // (stride NNV), the pressure at [pc + LS*m] after them: 2D into S1
@@ -562,8 +594,8 @@ __global__ void __launch_bounds__(Shape<D, MODE>::THREADS)
         }
 #pragma unroll
         for (int n = 0; n < 3; ++n)
-          p.out[(int64_t)(c * NNV + 3 * pc + n) * E + e] =
-              tdot1(T.VW0, n, z) + tdot1(T.DW0, n, w);
+          p.out[(int64_t)(c * NNV + 3 * pc + n) * OP + e] =
+              tiles::narrow<TO>(tdot1(T.VW0, n, z) + tdot1(T.DW0, n, w));
       }
       if (pc < NNP / 2) {
         float y[3];
@@ -571,7 +603,8 @@ __global__ void __launch_bounds__(Shape<D, MODE>::THREADS)
         for (int q = 0; q < 3; ++q) y[q] = x[2 * D * NNV + 3 * pc + q];
 #pragma unroll
         for (int m = 0; m < 2; ++m)
-          p.out[(int64_t)(D * NNV + 2 * pc + m) * E + e] = tdot1(T.VpW0, m, y);
+          p.out[(int64_t)(D * NNV + 2 * pc + m) * OP + e] =
+              tiles::narrow<TO>(tdot1(T.VpW0, m, y));
       }
     }
   }
@@ -582,35 +615,40 @@ __global__ void __launch_bounds__(Shape<D, MODE>::THREADS)
 // u_prev) stay in registers; per q0 the axis-0 pass of every component,
 // then per q1 the axis-1 pass, the physics and the transposed axis-1
 // pass, then the transposed axis-0 pass into the 22 output accumulators.
+template <int OE>
 struct RegParams {
-  const float* ue;
-  const float* due;
-  const float* vpe;
-  const float* fq;
-  float* out;
+  const tiles::state_t<OE>* ue;
+  const tiles::state_t<OE>* due;
+  const tiles::state_t<OE>* vpe;
+  const tiles::state_t<OE>* fq;
+  tiles::state_t<OE>* out;
   int64_t E;
+  int64_t pitch;      // row pitch of every row (E for f32)
   Physics ph;
-  Tables tab;
+  TablesT<tiles::state_t<OE>> tab;
 };
 
-template <int MODE>
+template <int MODE, int OE>
 __global__ void __launch_bounds__(REG_THREADS)
-    gd_lattice_reg_kernel(const __grid_constant__ RegParams p) {
+    gd_lattice_reg_kernel(const __grid_constant__ RegParams<OE> p) {
   constexpr int D = 2, NNV = 9, RS = 22;
   constexpr bool TAN = MODE == TANGENT;
   constexpr int RX = TAN ? RS : D * NNV;
-  const Tables& T = p.tab;
+  using TO = tiles::state_t<OE>;
+  const TablesT<TO>& T = p.tab;
   const int64_t E = p.E;
+  const int64_t PR = OE == 4 ? E : p.pitch;   // the rows' pitch
   for (int64_t e = (int64_t)blockIdx.x * REG_THREADS + threadIdx.x; e < E;
        e += (int64_t)gridDim.x * REG_THREADS) {
     float u[RS], x[RX], out[RS];
 #pragma unroll
     for (int r = 0; r < RS; ++r) {
-      u[r] = __ldg(p.ue + r * E + e);
+      u[r] = tiles::ldg(p.ue + r * PR + e);
       out[r] = 0.0f;
     }
 #pragma unroll
-    for (int r = 0; r < RX; ++r) x[r] = __ldg((TAN ? p.due : p.vpe) + r * E + e);
+    for (int r = 0; r < RX; ++r)
+      x[r] = tiles::ldg((TAN ? p.due : p.vpe) + r * PR + e);
 #pragma unroll
     for (int q0 = 0; q0 < 3; ++q0) {
       // axis 0 at q0: A = V.u, B = D.u per component and n1 (x likewise;
@@ -624,10 +662,10 @@ __global__ void __launch_bounds__(REG_THREADS)
 #pragma unroll
           for (int n0 = 0; n0 < 3; ++n0) {
             const int r = c * NNV + n0 + 3 * n1;
-            a += T.V[q0][n0] * u[r];
-            b += T.D[q0][n0] * u[r];
-            xa += T.V[q0][n0] * x[r];
-            if constexpr (TAN) xb += T.D[q0][n0] * x[r];
+            a += tiles::widen(T.V[q0][n0]) * u[r];
+            b += tiles::widen(T.D[q0][n0]) * u[r];
+            xa += tiles::widen(T.V[q0][n0]) * x[r];
+            if constexpr (TAN) xb += tiles::widen(T.D[q0][n0]) * x[r];
           }
           A[c][n1] = a;
           B[c][n1] = b;
@@ -638,9 +676,13 @@ __global__ void __launch_bounds__(REG_THREADS)
       for (int m1 = 0; m1 < 2; ++m1) {
         const int r = D * NNV + 2 * m1;
         if constexpr (TAN)
-          P[m1] = T.Vp[q0][0] * x[r] + T.Vp[q0][1] * x[r + 1];
+          P[m1] =
+              tiles::widen(T.Vp[q0][0]) * x[r] +
+              tiles::widen(T.Vp[q0][1]) * x[r + 1];
         else
-          P[m1] = T.Vp[q0][0] * u[r] + T.Vp[q0][1] * u[r + 1];
+          P[m1] =
+              tiles::widen(T.Vp[q0][0]) * u[r] +
+              tiles::widen(T.Vp[q0][1]) * u[r + 1];
       }
 
       float X[D][3], Y[D][3], Pt[2] = {0.0f, 0.0f};
@@ -661,7 +703,7 @@ __global__ void __launch_bounds__(REG_THREADS)
             pt.xgr[c][1] = dot1(T.D, q1, XA[c]);
             pt.xgr[c][0] = dot1(T.V, q1, XB[c]);
           } else {
-            pt.f[c] = __ldg(p.fq + (c * NNV + q0 + 3 * q1) * E + e);
+            pt.f[c] = tiles::ldg(p.fq + (c * NNV + q0 + 3 * q1) * PR + e);
           }
         }
         pt.pr = dot1(T.Vp, q1, P);
@@ -671,11 +713,13 @@ __global__ void __launch_bounds__(REG_THREADS)
         for (int c = 0; c < D; ++c)
 #pragma unroll
           for (int n = 0; n < 3; ++n) {
-            X[c][n] += T.VW[q1][n] * a_v[c] + T.DW[q1][n] * b[c][1];
-            Y[c][n] += T.VW[q1][n] * b[c][0];
+            X[c][n] +=
+                tiles::widen(T.VW[q1][n]) * a_v[c] +
+                tiles::widen(T.DW[q1][n]) * b[c][1];
+            Y[c][n] += tiles::widen(T.VW[q1][n]) * b[c][0];
           }
 #pragma unroll
-        for (int m = 0; m < 2; ++m) Pt[m] += T.VpW[q1][m] * a_p;
+        for (int m = 0; m < 2; ++m) Pt[m] += tiles::widen(T.VpW[q1][m]) * a_p;
       }
       // transposed axis 0 at q0
 #pragma unroll
@@ -685,39 +729,40 @@ __global__ void __launch_bounds__(REG_THREADS)
 #pragma unroll
           for (int n0 = 0; n0 < 3; ++n0)
             out[c * NNV + n0 + 3 * n1] +=
-                T.VW0[q0][n0] * X[c][n1] + T.DW0[q0][n0] * Y[c][n1];
+                tiles::widen(T.VW0[q0][n0]) * X[c][n1] +
+                tiles::widen(T.DW0[q0][n0]) * Y[c][n1];
 #pragma unroll
       for (int m1 = 0; m1 < 2; ++m1)
 #pragma unroll
         for (int m0 = 0; m0 < 2; ++m0)
-          out[D * NNV + m0 + 2 * m1] += T.VpW0[q0][m0] * Pt[m1];
+          out[D * NNV + m0 + 2 * m1] += tiles::widen(T.VpW0[q0][m0]) * Pt[m1];
     }
 #pragma unroll
-    for (int r = 0; r < RS; ++r) p.out[r * E + e] = out[r];
+    for (int r = 0; r < RS; ++r) p.out[r * PR + e] = tiles::narrow<TO>(out[r]);
   }
 }
 
 // ----------------------------------------------------------- dispatch --
 struct Launch {
-  const float* ue;
-  const float* due;
-  const float* vpe;
-  const float* fq;
-  const float* host_tables;
-  float* out;
-  int64_t E;
+  const void* ue;
+  const void* due;
+  const void* vpe;
+  const void* fq;
+  const void* host_tables;
+  void* out;
+  int64_t E, pitch;
   Physics ph;
   int grid, path;
   cudaStream_t stream;
 };
 
-template <int D, int MODE>
+template <int D, int MODE, int OE>
 cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
-  using S = Shape<D, MODE>;
+  using S = Shape<D, MODE, OE>;
   constexpr size_t smem = sizeof(float) * S::SMEM_FLOATS;
   static int cached = 0;
   if (!cached) {
-    const cudaError_t err = tiles::occupancy(gd_lattice_kernel<D, MODE>,
+    const cudaError_t err = tiles::occupancy(gd_lattice_kernel<D, MODE, OE>,
                                              S::THREADS, smem, &cached);
     if (err != cudaSuccess) return err;
   }
@@ -727,14 +772,15 @@ cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
   return cudaSuccess;
 }
 
-template <int D, int MODE>
+template <int D, int MODE, int OE>
 cudaError_t staged_launch(const Launch& a) {
-  using S = Shape<D, MODE>;
+  using S = Shape<D, MODE, OE>;
+  using TO = tiles::state_t<OE>;
   int blocks, smem, threads;
-  cudaError_t err = staged_config<D, MODE>(&blocks, &smem, &threads);
+  cudaError_t err = staged_config<D, MODE, OE>(&blocks, &smem, &threads);
   if (err != cudaSuccess) return err;
   if (a.E == 0 || a.grid <= 0) return cudaSuccess;
-  Params p{};
+  Params<OE> p{};
   p.in.ptr[0] = a.ue;
   p.in.ptr[1] = a.due;
   p.in.ptr[2] = a.vpe;
@@ -743,26 +789,27 @@ cudaError_t staged_launch(const Launch& a) {
   p.in.rows[1] = S::R_DUE;
   p.in.rows[2] = S::R_VPE;
   p.in.rows[3] = S::R_FQ;
-  p.out = a.out;
+  p.in.narrow_pitch = a.pitch;
+  p.out = static_cast<TO*>(a.out);
   p.E = a.E;
   p.ph = a.ph;
   p.path = a.path;
-  memcpy(&p.tab, a.host_tables, sizeof(Tables));
+  memcpy(&p.tab, a.host_tables, sizeof(p.tab));
   if (p.path == tiles::LOAD_TMA) {
-    const int esz[4] = {4, 4, 4, 4};
+    const int esz[4] = {OE, OE, OE, OE};
     err = tiles::encode_inputs(p.in, 4, a.E, BE, esz);
     if (err != cudaSuccess) return err;
   }
-  gd_lattice_kernel<D, MODE><<<a.grid, S::THREADS, smem, a.stream>>>(p);
+  gd_lattice_kernel<D, MODE, OE><<<a.grid, S::THREADS, smem, a.stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, int OE>
 cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
   static int cached = 0;
   if (!cached) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &cached, gd_lattice_reg_kernel<MODE>, REG_THREADS, 0);
+        &cached, gd_lattice_reg_kernel<MODE, OE>, REG_THREADS, 0);
     if (err != cudaSuccess) return err;
   }
   *blocks = cached;
@@ -771,53 +818,62 @@ cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
   return cudaSuccess;
 }
 
-template <int MODE>
+template <int MODE, int OE>
 cudaError_t reg_launch(const Launch& a) {
+  using TO = tiles::state_t<OE>;
   int blocks, smem, threads;
-  cudaError_t err = reg_config<MODE>(&blocks, &smem, &threads);
+  cudaError_t err = reg_config<MODE, OE>(&blocks, &smem, &threads);
   if (err != cudaSuccess) return err;
   if (a.E == 0 || a.grid <= 0) return cudaSuccess;
-  RegParams p{};
-  p.ue = a.ue;
-  p.due = a.due;
-  p.vpe = a.vpe;
-  p.fq = a.fq;
-  p.out = a.out;
+  RegParams<OE> p{};
+  p.ue = static_cast<const TO*>(a.ue);
+  p.due = static_cast<const TO*>(a.due);
+  p.vpe = static_cast<const TO*>(a.vpe);
+  p.fq = static_cast<const TO*>(a.fq);
+  p.out = static_cast<TO*>(a.out);
   p.E = a.E;
+  p.pitch = a.pitch;
   p.ph = a.ph;
-  memcpy(&p.tab, a.host_tables, sizeof(Tables));
-  gd_lattice_reg_kernel<MODE><<<a.grid, REG_THREADS, 0, a.stream>>>(p);
+  memcpy(&p.tab, a.host_tables, sizeof(p.tab));
+  gd_lattice_reg_kernel<MODE, OE><<<a.grid, REG_THREADS, 0, a.stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dispatch(int mode, int route, bool query, const Launch& a,
-                     int* blocks, int* smem, int* threads) {
+template <int D, int MODE, int OE>
+cudaError_t variant(int route, bool query, const Launch& a, int* blocks,
+                    int* smem, int* threads) {
   if (route == REGISTERS) {
-    if constexpr (D == 2) {
-      switch (mode) {
-        case PRIMAL: return query ? reg_config<PRIMAL>(blocks, smem, threads) : reg_launch<PRIMAL>(a);
-        case TANGENT: return query ? reg_config<TANGENT>(blocks, smem, threads) : reg_launch<TANGENT>(a);
-        default: return cudaErrorInvalidValue;
-      }
-    }
+    if constexpr (D == 2)
+      return query ? reg_config<MODE, OE>(blocks, smem, threads)
+                   : reg_launch<MODE, OE>(a);
     return cudaErrorInvalidValue;
   }
   if (route != STAGED) return cudaErrorInvalidValue;
-  switch (mode) {
-    case PRIMAL: return query ? staged_config<D, PRIMAL>(blocks, smem, threads) : staged_launch<D, PRIMAL>(a);
-    case TANGENT: return query ? staged_config<D, TANGENT>(blocks, smem, threads) : staged_launch<D, TANGENT>(a);
+  return query ? staged_config<D, MODE, OE>(blocks, smem, threads)
+               : staged_launch<D, MODE, OE>(a);
+}
+
+// f32 (`operand_bytes` 4) or bf16 (2) rows, tables and output
+template <int D>
+cudaError_t dispatch(int mode, int operand_bytes, int route, bool query,
+                     const Launch& a, int* blocks, int* smem, int* threads) {
+  switch (mode * 10 + operand_bytes) {
+    case PRIMAL * 10 + 4: return variant<D, PRIMAL, 4>(route, query, a, blocks, smem, threads);
+    case TANGENT * 10 + 4: return variant<D, TANGENT, 4>(route, query, a, blocks, smem, threads);
+    case PRIMAL * 10 + 2: return variant<D, PRIMAL, 2>(route, query, a, blocks, smem, threads);
+    case TANGENT * 10 + 2: return variant<D, TANGENT, 2>(route, query, a, blocks, smem, threads);
     default: return cudaErrorInvalidValue;
   }
 }
 
-cudaError_t dispatch_shape(int dim, int degree_pressure, int mode, int route,
-                           bool query, const Launch& a, int* blocks,
-                           int* smem, int* threads) {
+cudaError_t dispatch_shape(int dim, int degree_pressure, int mode,
+                           int operand_bytes, int route, bool query,
+                           const Launch& a, int* blocks, int* smem,
+                           int* threads) {
   if (degree_pressure != 1) return cudaErrorInvalidValue;
   switch (dim) {
-    case 2: return dispatch<2>(mode, route, query, a, blocks, smem, threads);
-    case 3: return dispatch<3>(mode, route, query, a, blocks, smem, threads);
+    case 2: return dispatch<2>(mode, operand_bytes, route, query, a, blocks, smem, threads);
+    case 3: return dispatch<3>(mode, operand_bytes, route, query, a, blocks, smem, threads);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -825,47 +881,54 @@ cudaError_t dispatch_shape(int dim, int degree_pressure, int mode, int route,
 }  // namespace
 
 // The variant's blocks per SM (after opting it in to its dynamic shared
-// memory), shared-memory bytes and threads per block; the caller sizes
-// the persistent grid from them.  Returns a CUDA error code.
+// memory), shared-memory bytes and threads per block, with rows, tables
+// and output of `operand_bytes` (4: f32; 2: bf16); the caller sizes the
+// persistent grid from them.  Returns a CUDA error code.
 extern "C" int gd_lattice_config(int dim, int degree_pressure, int mode,
-                                 int route, int* blocks_per_sm,
-                                 int* smem_bytes, int* threads) {
+                                 int operand_bytes, int route,
+                                 int* blocks_per_sm, int* smem_bytes,
+                                 int* threads) {
   Launch a{};
-  return static_cast<int>(dispatch_shape(dim, degree_pressure, mode, route,
-                                         true, a, blocks_per_sm, smem_bytes,
-                                         threads));
+  return static_cast<int>(dispatch_shape(dim, degree_pressure, mode,
+                                         operand_bytes, route, true, a,
+                                         blocks_per_sm, smem_bytes, threads));
 }
 
 // Launches one variant on `stream` with `grid` blocks: route STAGED (0)
-// with load path `path` (tiles::LOAD_*; TMA needs E % 4 == 0 and 16-byte
-// aligned inputs), or REGISTERS (1, 2D only).  `host_tables` are the 81
-// floats of the 1D tables and J^-1 in host memory (Tables' order), copied
-// into the kernel's parameters.  Returns cudaGetLastError() after the
-// launch (0 on success); cudaErrorInvalidValue for a (dim, pressure
-// degree, mode, route) that is not compiled, an unknown load path or no
+// with load path `path` (tiles::LOAD_*; TMA needs every row pitch a
+// multiple of 16 bytes and 16-byte aligned inputs), or REGISTERS (1, 2D
+// only).  The rows ue, due, vpe, fq and out are f32 (`operand_bytes` 4,
+// row pitch E) or bf16 (2, row pitch `pitch`, even, and 4-byte aligned
+// rows).  `host_tables` are the 81 entries of the 1D tables and J^-1 in
+// host memory (TablesT's order), f32 or bf16 like the rows, copied into
+// the kernel's parameters.  Returns cudaGetLastError() after the launch (0
+// on success); cudaErrorInvalidValue for a (dim, pressure degree, mode,
+// operand type, route) that is not compiled, an unknown load path or no
 // tables.  Does not synchronise and allocates nothing.
 extern "C" int gd_lattice_launch(
-    int dim, int degree_pressure, int mode,
+    int dim, int degree_pressure, int mode, int operand_bytes,
     const void* ue, const void* due, const void* vpe, const void* fq,
-    const void* host_tables, void* out, int64_t n_elements,
+    const void* host_tables, void* out, int64_t n_elements, int64_t pitch,
     float nu, float gamma, float alpha0, int route, int grid, int path,
     void* stream) {
   if ((path != tiles::LOAD_CP_ASYNC_4 && path != tiles::LOAD_TMA) ||
       !host_tables)
     return static_cast<int>(cudaErrorInvalidValue);
   Launch a{};
-  a.ue = static_cast<const float*>(ue);
-  a.due = static_cast<const float*>(due);
-  a.vpe = static_cast<const float*>(vpe);
-  a.fq = static_cast<const float*>(fq);
-  a.host_tables = static_cast<const float*>(host_tables);
-  a.out = static_cast<float*>(out);
+  a.ue = ue;
+  a.due = due;
+  a.vpe = vpe;
+  a.fq = fq;
+  a.host_tables = host_tables;
+  a.out = out;
   a.E = n_elements;
+  a.pitch = pitch;
   a.ph = Physics{nu, gamma, alpha0};
   a.grid = grid;
   a.path = path;
   a.stream = static_cast<cudaStream_t>(stream);
   int blocks, smem, threads;
-  return static_cast<int>(dispatch_shape(dim, degree_pressure, mode, route,
-                                         false, a, &blocks, &smem, &threads));
+  return static_cast<int>(dispatch_shape(dim, degree_pressure, mode,
+                                         operand_bytes, route, false, a,
+                                         &blocks, &smem, &threads));
 }

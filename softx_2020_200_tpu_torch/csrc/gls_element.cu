@@ -43,6 +43,17 @@
 // bytes fall from 136 to 95 f32-word equivalents per element, which puts
 // its bound on the operations (1.6 us) rather than the bytes (1.4 us).
 //
+// Operand type (OE, bytes per element of the direction, the tables and
+// the output): all three modes are also compiled with every operand in
+// bf16 (SE = OE = 2), B1 built with a bf16 compute dtype
+// (pallas_gls.py:220, :241-245, :397): ue, due, xe, up, fq and h arrive as
+// bf16 rows at one even pitch, the tables B, G, Hs and w are bf16 (staged
+// as bf16), and each output is rounded once to bf16 (round to nearest
+// even) where it is stored, at the rows' pitch.  The arithmetic inside
+// stays f32: the TPU kernel computes in bf16 op by op, a rounding sequence
+// no second compiler reproduces, and f32 inside keeps one kernel body for
+// every instance (a difference of rounding, not of function).
+//
 // What bounds it on an H100 (3.35 TB/s; 67 TFLOP/s f32 without tensor
 // cores): at the Taylor-Couette shape (2D Q2, E = 12,288) the tangent moves
 // 136 words per element (2.0 us) against about 9 kFLOP (1.7 us): bytes,
@@ -107,7 +118,7 @@ constexpr int REG_THREADS = 64;
 
 using tiles::pad32;
 
-template <int D, int K, int MODE, int SE = 4, int Q1 = K + 1>
+template <int D, int K, int MODE, int SE = 4, int OE = 4, int Q1 = K + 1>
 struct Shape {
   static constexpr int N1 = K + 1;
   static constexpr int NN = (D == 2) ? N1 * N1 : N1 * N1 * N1;
@@ -127,28 +138,30 @@ struct Shape {
   // apg_ref[D], a_p, a_lap[D], Km (symmetric)[NH]
   static constexpr int AV = 0, AG = D, APG = D + D * D, AP = APG + D,
                        ALAP = AP + 1, KM = ALAP + D, NCOEF = KM + NH;
-  // inputs: ue, due, xe, up, fq, h; due is f32, the others (the frozen
-  // state and the geometry) SE-byte elements: f32, or bf16 in the
-  // bf16-state tangent and probe
+  // inputs: ue, due, xe, up, fq, h; the frozen state and the geometry
+  // SE-byte elements (f32, or bf16 in the bf16-state and bf16-operand
+  // instances), the direction due, like the tables and the output,
+  // OE-byte elements
   static constexpr int R_UE = NN * C, R_DUE = MODE == TANGENT ? NN * C : 0,
                        R_XE = NN * D, R_UP = NN * D, R_FQ = NQ * D, R_H = 1;
   static constexpr int O_UE = 0,
                        O_DUE = O_UE + tiles::box_words(R_UE, BE, SE),
-                       O_XE = O_DUE + tiles::box_words(R_DUE, BE, 4),
+                       O_XE = O_DUE + tiles::box_words(R_DUE, BE, OE),
                        O_UP = O_XE + tiles::box_words(R_XE, BE, SE),
                        O_FQ = O_UP + tiles::box_words(R_UP, BE, SE),
                        O_H = O_FQ + tiles::box_words(R_FQ, BE, SE),
                        STAGE = O_H + tiles::box_words(R_H, BE, SE);
   static constexpr int STAGE_BYTES =
-      BE * (SE * (R_UE + R_XE + R_UP + R_FQ + R_H) + 4 * R_DUE);
+      BE * (SE * (R_UE + R_XE + R_UP + R_FQ + R_H) + OE * R_DUE);
+  static constexpr int TABLE_WORDS = tiles::table_words(TABLES, OE);
   static constexpr int SMEM_FLOATS =
-      pad32(TABLES) + tiles::STAGES * STAGE + NQ * NCOEF * BE;
+      TABLE_WORDS + tiles::STAGES * STAGE + NQ * NCOEF * BE;
 };
 
 struct Params {
   tiles::Inputs in;
-  const float* tables;
-  float* out;
+  const void* tables;   // OE-byte elements, like out
+  void* out;
   int64_t E;
   float nu, alpha0, sdt;
   int supg, pspg, gls_adjoint, lsic;
@@ -297,22 +310,22 @@ __device__ __forceinline__ void metric(const float (&Ji)[D][D],
 // ------------------------------------------------------------- STAGED --
 // Phase A: point q of element el of the staged tile `st`; writes the
 // point's NCOEF coefficients to cq[k * BE].
-template <int D, int K, int MODE, int SE, int Q1>
-__device__ __forceinline__ void point_coefficients(const Params& p,
-                                                   const float* tab,
-                                                   const float* st, int q,
-                                                   int el, float* cq) {
-  using S = Shape<D, K, MODE, SE, Q1>;
+template <int D, int K, int MODE, int SE, int OE, int Q1>
+__device__ __forceinline__ void point_coefficients(
+    const Params& p, const tiles::state_t<OE>* tab, const float* st, int q,
+    int el, float* cq) {
+  using S = Shape<D, K, MODE, SE, OE, Q1>;
   using T = tiles::state_t<SE>;
+  using TO = tiles::state_t<OE>;
   constexpr int NN = S::NN, C = S::C, BE = S::BE, NH = S::NH;
   constexpr bool TAN = MODE == TANGENT;
   // at 27 nodes the node loops unroll by 9: fully unrolled, the loads
   // the compiler hoists ahead push the 3D Q2 tangent past its registers
   constexpr int NU = NN == 27 ? 9 : NN;
-  const float* sB = tab;
-  const float* sG = sB + S::TB;
-  const float* sH = sG + S::TG;
-  const float* sw = sH + S::TH;
+  const TO* sB = tab;
+  const TO* sG = sB + S::TB;
+  const TO* sH = sG + S::TG;
+  const TO* sw = sH + S::TH;
 
   // geometry first: J[i][j] = sum_n xe[n, i] G[q, n, j], J^-1 and Km
   float J[D][D];
@@ -326,10 +339,11 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
     for (int i = 0; i < D; ++i) {
       const float x = tiles::ld<T>(st + S::O_XE, (n * D + i) * BE + el);
 #pragma unroll
-      for (int j = 0; j < D; ++j) J[i][j] += x * sG[(q * NN + n) * D + j];
+      for (int j = 0; j < D; ++j)
+        J[i][j] += x * tiles::widen(sG[(q * NN + n) * D + j]);
     }
   float Ji[D][D], Ks[NH];
-  const float scale = inverse<D>(J, Ji) * sw[q];
+  const float scale = inverse<D>(J, Ji) * tiles::widen(sw[q]);
   metric<D>(Ji, Ks);
 
   // then one pass over the nodes, each table entry loaded once: values
@@ -356,12 +370,13 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
   }
 #pragma unroll (NU)
   for (int n = 0; n < NN; ++n) {
-    const float bn = sB[q * NN + n];
+    const float bn = tiles::widen(sB[q * NN + n]);
     float g[D], lp = 0.0f;
 #pragma unroll
-    for (int a = 0; a < D; ++a) g[a] = sG[(q * NN + n) * D + a];
+    for (int a = 0; a < D; ++a) g[a] = tiles::widen(sG[(q * NN + n) * D + a]);
 #pragma unroll
-    for (int k = 0; k < NH; ++k) lp += sH[(q * NN + n) * NH + k] * Ks[k];
+    for (int k = 0; k < NH; ++k)
+      lp += tiles::widen(sH[(q * NN + n) * NH + k]) * Ks[k];
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const float u = tiles::ld<T>(st + S::O_UE, (n * C + k) * BE + el);
@@ -374,7 +389,7 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
                             tiles::ld<T>(st + S::O_UP, (n * D + k) * BE + el));
       }
       if constexpr (TAN) {
-        const float du = st[S::O_DUE + (n * C + k) * BE + el];
+        const float du = tiles::ld<TO>(st + S::O_DUE, (n * C + k) * BE + el);
         dv[k] += bn * du;
 #pragma unroll
         for (int a = 0; a < D; ++a) ddref[k][a] += g[a] * du;
@@ -414,13 +429,15 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
     for (int i = 0; i < D; ++i) {
       float s = 0.0f;
 #pragma unroll
-      for (int a = 0; a < D; ++a) s += sG[(q * NN + n0) * D + a] * Ji[a][i];
+      for (int a = 0; a < D; ++a)
+        s += tiles::widen(sG[(q * NN + n0) * D + a]) * Ji[a][i];
       gphys[i] = s;
     }
 #pragma unroll
-    for (int k = 0; k < NH; ++k) lpn += sH[(q * NN + n0) * NH + k] * Ks[k];
-    probe_direction<D>(sB[q * NN + n0], gphys, lpn, p.probe_comp, duq, dgrad,
-                       dlap);
+    for (int k = 0; k < NH; ++k)
+      lpn += tiles::widen(sH[(q * NN + n0) * NH + k]) * Ks[k];
+    probe_direction<D>(tiles::widen(sB[q * NN + n0]), gphys, lpn,
+                       p.probe_comp, duq, dgrad, dlap);
   }
   float a_v[D], a_g[D][D], a_p, a_pg[D], a_lap[D];
   weak_form<D, MODE>(p, tiles::ld<T>(st + S::O_H, el), scale, v, grad, lap,
@@ -454,28 +471,29 @@ __device__ __forceinline__ void point_coefficients(const Params& p,
 
 // Phase B: node n of element el: acc[i] = sum_q (B a_v + G . ag_ref +
 // lap_phi a_lap)_i, acc[D] = sum_q (B a_p + G . apg_ref).
-template <int D, int K, int MODE, int Q1>
-__device__ __forceinline__ void node_contraction(const float* tab,
-                                                 const float* coef, int n,
-                                                 int el, float (&acc)[D + 1]) {
-  using S = Shape<D, K, MODE, 4, Q1>;
+template <int D, int K, int MODE, int OE, int Q1>
+__device__ __forceinline__ void node_contraction(
+    const tiles::state_t<OE>* tab, const float* coef, int n, int el,
+    float (&acc)[D + 1]) {
+  using S = Shape<D, K, MODE, 4, OE, Q1>;
+  using TO = tiles::state_t<OE>;
   constexpr int NN = S::NN, NQ = S::NQ, BE = S::BE, NH = S::NH;
-  const float* sB = tab;
-  const float* sG = sB + S::TB;
-  const float* sH = sG + S::TG;
+  const TO* sB = tab;
+  const TO* sG = sB + S::TB;
+  const TO* sH = sG + S::TG;
 #pragma unroll
   for (int i = 0; i <= D; ++i) acc[i] = 0.0f;
 #pragma unroll 3
   for (int q = 0; q < NQ; ++q) {
     const float* cq = coef + q * S::NCOEF * BE + el;
-    const float bn = sB[q * NN + n];
+    const float bn = tiles::widen(sB[q * NN + n]);
     float g[D];
 #pragma unroll
-    for (int a = 0; a < D; ++a) g[a] = sG[(q * NN + n) * D + a];
+    for (int a = 0; a < D; ++a) g[a] = tiles::widen(sG[(q * NN + n) * D + a]);
     float lp = 0.0f;
 #pragma unroll
     for (int k = 0; k < NH; ++k)
-      lp += sH[(q * NN + n) * NH + k] * cq[(S::KM + k) * BE];
+      lp += tiles::widen(sH[(q * NN + n) * NH + k]) * cq[(S::KM + k) * BE];
 #pragma unroll
     for (int i = 0; i < D; ++i) {
       float s = bn * cq[(S::AV + i) * BE] + lp * cq[(S::ALAP + i) * BE];
@@ -490,21 +508,26 @@ __device__ __forceinline__ void node_contraction(const float* tab,
   }
 }
 
-template <int D, int K, int MODE, int SE, int Q1>
-__global__ void __launch_bounds__(Shape<D, K, MODE, SE, Q1>::THREADS)
+template <int D, int K, int MODE, int SE, int OE, int Q1>
+__global__ void __launch_bounds__(Shape<D, K, MODE, SE, OE, Q1>::THREADS)
     gls_element_kernel(const __grid_constant__ Params p) {
-  using S = Shape<D, K, MODE, SE, Q1>;
+  using S = Shape<D, K, MODE, SE, OE, Q1>;
+  using TO = tiles::state_t<OE>;
   constexpr int BE = S::BE, C = S::C;
 
   extern __shared__ __align__(128) float smem[];
   __shared__ __align__(8) uint64_t bars[tiles::STAGES];
-  float* tab = smem;
-  float* stages = smem + pad32(S::TABLES);
+  TO* tab = reinterpret_cast<TO*>(smem);
+  float* stages = smem + S::TABLE_WORDS;
   float* coef = stages + tiles::STAGES * S::STAGE;
   const tiles::Ring<BE, S::THREADS, 6> ring{stages, S::STAGE, bars, p.path};
   constexpr int off[6] = {S::O_UE, S::O_DUE, S::O_XE, S::O_UP, S::O_FQ,
                           S::O_H};
-  constexpr int esz[6] = {SE, 4, SE, SE, SE, SE};
+  constexpr int esz[6] = {SE, OE, SE, SE, SE, SE};
+  const TO* tables = static_cast<const TO*>(p.tables);
+  TO* out = static_cast<TO*>(p.out);
+  // the output's row pitch: E for f32, the rows' pitch for bf16
+  const int64_t OP = OE == 4 ? p.E : p.in.narrow_pitch;
 
   const int tid = threadIdx.x;
   const int el = tid % BE;
@@ -518,7 +541,7 @@ __global__ void __launch_bounds__(Shape<D, K, MODE, SE, Q1>::THREADS)
   int64_t t = blockIdx.x;
   if (t < ntiles)
     ring.issue(p.in, off, esz, S::STAGE_BYTES, E, t * BE, 0, tid);
-  for (int i = tid; i < S::TABLES; i += S::THREADS) tab[i] = p.tables[i];
+  for (int i = tid; i < S::TABLES; i += S::THREADS) tab[i] = tables[i];
   __syncthreads();
 
   for (int it = 0; t < ntiles; ++it, t += gridDim.x) {
@@ -533,7 +556,7 @@ __global__ void __launch_bounds__(Shape<D, K, MODE, SE, Q1>::THREADS)
     __syncthreads();
 
     if (slot < S::NQ)
-      point_coefficients<D, K, MODE, SE, Q1>(
+      point_coefficients<D, K, MODE, SE, OE, Q1>(
           p, tab, ring.stage(s), slot, el, coef + slot * S::NCOEF * BE + el);
     __syncthreads();
 
@@ -541,12 +564,12 @@ __global__ void __launch_bounds__(Shape<D, K, MODE, SE, Q1>::THREADS)
     const int n = slot;
     if (n < S::NN && e < E && (MODE != PROBE || n == p.probe_node)) {
       float acc[C];
-      node_contraction<D, K, MODE, Q1>(tab, coef, n, el, acc);
+      node_contraction<D, K, MODE, OE, Q1>(tab, coef, n, el, acc);
 #pragma unroll
       for (int i = 0; i < C; ++i) {
         const int64_t row = MODE == PROBE ? n * C * C + i * C + p.probe_comp
                                           : n * C + i;
-        p.out[row * E + e] = acc[i];
+        out[row * OP + e] = tiles::narrow<TO>(acc[i]);
       }
     }
   }
@@ -565,27 +588,33 @@ __global__ void __launch_bounds__(Shape<D, K, MODE, SE, Q1>::THREADS)
 // meshes fill the card with one thread per element).  At the
 // Taylor-Couette shape (2D Q2, 12,288 elements) the tangent takes 2, the
 // primal and the probe, with fewer registers, 4.
-template <int D, int K, int MODE, int SPLIT, int SE>
+template <int D, int K, int MODE, int SPLIT, int SE, int OE>
 __global__ void __launch_bounds__(REG_THREADS)
     gls_element_reg_kernel(const __grid_constant__ Params p) {
-  using S = Shape<D, K, MODE, SE>;
+  using S = Shape<D, K, MODE, SE, OE>;
   using T = tiles::state_t<SE>;
+  using TO = tiles::state_t<OE>;
   constexpr int NN = S::NN, NQ = S::NQ, C = S::C, NH = S::NH;
   constexpr bool TAN = MODE == TANGENT;
   extern __shared__ __align__(128) float smem[];
-  const float* sB = smem;
-  const float* sG = sB + S::TB;
-  const float* sH = sG + S::TG;
-  const float* sw = sH + S::TH;
+  TO* tab = reinterpret_cast<TO*>(smem);
+  const TO* sB = tab;
+  const TO* sG = sB + S::TB;
+  const TO* sH = sG + S::TG;
+  const TO* sw = sH + S::TH;
+  const TO* tables = static_cast<const TO*>(p.tables);
   for (int i = threadIdx.x; i < S::TABLES; i += REG_THREADS)
-    smem[i] = p.tables[i];
+    tab[i] = tables[i];
   __syncthreads();
 
   const int64_t E = p.E;
-  // the state rows' pitch: E for f32, the caller's for bf16
+  // the state rows' pitch: E for f32, the caller's for bf16; the
+  // direction's and the output's likewise
   const int64_t P = SE == 4 ? E : p.in.narrow_pitch;
+  const int64_t PO = OE == 4 ? E : p.in.narrow_pitch;
+  TO* out = static_cast<TO*>(p.out);
   const T* gue = static_cast<const T*>(p.in.ptr[0]);
-  const float* gdue = static_cast<const float*>(p.in.ptr[1]);
+  const TO* gdue = static_cast<const TO*>(p.in.ptr[1]);
   const T* gxe = static_cast<const T*>(p.in.ptr[2]);
   const T* gup = static_cast<const T*>(p.in.ptr[3]);
   const T* gfq = static_cast<const T*>(p.in.ptr[4]);
@@ -611,7 +640,7 @@ __global__ void __launch_bounds__(REG_THREADS)
     }
     if constexpr (TAN) {
 #pragma unroll
-      for (int r = 0; r < NN * C; ++r) due[r] = __ldg(gdue + r * E + ec);
+      for (int r = 0; r < NN * C; ++r) due[r] = tiles::ldg(gdue + r * PO + ec);
     }
     const float h = tiles::ldg(gh + ec);
     constexpr int NACC = MODE == PROBE ? C : NN * C;
@@ -621,9 +650,9 @@ __global__ void __launch_bounds__(REG_THREADS)
 
 #pragma unroll 1
     for (int q = part; q < NQ; q += split) {
-      const float* Bq = sB + q * NN;
-      const float* Gq = sG + q * NN * D;
-      const float* Hq = sH + q * NN * NH;
+      const TO* Bq = sB + q * NN;
+      const TO* Gq = sG + q * NN * D;
+      const TO* Hq = sH + q * NN * NH;
       float J[D][D];
 #pragma unroll
       for (int i = 0; i < D; ++i)
@@ -631,18 +660,19 @@ __global__ void __launch_bounds__(REG_THREADS)
         for (int j = 0; j < D; ++j) {
           float s = 0.0f;
 #pragma unroll
-          for (int n = 0; n < NN; ++n) s += xe[n * D + i] * Gq[n * D + j];
+          for (int n = 0; n < NN; ++n)
+            s += xe[n * D + i] * tiles::widen(Gq[n * D + j]);
           J[i][j] = s;
         }
       float Ji[D][D], Ks[NH];
-      const float scale = inverse<D>(J, Ji) * sw[q];
+      const float scale = inverse<D>(J, Ji) * tiles::widen(sw[q]);
       metric<D>(Ji, Ks);
       float lap_phi[NN];
 #pragma unroll
       for (int n = 0; n < NN; ++n) {
         float s = 0.0f;
 #pragma unroll
-        for (int k = 0; k < NH; ++k) s += Hq[n * NH + k] * Ks[k];
+        for (int k = 0; k < NH; ++k) s += tiles::widen(Hq[n * NH + k]) * Ks[k];
         lap_phi[n] = s;
       }
 
@@ -657,14 +687,16 @@ __global__ void __launch_bounds__(REG_THREADS)
 #pragma unroll
         for (int n = 0; n < NN; ++n) {
           const float c = ue[n * C + k];
-          v += Bq[n] * c;
+          v += tiles::widen(Bq[n]) * c;
 #pragma unroll
-          for (int a = 0; a < D; ++a) dref[a] += Gq[n * D + a] * c;
+          for (int a = 0; a < D; ++a)
+            dref[a] += tiles::widen(Gq[n * D + a]) * c;
           if constexpr (TAN) {
             const float dc = due[n * C + k];
-            dv += Bq[n] * dc;
+            dv += tiles::widen(Bq[n]) * dc;
 #pragma unroll
-            for (int a = 0; a < D; ++a) ddref[a] += Gq[n * D + a] * dc;
+            for (int a = 0; a < D; ++a)
+              ddref[a] += tiles::widen(Gq[n * D + a]) * dc;
           }
         }
         uq[k] = v;
@@ -687,7 +719,8 @@ __global__ void __launch_bounds__(REG_THREADS)
 #pragma unroll
         for (int n = 0; n < NN; ++n) {
           s += lap_phi[n] * ue[n * C + i];
-          t += Bq[n] * fmaf(p.alpha0, ue[n * C + i], up[n * D + i]);
+          t += tiles::widen(Bq[n]) *
+               fmaf(p.alpha0, ue[n * C + i], up[n * D + i]);
           if constexpr (TAN) ds += lap_phi[n] * due[n * C + i];
         }
         lap[i] = s;
@@ -698,10 +731,11 @@ __global__ void __launch_bounds__(REG_THREADS)
       float gn[D], lpn = 0.0f, bn0 = 0.0f;
       if constexpr (MODE == PROBE) {
 #pragma unroll
-        for (int a = 0; a < D; ++a) gn[a] = Gq[n0 * D + a];
-        bn0 = Bq[n0];
+        for (int a = 0; a < D; ++a) gn[a] = tiles::widen(Gq[n0 * D + a]);
+        bn0 = tiles::widen(Bq[n0]);
 #pragma unroll
-        for (int k = 0; k < NH; ++k) lpn += Hq[n0 * NH + k] * Ks[k];
+        for (int k = 0; k < NH; ++k)
+          lpn += tiles::widen(Hq[n0 * NH + k]) * Ks[k];
         float gphys[D];
 #pragma unroll
         for (int i = 0; i < D; ++i) {
@@ -747,17 +781,19 @@ __global__ void __launch_bounds__(REG_THREADS)
       } else {
 #pragma unroll
         for (int n = 0; n < NN; ++n) {
-          const float bn = Bq[n];
+          const float bn = tiles::widen(Bq[n]);
 #pragma unroll
           for (int i = 0; i < D; ++i) {
             float s = bn * a_v[i] + lap_phi[n] * a_lap[i];
 #pragma unroll
-            for (int a = 0; a < D; ++a) s += Gq[n * D + a] * ag_ref[i][a];
+            for (int a = 0; a < D; ++a)
+              s += tiles::widen(Gq[n * D + a]) * ag_ref[i][a];
             acc[n * C + i] += s;
           }
           float s = bn * a_p;
 #pragma unroll
-          for (int a = 0; a < D; ++a) s += Gq[n * D + a] * apg_ref[a];
+          for (int a = 0; a < D; ++a)
+            s += tiles::widen(Gq[n * D + a]) * apg_ref[a];
           acc[n * C + D] += s;
         }
       }
@@ -771,10 +807,12 @@ __global__ void __launch_bounds__(REG_THREADS)
     if constexpr (MODE == PROBE) {
 #pragma unroll
       for (int i = 0; i < C; ++i)
-        p.out[(int64_t)(n0 * C * C + i * C + j0) * E + e] = acc[i];
+        out[(int64_t)(n0 * C * C + i * C + j0) * PO + e] =
+            tiles::narrow<TO>(acc[i]);
     } else {
 #pragma unroll
-      for (int r = 0; r < NN * C; ++r) p.out[r * E + e] = acc[r];
+      for (int r = 0; r < NN * C; ++r)
+        out[r * PO + e] = tiles::narrow<TO>(acc[r]);
     }
   }
 }
@@ -787,13 +825,14 @@ constexpr bool has_split(int split) {
 }
 
 // (blocks per SM, shared-memory bytes, threads) of one variant, cached
-template <int D, int K, int MODE, int SPLIT, int SE>
+template <int D, int K, int MODE, int SPLIT, int SE, int OE>
 cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
-  constexpr size_t smem = sizeof(float) * Shape<D, K, MODE, SE>::TABLES;
+  constexpr size_t smem =
+      sizeof(tiles::state_t<OE>) * Shape<D, K, MODE, SE, OE>::TABLES;
   static int cached = 0;
   if (!cached) {
     const cudaError_t err = tiles::occupancy(
-        gls_element_reg_kernel<D, K, MODE, SPLIT, SE>, REG_THREADS, smem,
+        gls_element_reg_kernel<D, K, MODE, SPLIT, SE, OE>, REG_THREADS, smem,
         &cached);
     if (err != cudaSuccess) return err;
   }
@@ -803,14 +842,15 @@ cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
   return cudaSuccess;
 }
 
-template <int D, int K, int MODE, int SE, int Q1>
+template <int D, int K, int MODE, int SE, int OE, int Q1>
 cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
-  using S = Shape<D, K, MODE, SE, Q1>;
+  using S = Shape<D, K, MODE, SE, OE, Q1>;
   constexpr size_t smem = sizeof(float) * S::SMEM_FLOATS;
   static int cached = 0;
   if (!cached) {
     const cudaError_t err = tiles::occupancy(
-        gls_element_kernel<D, K, MODE, SE, Q1>, S::THREADS, smem, &cached);
+        gls_element_kernel<D, K, MODE, SE, OE, Q1>, S::THREADS, smem,
+        &cached);
     if (err != cudaSuccess) return err;
   }
   *blocks = cached;
@@ -819,14 +859,14 @@ cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
   return cudaSuccess;
 }
 
-template <int D, int K, int MODE, int SPLIT, int SE>
+template <int D, int K, int MODE, int SPLIT, int SE, int OE>
 cudaError_t reg_run(bool query, const Params& p, int grid, cudaStream_t s,
                     int* blocks, int* smem, int* threads) {
   if constexpr (has_split<D, K>(SPLIT)) {
-    cudaError_t err = reg_config<D, K, MODE, SPLIT, SE>(blocks, smem,
-                                                        threads);
+    cudaError_t err = reg_config<D, K, MODE, SPLIT, SE, OE>(blocks, smem,
+                                                            threads);
     if (err != cudaSuccess || query || p.E == 0 || grid <= 0) return err;
-    gls_element_reg_kernel<D, K, MODE, SPLIT, SE>
+    gls_element_reg_kernel<D, K, MODE, SPLIT, SE, OE>
         <<<grid, REG_THREADS, *smem, s>>>(p);
     return cudaGetLastError();
   } else {
@@ -835,22 +875,22 @@ cudaError_t reg_run(bool query, const Params& p, int grid, cudaStream_t s,
 }
 
 // REGISTERS is compiled for the (degree + 1)-point rule only
-template <int D, int K, int MODE, int SE, int Q1>
+template <int D, int K, int MODE, int SE, int OE, int Q1>
 cudaError_t run(int route, int split, bool query, Params& p, int grid,
                 cudaStream_t s, int* blocks, int* smem, int* threads) {
-  using S = Shape<D, K, MODE, SE, Q1>;
+  using S = Shape<D, K, MODE, SE, OE, Q1>;
   if (route == REGISTERS) {
     if constexpr (Q1 != K + 1) return cudaErrorInvalidValue;
     switch (split) {
-      case 1: return reg_run<D, K, MODE, 1, SE>(query, p, grid, s, blocks, smem, threads);
-      case 2: return reg_run<D, K, MODE, 2, SE>(query, p, grid, s, blocks, smem, threads);
-      case 4: return reg_run<D, K, MODE, 4, SE>(query, p, grid, s, blocks, smem, threads);
+      case 1: return reg_run<D, K, MODE, 1, SE, OE>(query, p, grid, s, blocks, smem, threads);
+      case 2: return reg_run<D, K, MODE, 2, SE, OE>(query, p, grid, s, blocks, smem, threads);
+      case 4: return reg_run<D, K, MODE, 4, SE, OE>(query, p, grid, s, blocks, smem, threads);
       default: return cudaErrorInvalidValue;
     }
   }
   if (route != STAGED) return cudaErrorInvalidValue;
-  cudaError_t err = staged_config<D, K, MODE, SE, Q1>(blocks, smem,
-                                                      threads);
+  cudaError_t err = staged_config<D, K, MODE, SE, OE, Q1>(blocks, smem,
+                                                          threads);
   if (err != cudaSuccess || query || p.E == 0 || grid <= 0) return err;
   p.in.rows[0] = S::R_UE;
   p.in.rows[1] = S::R_DUE;
@@ -859,64 +899,81 @@ cudaError_t run(int route, int split, bool query, Params& p, int grid,
   p.in.rows[4] = S::R_FQ;
   p.in.rows[5] = S::R_H;
   if (p.path == tiles::LOAD_TMA) {
-    const int esz[6] = {SE, 4, SE, SE, SE, SE};
+    const int esz[6] = {SE, OE, SE, SE, SE, SE};
     err = tiles::encode_inputs(p.in, 6, p.E, S::BE, esz);
     if (err != cudaSuccess) return err;
   }
-  gls_element_kernel<D, K, MODE, SE, Q1><<<grid, S::THREADS, *smem, s>>>(p);
+  gls_element_kernel<D, K, MODE, SE, OE, Q1>
+      <<<grid, S::THREADS, *smem, s>>>(p);
   return cudaGetLastError();
 }
 
-// the primal reads f32 state only; the tangent and the probe, f32 or
-// bf16 state (`state_bytes` 4 or 2)
+// f32 (`state_bytes` = `operand_bytes` = 4); the tangent and the probe
+// with a bf16 state (2, 4); every mode with bf16 operands (2, 2)
 template <int D, int K, int Q1>
-cudaError_t dispatch(int mode, int state_bytes, int route, int split,
-                     bool query, Params& p, int grid, cudaStream_t s,
-                     int* blocks, int* smem, int* threads) {
-  switch (mode * 10 + state_bytes) {
-    case PRIMAL * 10 + 4:
-      return run<D, K, PRIMAL, 4, Q1>(route, split, query, p, grid, s,
-                                      blocks, smem, threads);
-    case TANGENT * 10 + 4:
-      return run<D, K, TANGENT, 4, Q1>(route, split, query, p, grid, s,
-                                       blocks, smem, threads);
-    case PROBE * 10 + 4:
-      return run<D, K, PROBE, 4, Q1>(route, split, query, p, grid, s,
-                                     blocks, smem, threads);
-    case TANGENT * 10 + 2:
-      return run<D, K, TANGENT, 2, Q1>(route, split, query, p, grid, s,
-                                       blocks, smem, threads);
-    case PROBE * 10 + 2:
-      return run<D, K, PROBE, 2, Q1>(route, split, query, p, grid, s,
-                                     blocks, smem, threads);
+cudaError_t dispatch(int mode, int state_bytes, int operand_bytes, int route,
+                     int split, bool query, Params& p, int grid,
+                     cudaStream_t s, int* blocks, int* smem, int* threads) {
+  switch (mode * 100 + state_bytes * 10 + operand_bytes) {
+    case PRIMAL * 100 + 44:
+      return run<D, K, PRIMAL, 4, 4, Q1>(route, split, query, p, grid, s,
+                                         blocks, smem, threads);
+    case TANGENT * 100 + 44:
+      return run<D, K, TANGENT, 4, 4, Q1>(route, split, query, p, grid, s,
+                                          blocks, smem, threads);
+    case PROBE * 100 + 44:
+      return run<D, K, PROBE, 4, 4, Q1>(route, split, query, p, grid, s,
+                                        blocks, smem, threads);
+    case TANGENT * 100 + 24:
+      return run<D, K, TANGENT, 2, 4, Q1>(route, split, query, p, grid, s,
+                                          blocks, smem, threads);
+    case PROBE * 100 + 24:
+      return run<D, K, PROBE, 2, 4, Q1>(route, split, query, p, grid, s,
+                                        blocks, smem, threads);
+    case PRIMAL * 100 + 22:
+      return run<D, K, PRIMAL, 2, 2, Q1>(route, split, query, p, grid, s,
+                                         blocks, smem, threads);
+    case TANGENT * 100 + 22:
+      return run<D, K, TANGENT, 2, 2, Q1>(route, split, query, p, grid, s,
+                                          blocks, smem, threads);
+    case PROBE * 100 + 22:
+      return run<D, K, PROBE, 2, 2, Q1>(route, split, query, p, grid, s,
+                                        blocks, smem, threads);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dispatch_shape(int dim, int degree, int points, int mode,
-                           int state_bytes, int route, int split, bool query,
-                           Params& p, int grid, cudaStream_t s, int* blocks,
-                           int* smem, int* threads) {
+                           int state_bytes, int operand_bytes, int route,
+                           int split, bool query, Params& p, int grid,
+                           cudaStream_t s, int* blocks, int* smem,
+                           int* threads) {
   switch (dim * 100 + degree * 10 + points) {
     case 212:
-      return dispatch<2, 1, 2>(mode, state_bytes, route, split, query, p,
-                               grid, s, blocks, smem, threads);
+      return dispatch<2, 1, 2>(mode, state_bytes, operand_bytes, route,
+                               split, query, p, grid, s, blocks, smem,
+                               threads);
     case 213:
-      return dispatch<2, 1, 3>(mode, state_bytes, route, split, query, p,
-                               grid, s, blocks, smem, threads);
+      return dispatch<2, 1, 3>(mode, state_bytes, operand_bytes, route,
+                               split, query, p, grid, s, blocks, smem,
+                               threads);
     case 223:
-      return dispatch<2, 2, 3>(mode, state_bytes, route, split, query, p,
-                               grid, s, blocks, smem, threads);
+      return dispatch<2, 2, 3>(mode, state_bytes, operand_bytes, route,
+                               split, query, p, grid, s, blocks, smem,
+                               threads);
     case 312:
-      return dispatch<3, 1, 2>(mode, state_bytes, route, split, query, p,
-                               grid, s, blocks, smem, threads);
+      return dispatch<3, 1, 2>(mode, state_bytes, operand_bytes, route,
+                               split, query, p, grid, s, blocks, smem,
+                               threads);
     case 313:
-      return dispatch<3, 1, 3>(mode, state_bytes, route, split, query, p,
-                               grid, s, blocks, smem, threads);
+      return dispatch<3, 1, 3>(mode, state_bytes, operand_bytes, route,
+                               split, query, p, grid, s, blocks, smem,
+                               threads);
     case 323:
-      return dispatch<3, 2, 3>(mode, state_bytes, route, split, query, p,
-                               grid, s, blocks, smem, threads);
+      return dispatch<3, 2, 3>(mode, state_bytes, operand_bytes, route,
+                               split, query, p, grid, s, blocks, smem,
+                               threads);
     default:
       return cudaErrorInvalidValue;
   }
@@ -927,19 +984,20 @@ cudaError_t dispatch_shape(int dim, int degree, int points, int mode,
 // The variant's blocks per SM (after opting it in to its dynamic shared
 // memory), shared-memory bytes and threads per block on route STAGED (0)
 // or REGISTERS (1, with `split` threads per element), with `points` Gauss
-// points per axis and state rows of `state_bytes` (4: f32; 2: bf16,
-// tangent and probe only); the caller sizes the persistent grid from
-// them.  Returns a CUDA error code (cudaErrorInvalidValue for a variant
-// that is not compiled).
+// points per axis, state rows of `state_bytes` (4: f32; 2: bf16) and a
+// direction, tables and output of `operand_bytes` (4: f32; 2: bf16, with
+// bf16 state rows); the caller sizes the persistent grid from them.
+// Returns a CUDA error code (cudaErrorInvalidValue for a variant that is
+// not compiled).
 extern "C" int gls_element_config(int dim, int degree, int points, int mode,
-                                  int state_bytes, int route, int split,
-                                  int* blocks_per_sm, int* smem_bytes,
-                                  int* threads) {
+                                  int state_bytes, int operand_bytes,
+                                  int route, int split, int* blocks_per_sm,
+                                  int* smem_bytes, int* threads) {
   Params p{};
   return static_cast<int>(dispatch_shape(dim, degree, points, mode,
-                                         state_bytes, route, split, true, p,
-                                         0, nullptr, blocks_per_sm,
-                                         smem_bytes, threads));
+                                         state_bytes, operand_bytes, route,
+                                         split, true, p, 0, nullptr,
+                                         blocks_per_sm, smem_bytes, threads));
 }
 
 // Launches one variant on `stream` with `grid` blocks, on route STAGED (0)
@@ -947,15 +1005,18 @@ extern "C" int gls_element_config(int dim, int degree, int points, int mode,
 // multiple of 16 bytes and 16-byte aligned inputs) or REGISTERS (1) with
 // `split` threads per element (1, 2 or 4 in 2D, 1 in 3D; REG_THREADS /
 // split elements a block).  The state rows ue, xe, up, fq and h are f32
-// (`state_bytes` 4, row pitch E) or, for the tangent and the probe, bf16
-// (2, row pitch `state_pitch`, even, and 4-byte aligned rows); due and out
-// are f32 with row pitch E.  Returns cudaGetLastError() after the launch
-// (0 on success); cudaErrorInvalidValue for a (dim, degree, points,
-// mode, state type, route) that is not compiled.  Does not synchronise
-// and allocates nothing.
+// (`state_bytes` 4, row pitch E) or bf16 (2, row pitch `state_pitch`,
+// even, and 4-byte aligned rows); due, the tables and out are f32
+// (`operand_bytes` 4; due and out with row pitch E) or, with bf16 state
+// rows, bf16 (2; due and out at the rows' pitch `state_pitch`).  Returns
+// cudaGetLastError() after the launch (0 on success);
+// cudaErrorInvalidValue for a (dim, degree, points, mode, state and
+// operand types, route) that is not compiled.  Does not synchronise and
+// allocates nothing.
 extern "C" int gls_element_launch(
     int dim, int degree, int points, int mode, int state_bytes,
-    const void* ue, const void* due, const void* xe, const void* up,
+    int operand_bytes, const void* ue, const void* due, const void* xe,
+    const void* up,
     const void* fq, const void* h, const void* tables, void* out,
     int64_t n_elements, int64_t state_pitch, float nu, float alpha0,
     float sdt, int supg, int pspg, int gls_adjoint, int lsic,
@@ -971,8 +1032,8 @@ extern "C" int gls_element_launch(
   p.in.ptr[4] = fq;
   p.in.ptr[5] = h;
   p.in.narrow_pitch = state_pitch;
-  p.tables = static_cast<const float*>(tables);
-  p.out = static_cast<float*>(out);
+  p.tables = tables;
+  p.out = out;
   p.E = n_elements;
   p.nu = nu;
   p.alpha0 = alpha0;
@@ -986,8 +1047,8 @@ extern "C" int gls_element_launch(
   p.path = path;
   int blocks, smem, threads;
   return static_cast<int>(dispatch_shape(dim, degree, points, mode,
-                                         state_bytes, route, split, false, p,
-                                         grid,
+                                         state_bytes, operand_bytes, route,
+                                         split, false, p, grid,
                                          static_cast<cudaStream_t>(stream),
                                          &blocks, &smem, &threads));
 }

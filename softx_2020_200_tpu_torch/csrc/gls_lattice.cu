@@ -45,6 +45,19 @@
 // ported).  At TGV 32^3 the tangent's bytes fall from 144 to 104 f32-word
 // equivalents per element (bytes 4.1 us, operations 4.4 us).
 //
+// Operand type (OE, bytes per element of the direction, the tables and
+// the output): all three modes are also compiled with every operand in
+// bf16 (SE = OE = 2), B2 built with a bf16 compute dtype
+// (pallas_lattice.py:124-128, :253-258): the rows ue, due, up and fq and
+// the tables T_all and T_proj are bf16 (staged as bf16 on STAGED, bf16 in
+// the kernel parameters on REGISTERS), every product and the pointwise
+// physics run in f32, and each output is rounded once to bf16 (round to
+// nearest even) where it is stored, at the rows' pitch.  That is the TPU
+// kernel's own semantics: bf16 operands, f32 accumulation and physics,
+// one rounding at the store.  The products stay on the CUDA cores (the
+// tensor cores' bf16 m16n8k16 products are later work), so this build
+// halves the bytes and leaves the operations as they are.
+//
 // What bounds it on an H100 (3.35 TB/s, 67 TFLOP/s f32 without tensor
 // cores): at 3D Q1 an element moves 448 B in the primal and 576 B in the
 // tangent against about 5.7 and 8.6 kFLOP: memory-bound (5.6 us for the
@@ -105,7 +118,7 @@ constexpr int REG_THREADS = 128;
 
 using tiles::pad32;
 
-template <int D, int K, int Q, int MODE, int SE = 4>
+template <int D, int K, int Q, int MODE, int SE = 4, int OE = 4>
 struct Shape {
   static constexpr int N1 = K + 1;
   static constexpr int NN = (D == 2) ? N1 * N1 : N1 * N1 * N1;
@@ -118,19 +131,21 @@ struct Shape {
   static constexpr int THREADS = SLOTS * BE;
   static constexpr int TABLES = 2 * M * NN;
   static constexpr int CROWS = D * M + MNL;   // staged coefficients per element
-  // inputs: ue, due, up, fq; due is f32, the frozen state ue, up and fq
-  // SE-byte elements: f32, or bf16 in the bf16-state tangent and probe
+  // inputs: ue, due, up, fq; the frozen state ue, up and fq SE-byte
+  // elements (f32, or bf16 in the bf16-state and bf16-operand instances),
+  // the direction due, like the tables and the output, OE-byte elements
   static constexpr int R_UE = C * NN, R_DUE = MODE == TANGENT ? C * NN : 0,
                        R_UP = D * NN, R_FQ = D * NQ;
   static constexpr int O_UE = 0,
                        O_DUE = O_UE + tiles::box_words(R_UE, BE, SE),
-                       O_UP = O_DUE + tiles::box_words(R_DUE, BE, 4),
+                       O_UP = O_DUE + tiles::box_words(R_DUE, BE, OE),
                        O_FQ = O_UP + tiles::box_words(R_UP, BE, SE),
                        STAGE = O_FQ + tiles::box_words(R_FQ, BE, SE);
   static constexpr int STAGE_BYTES =
-      BE * (SE * (R_UE + R_UP + R_FQ) + 4 * R_DUE);
+      BE * (SE * (R_UE + R_UP + R_FQ) + OE * R_DUE);
+  static constexpr int TABLE_WORDS = tiles::table_words(TABLES, OE);
   static constexpr int SMEM_FLOATS =
-      pad32(TABLES) + tiles::STAGES * STAGE + CROWS * BE;
+      TABLE_WORDS + tiles::STAGES * STAGE + CROWS * BE;
 };
 
 struct Physics {
@@ -141,8 +156,8 @@ struct Physics {
 
 struct Params {
   tiles::Inputs in;
-  const float* tables;
-  float* out;
+  const void* tables;   // OE-byte elements, like out
+  void* out;
   int64_t E;
   Physics ph;
   int path;
@@ -244,12 +259,14 @@ struct Point {
 // coefficient rows sC [CROWS][BE]: row (i*M + b*NQ + q) for velocity
 // component i and block b (value, gradients, Laplacian); row
 // (D*M + b*NQ + q) for the pressure
-template <int D, int K, int Q, int MODE, int SE>
-__device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
+template <int D, int K, int Q, int MODE, int SE, int OE>
+__device__ __forceinline__ void stage_point(const Physics& ph,
+                                            const tiles::state_t<OE>* sT,
                                             const float* st, int q, int el,
                                             float* sC) {
-  using S = Shape<D, K, Q, MODE, SE>;
+  using S = Shape<D, K, Q, MODE, SE, OE>;
   using T = tiles::state_t<SE>;
+  using TO = tiles::state_t<OE>;
   constexpr int NN = S::NN, NQ = S::NQ, M = S::M, BE = S::BE, C = S::C;
   constexpr bool TAN = MODE == TANGENT;
   // one pass over the nodes, each table entry T_all[b*NQ + q, n] loaded
@@ -269,7 +286,8 @@ __device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
   for (int n = 0; n < NN; ++n) {
     float t[D + 2];
 #pragma unroll
-    for (int b = 0; b < D + 2; ++b) t[b] = sT[(b * NQ + q) * NN + n];
+    for (int b = 0; b < D + 2; ++b)
+      t[b] = tiles::widen(sT[(b * NQ + q) * NN + n]);
 #pragma unroll
     for (int k = 0; k < C; ++k) {
       const float u = tiles::ld<T>(st + S::O_UE, (k * NN + n) * BE + el);
@@ -279,7 +297,7 @@ __device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
         upv[k] += t[0] * fmaf(ph.alpha0, u,
                               tiles::ld<T>(st + S::O_UP, (k * NN + n) * BE + el));
       if constexpr (TAN) {
-        const float du = st[S::O_DUE + (k * NN + n) * BE + el];
+        const float du = tiles::ld<TO>(st + S::O_DUE, (k * NN + n) * BE + el);
 #pragma unroll
         for (int b = 0; b < D + 2; ++b) da[k][b] += t[b] * du;
       }
@@ -312,7 +330,8 @@ __device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
   } else if constexpr (MODE == PROBE) {
     float t[D + 2];
 #pragma unroll
-    for (int b = 0; b < D + 2; ++b) t[b] = sT[(b * NQ + q) * NN + ph.probe_node];
+    for (int b = 0; b < D + 2; ++b)
+      t[b] = tiles::widen(sT[(b * NQ + q) * NN + ph.probe_node]);
     pt.probe(t, ph.probe_comp);
   }
   float a_v[D], a_g[D][D], a_lap[D], a_p, a_pg[D];
@@ -331,22 +350,27 @@ __device__ __forceinline__ void stage_point(const Physics& ph, const float* sT,
   for (int j = 0; j < D; ++j) cq[(D * M + (1 + j) * NQ) * BE] = a_pg[j];
 }
 
-template <int D, int K, int Q, int MODE, int SE>
-__global__ void __launch_bounds__(Shape<D, K, Q, MODE, SE>::THREADS)
+template <int D, int K, int Q, int MODE, int SE, int OE>
+__global__ void __launch_bounds__(Shape<D, K, Q, MODE, SE, OE>::THREADS)
     gls_lattice_kernel(const __grid_constant__ Params p) {
-  using S = Shape<D, K, Q, MODE, SE>;
+  using S = Shape<D, K, Q, MODE, SE, OE>;
+  using TO = tiles::state_t<OE>;
   constexpr int NN = S::NN, NQ = S::NQ, C = S::C, M = S::M, MNL = S::MNL,
                 BE = S::BE;
 
   extern __shared__ __align__(128) float smem[];
   __shared__ __align__(8) uint64_t bars[tiles::STAGES];
-  float* sT = smem;                         // T_all [M][NN]
-  const float* sP = sT + M * NN;            // T_proj [NN][M]
-  float* stages = smem + pad32(S::TABLES);
+  TO* sT = reinterpret_cast<TO*>(smem);     // T_all [M][NN]
+  const TO* sP = sT + M * NN;               // T_proj [NN][M]
+  float* stages = smem + S::TABLE_WORDS;
   float* sC = stages + tiles::STAGES * S::STAGE;   // coefficients
   const tiles::Ring<BE, S::THREADS, 4> ring{stages, S::STAGE, bars, p.path};
   constexpr int off[4] = {S::O_UE, S::O_DUE, S::O_UP, S::O_FQ};
-  constexpr int esz[4] = {SE, 4, SE, SE};
+  constexpr int esz[4] = {SE, OE, SE, SE};
+  const TO* tables = static_cast<const TO*>(p.tables);
+  TO* out = static_cast<TO*>(p.out);
+  // the output's row pitch: E for f32, the rows' pitch for bf16
+  const int64_t OP = OE == 4 ? p.E : p.in.narrow_pitch;
 
   const int tid = threadIdx.x;
   const int el = tid % BE;
@@ -360,7 +384,7 @@ __global__ void __launch_bounds__(Shape<D, K, Q, MODE, SE>::THREADS)
   int64_t t = blockIdx.x;
   if (t < ntiles)
     ring.issue(p.in, off, esz, S::STAGE_BYTES, E, t * BE, 0, tid);
-  for (int i = tid; i < S::TABLES; i += S::THREADS) sT[i] = p.tables[i];
+  for (int i = tid; i < S::TABLES; i += S::THREADS) sT[i] = tables[i];
   __syncthreads();
   for (int it = 0; t < ntiles; ++it, t += gridDim.x) {
     const int s = it % tiles::STAGES;
@@ -374,8 +398,8 @@ __global__ void __launch_bounds__(Shape<D, K, Q, MODE, SE>::THREADS)
     __syncthreads();
 
     if (slot < NQ)
-      stage_point<D, K, Q, MODE, SE>(p.ph, sT, ring.stage(s), slot, el,
-                                     sC);
+      stage_point<D, K, Q, MODE, SE, OE>(p.ph, sT, ring.stage(s), slot, el,
+                                         sC);
     __syncthreads();
 
     // phase B: node n of element el
@@ -383,20 +407,20 @@ __global__ void __launch_bounds__(Shape<D, K, Q, MODE, SE>::THREADS)
     const int64_t e = t * BE + el;
     if (e < E && n < NN && (MODE != PROBE || n == p.ph.probe_node)) {
       // each T_proj entry loaded once for all C components
-      const float* Prow = sP + n * M;
+      const TO* Prow = sP + n * M;
       const float* cn = sC + el;
       float acc[C];
 #pragma unroll
       for (int k = 0; k < C; ++k) acc[k] = 0.0f;
 #pragma unroll 4
       for (int r = 0; r < MNL; ++r) {
-        const float pr = Prow[r];
+        const float pr = tiles::widen(Prow[r]);
 #pragma unroll
         for (int k = 0; k < C; ++k) acc[k] += pr * cn[(k * M + r) * BE];
       }
 #pragma unroll 4
       for (int r = MNL; r < M; ++r) {
-        const float pr = Prow[r];
+        const float pr = tiles::widen(Prow[r]);
 #pragma unroll
         for (int k = 0; k < D; ++k) acc[k] += pr * cn[(k * M + r) * BE];
       }
@@ -404,7 +428,7 @@ __global__ void __launch_bounds__(Shape<D, K, Q, MODE, SE>::THREADS)
       for (int k = 0; k < C; ++k) {
         const int64_t row = MODE == PROBE ? n * C * C + k * C + p.ph.probe_comp
                                           : k * NN + n;
-        p.out[row * E + e] = acc[k];
+        out[row * OP + e] = tiles::narrow<TO>(acc[k]);
       }
     }
   }
@@ -423,27 +447,29 @@ struct RegShape {
   static constexpr int MNL = (D + 1) * NQ;    // its value + gradient rows
 };
 
-template <int D, int SE>
+template <int D, int SE, int OE>
 struct RegParams {
   const tiles::state_t<SE>* ue;
-  const float* due;
+  const tiles::state_t<OE>* due;
   const tiles::state_t<SE>* up;
   const tiles::state_t<SE>* fq;
-  float* out;
+  tiles::state_t<OE>* out;
   int64_t E;
-  int64_t pitch;      // row pitch of ue, up and fq (E for f32)
+  int64_t pitch;      // row pitch of the bf16 rows (E for f32)
   Physics ph;
-  float T[RegShape<D>::MNL * RegShape<D>::NN];   // T_all [MNL][NN]
-  float P[RegShape<D>::NN * RegShape<D>::MNL];   // T_proj [NN][MNL]
+  tiles::state_t<OE> T[RegShape<D>::MNL * RegShape<D>::NN];  // T_all [MNL][NN]
+  tiles::state_t<OE> P[RegShape<D>::NN * RegShape<D>::MNL];  // T_proj [NN][MNL]
 };
 
-template <int D, int MODE, int SE>
+template <int D, int MODE, int SE, int OE>
 __global__ void __launch_bounds__(REG_THREADS)
-    gls_lattice_reg_kernel(const __grid_constant__ RegParams<D, SE> p) {
+    gls_lattice_reg_kernel(const __grid_constant__ RegParams<D, SE, OE> p) {
   using S = RegShape<D>;
   constexpr int NN = S::NN, NQ = S::NQ, C = S::C, M = S::MNL;
   const int64_t E = p.E;
   const int64_t P = SE == 4 ? E : p.pitch;
+  // the direction's and the output's row pitch
+  const int64_t PO = OE == 4 ? E : p.pitch;
   const int n0 = p.ph.probe_node, j0 = p.ph.probe_comp;
   for (int64_t e = (int64_t)blockIdx.x * REG_THREADS + threadIdx.x; e < E;
        e += (int64_t)gridDim.x * REG_THREADS) {
@@ -452,7 +478,7 @@ __global__ void __launch_bounds__(REG_THREADS)
     for (int r = 0; r < C * NN; ++r) u[r] = tiles::ldg(p.ue + r * P + e);
     if constexpr (MODE == TANGENT) {
 #pragma unroll
-      for (int r = 0; r < C * NN; ++r) du[r] = __ldg(p.due + r * E + e);
+      for (int r = 0; r < C * NN; ++r) du[r] = tiles::ldg(p.due + r * PO + e);
     }
     constexpr int NACC = MODE == PROBE ? C : C * NN;
     float acc[NACC];
@@ -461,9 +487,11 @@ __global__ void __launch_bounds__(REG_THREADS)
 
     // the 3D tangent walks the points one at a time (its state, u, due
     // and the accumulators, fills the registers), reading the tables by a
-    // uniform index; the rest unrolls the points.  u^{n-i} is read at
-    // each point (from L1 after the first), not held.
-#pragma unroll (D == 3 && MODE == TANGENT ? 1 : NQ)
+    // uniform index, and so does the 3D primal with bf16 tables (their
+    // widening spilled the unrolled form); the rest unrolls the points.
+    // u^{n-i} is read at each point (from L1 after the first), not held.
+#pragma unroll(D == 3 && (MODE == TANGENT || (MODE == PRIMAL && OE == 2)) \
+                   ? 1 : NQ)
     for (int q = 0; q < NQ; ++q) {
       Point<D, MODE> pt;
 #pragma unroll
@@ -478,7 +506,7 @@ __global__ void __launch_bounds__(REG_THREADS)
         for (int n = 0; n < NN; ++n)
 #pragma unroll
           for (int b = 0; b <= D; ++b) {
-            const float t = p.T[(b * NQ + q) * NN + n];
+            const float t = tiles::widen(p.T[(b * NQ + q) * NN + n]);
             a[b] += t * u[k * NN + n];
             if constexpr (MODE == TANGENT) da[b] += t * du[k * NN + n];
           }
@@ -488,7 +516,7 @@ __global__ void __launch_bounds__(REG_THREADS)
           float s = -tiles::ldg(p.fq + (k * NQ + q) * P + e);
 #pragma unroll
           for (int n = 0; n < NN; ++n)
-            s += p.T[q * NN + n] *
+            s += tiles::widen(p.T[q * NN + n]) *
                  fmaf(p.ph.alpha0, u[k * NN + n],
                       tiles::ldg(p.up + (k * NN + n) * P + e));
           pt.s[k] = s;
@@ -514,7 +542,8 @@ __global__ void __launch_bounds__(REG_THREADS)
       if constexpr (MODE == PROBE) {
         float t[D + 2];
 #pragma unroll
-        for (int b = 0; b <= D; ++b) t[b] = p.T[(b * NQ + q) * NN + n0];
+        for (int b = 0; b <= D; ++b)
+          t[b] = tiles::widen(p.T[(b * NQ + q) * NN + n0]);
         t[D + 1] = 0.0f;
         pt.probe(t, j0);
       }
@@ -526,39 +555,45 @@ __global__ void __launch_bounds__(REG_THREADS)
       if constexpr (MODE == PROBE) {
 #pragma unroll
         for (int i = 0; i < D; ++i) {
-          float s = p.P[n0 * M + q] * a_v[i];
+          float s = tiles::widen(p.P[n0 * M + q]) * a_v[i];
 #pragma unroll
-          for (int j = 0; j < D; ++j) s += p.P[n0 * M + (1 + j) * NQ + q] * a_g[i][j];
+          for (int j = 0; j < D; ++j)
+            s += tiles::widen(p.P[n0 * M + (1 + j) * NQ + q]) * a_g[i][j];
           acc[i] += s;
         }
-        float s = p.P[n0 * M + q] * a_p;
+        float s = tiles::widen(p.P[n0 * M + q]) * a_p;
 #pragma unroll
-        for (int j = 0; j < D; ++j) s += p.P[n0 * M + (1 + j) * NQ + q] * a_pg[j];
+        for (int j = 0; j < D; ++j)
+          s += tiles::widen(p.P[n0 * M + (1 + j) * NQ + q]) * a_pg[j];
         acc[D] += s;
       } else {
 #pragma unroll
         for (int n = 0; n < NN; ++n) {
 #pragma unroll
           for (int i = 0; i < D; ++i) {
-            float s = p.P[n * M + q] * a_v[i];
+            float s = tiles::widen(p.P[n * M + q]) * a_v[i];
 #pragma unroll
             for (int j = 0; j < D; ++j)
-              s += p.P[n * M + (1 + j) * NQ + q] * a_g[i][j];
+              s += tiles::widen(p.P[n * M + (1 + j) * NQ + q]) * a_g[i][j];
             acc[i * NN + n] += s;
           }
-          float s = p.P[n * M + q] * a_p;
+          float s = tiles::widen(p.P[n * M + q]) * a_p;
 #pragma unroll
-          for (int j = 0; j < D; ++j) s += p.P[n * M + (1 + j) * NQ + q] * a_pg[j];
+          for (int j = 0; j < D; ++j)
+            s += tiles::widen(p.P[n * M + (1 + j) * NQ + q]) * a_pg[j];
           acc[D * NN + n] += s;
         }
       }
     }
     if constexpr (MODE == PROBE) {
 #pragma unroll
-      for (int i = 0; i < C; ++i) p.out[(n0 * C * C + i * C + j0) * E + e] = acc[i];
+      for (int i = 0; i < C; ++i)
+        p.out[(n0 * C * C + i * C + j0) * PO + e] =
+            tiles::narrow<tiles::state_t<OE>>(acc[i]);
     } else {
 #pragma unroll
-      for (int r = 0; r < C * NN; ++r) p.out[r * E + e] = acc[r];
+      for (int r = 0; r < C * NN; ++r)
+        p.out[r * PO + e] = tiles::narrow<tiles::state_t<OE>>(acc[r]);
     }
   }
 }
@@ -566,26 +601,27 @@ __global__ void __launch_bounds__(REG_THREADS)
 // ----------------------------------------------------------- dispatch --
 struct Launch {
   const void* ue;
-  const float* due;
+  const void* due;
   const void* up;
   const void* fq;
-  const float* tables;
-  const float* host_tables;
-  float* out;
+  const void* tables;
+  const void* host_tables;
+  void* out;
   int64_t E, pitch;
   Physics ph;
   int grid, path, laplacian_free;
   cudaStream_t stream;
 };
 
-template <int D, int K, int Q, int MODE, int SE>
+template <int D, int K, int Q, int MODE, int SE, int OE>
 cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
-  using S = Shape<D, K, Q, MODE, SE>;
+  using S = Shape<D, K, Q, MODE, SE, OE>;
   constexpr size_t smem = sizeof(float) * S::SMEM_FLOATS;
   static int cached = 0;
   if (!cached) {
     const cudaError_t err = tiles::occupancy(
-        gls_lattice_kernel<D, K, Q, MODE, SE>, S::THREADS, smem, &cached);
+        gls_lattice_kernel<D, K, Q, MODE, SE, OE>, S::THREADS, smem,
+        &cached);
     if (err != cudaSuccess) return err;
   }
   *blocks = cached;
@@ -594,12 +630,12 @@ cudaError_t staged_config(int* blocks, int* smem_bytes, int* threads) {
   return cudaSuccess;
 }
 
-template <int D, int K, int Q, int MODE, int SE>
+template <int D, int K, int Q, int MODE, int SE, int OE>
 cudaError_t staged_launch(const Launch& a) {
-  using S = Shape<D, K, Q, MODE, SE>;
+  using S = Shape<D, K, Q, MODE, SE, OE>;
   int blocks, smem, threads;
-  cudaError_t err = staged_config<D, K, Q, MODE, SE>(&blocks, &smem,
-                                                     &threads);
+  cudaError_t err = staged_config<D, K, Q, MODE, SE, OE>(&blocks, &smem,
+                                                         &threads);
   if (err != cudaSuccess) return err;
   if (a.E == 0 || a.grid <= 0) return cudaSuccess;
   Params p{};
@@ -618,21 +654,21 @@ cudaError_t staged_launch(const Launch& a) {
   p.ph = a.ph;
   p.path = a.path;
   if (p.path == tiles::LOAD_TMA) {
-    const int esz[4] = {SE, 4, SE, SE};
+    const int esz[4] = {SE, OE, SE, SE};
     err = tiles::encode_inputs(p.in, 4, a.E, S::BE, esz);
     if (err != cudaSuccess) return err;
   }
-  gls_lattice_kernel<D, K, Q, MODE, SE>
+  gls_lattice_kernel<D, K, Q, MODE, SE, OE>
       <<<a.grid, S::THREADS, smem, a.stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int D, int MODE, int SE>
+template <int D, int MODE, int SE, int OE>
 cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
   static int cached = 0;
   if (!cached) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &cached, gls_lattice_reg_kernel<D, MODE, SE>, REG_THREADS, 0);
+        &cached, gls_lattice_reg_kernel<D, MODE, SE, OE>, REG_THREADS, 0);
     if (err != cudaSuccess) return err;
   }
   *blocks = cached;
@@ -641,77 +677,84 @@ cudaError_t reg_config(int* blocks, int* smem_bytes, int* threads) {
   return cudaSuccess;
 }
 
-template <int D, int MODE, int SE>
+template <int D, int MODE, int SE, int OE>
 cudaError_t reg_launch(const Launch& a) {
   using S = RegShape<D>;
   using T = tiles::state_t<SE>;
+  using TO = tiles::state_t<OE>;
   int blocks, smem, threads;
-  cudaError_t err = reg_config<D, MODE, SE>(&blocks, &smem, &threads);
+  cudaError_t err = reg_config<D, MODE, SE, OE>(&blocks, &smem, &threads);
   if (err != cudaSuccess) return err;
   if (a.E == 0 || a.grid <= 0) return cudaSuccess;
-  RegParams<D, SE> p{};
+  RegParams<D, SE, OE> p{};
   p.ue = static_cast<const T*>(a.ue);
-  p.due = a.due;
+  p.due = static_cast<const TO*>(a.due);
   p.up = static_cast<const T*>(a.up);
   p.fq = static_cast<const T*>(a.fq);
-  p.out = a.out;
+  p.out = static_cast<TO*>(a.out);
   p.E = a.E;
   p.pitch = a.pitch;
   p.ph = a.ph;
   // the tables travel in the kernel parameters, copied from the caller's
-  // host copy (no device read, so the launch can be captured in a graph)
-  // (T_all's first MNL rows; T_proj's first MNL columns).  The Laplacian
-  // rows left out must be zero, which the caller confirms
-  // (`laplacian_free`): refused otherwise
+  // host copy in the operand type (no device read, so the launch can be
+  // captured in a graph) (T_all's first MNL rows; T_proj's first MNL
+  // columns).  The Laplacian rows left out must be zero, which the caller
+  // confirms (`laplacian_free`): refused otherwise
   if (!a.host_tables || !a.laplacian_free) return cudaErrorInvalidValue;
-  memcpy(p.T, a.host_tables, sizeof(p.T));
+  const TO* host = static_cast<const TO*>(a.host_tables);
+  memcpy(p.T, host, sizeof(p.T));
   for (int n = 0; n < S::NN; ++n)
-    memcpy(p.P + n * S::MNL, a.host_tables + S::M * S::NN + n * S::M,
-           sizeof(float) * S::MNL);
-  gls_lattice_reg_kernel<D, MODE, SE><<<a.grid, REG_THREADS, 0, a.stream>>>(p);
+    memcpy(p.P + n * S::MNL, host + S::M * S::NN + n * S::M,
+           sizeof(TO) * S::MNL);
+  gls_lattice_reg_kernel<D, MODE, SE, OE>
+      <<<a.grid, REG_THREADS, 0, a.stream>>>(p);
   return cudaGetLastError();
 }
 
-// one variant: the primal reads f32 state only; the tangent and the probe,
-// f32 or bf16 state (SE 4 or 2)
-template <int D, int K, int Q, int MODE, int SE>
+// one variant: f32 (SE = OE = 4); the tangent and the probe with a bf16
+// state (SE 2, OE 4); every mode with bf16 operands (SE = OE = 2)
+template <int D, int K, int Q, int MODE, int SE, int OE>
 cudaError_t variant(int route, bool query, const Launch& a, int* blocks,
                     int* smem, int* threads) {
   if (route == REGISTERS) {
     if constexpr (K == 1 && Q == 2)
-      return query ? reg_config<D, MODE, SE>(blocks, smem, threads)
-                   : reg_launch<D, MODE, SE>(a);
+      return query ? reg_config<D, MODE, SE, OE>(blocks, smem, threads)
+                   : reg_launch<D, MODE, SE, OE>(a);
     return cudaErrorInvalidValue;
   }
   if (route != STAGED) return cudaErrorInvalidValue;
-  return query ? staged_config<D, K, Q, MODE, SE>(blocks, smem, threads)
-               : staged_launch<D, K, Q, MODE, SE>(a);
+  return query ? staged_config<D, K, Q, MODE, SE, OE>(blocks, smem, threads)
+               : staged_launch<D, K, Q, MODE, SE, OE>(a);
 }
 
 template <int D, int K, int Q>
-cudaError_t dispatch(int mode, int state_bytes, int route, bool query,
-                     const Launch& a, int* blocks, int* smem, int* threads) {
-  switch (mode * 10 + state_bytes) {
-    case PRIMAL * 10 + 4: return variant<D, K, Q, PRIMAL, 4>(route, query, a, blocks, smem, threads);
-    case TANGENT * 10 + 4: return variant<D, K, Q, TANGENT, 4>(route, query, a, blocks, smem, threads);
-    case PROBE * 10 + 4: return variant<D, K, Q, PROBE, 4>(route, query, a, blocks, smem, threads);
-    case TANGENT * 10 + 2: return variant<D, K, Q, TANGENT, 2>(route, query, a, blocks, smem, threads);
-    case PROBE * 10 + 2: return variant<D, K, Q, PROBE, 2>(route, query, a, blocks, smem, threads);
+cudaError_t dispatch(int mode, int state_bytes, int operand_bytes, int route,
+                     bool query, const Launch& a, int* blocks, int* smem,
+                     int* threads) {
+  switch (mode * 100 + state_bytes * 10 + operand_bytes) {
+    case PRIMAL * 100 + 44: return variant<D, K, Q, PRIMAL, 4, 4>(route, query, a, blocks, smem, threads);
+    case TANGENT * 100 + 44: return variant<D, K, Q, TANGENT, 4, 4>(route, query, a, blocks, smem, threads);
+    case PROBE * 100 + 44: return variant<D, K, Q, PROBE, 4, 4>(route, query, a, blocks, smem, threads);
+    case TANGENT * 100 + 24: return variant<D, K, Q, TANGENT, 2, 4>(route, query, a, blocks, smem, threads);
+    case PROBE * 100 + 24: return variant<D, K, Q, PROBE, 2, 4>(route, query, a, blocks, smem, threads);
+    case PRIMAL * 100 + 22: return variant<D, K, Q, PRIMAL, 2, 2>(route, query, a, blocks, smem, threads);
+    case TANGENT * 100 + 22: return variant<D, K, Q, TANGENT, 2, 2>(route, query, a, blocks, smem, threads);
+    case PROBE * 100 + 22: return variant<D, K, Q, PROBE, 2, 2>(route, query, a, blocks, smem, threads);
     default: return cudaErrorInvalidValue;
   }
 }
 
 cudaError_t dispatch_shape(int dim, int degree, int n_q1d, int mode,
-                           int state_bytes, int route, bool query,
-                           const Launch& a, int* blocks, int* smem,
-                           int* threads) {
+                           int state_bytes, int operand_bytes, int route,
+                           bool query, const Launch& a, int* blocks,
+                           int* smem, int* threads) {
   switch (dim * 100 + degree * 10 + n_q1d) {
-    case 212: return dispatch<2, 1, 2>(mode, state_bytes, route, query, a, blocks, smem, threads);
-    case 213: return dispatch<2, 1, 3>(mode, state_bytes, route, query, a, blocks, smem, threads);
-    case 223: return dispatch<2, 2, 3>(mode, state_bytes, route, query, a, blocks, smem, threads);
-    case 312: return dispatch<3, 1, 2>(mode, state_bytes, route, query, a, blocks, smem, threads);
-    case 313: return dispatch<3, 1, 3>(mode, state_bytes, route, query, a, blocks, smem, threads);
-    case 323: return dispatch<3, 2, 3>(mode, state_bytes, route, query, a, blocks, smem, threads);
+    case 212: return dispatch<2, 1, 2>(mode, state_bytes, operand_bytes, route, query, a, blocks, smem, threads);
+    case 213: return dispatch<2, 1, 3>(mode, state_bytes, operand_bytes, route, query, a, blocks, smem, threads);
+    case 223: return dispatch<2, 2, 3>(mode, state_bytes, operand_bytes, route, query, a, blocks, smem, threads);
+    case 312: return dispatch<3, 1, 2>(mode, state_bytes, operand_bytes, route, query, a, blocks, smem, threads);
+    case 313: return dispatch<3, 1, 3>(mode, state_bytes, operand_bytes, route, query, a, blocks, smem, threads);
+    case 323: return dispatch<3, 2, 3>(mode, state_bytes, operand_bytes, route, query, a, blocks, smem, threads);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -720,16 +763,18 @@ cudaError_t dispatch_shape(int dim, int degree, int n_q1d, int mode,
 
 // The variant's blocks per SM (after opting it in to its dynamic shared
 // memory), shared-memory bytes and threads per block, with state rows of
-// `state_bytes` (4: f32; 2: bf16, tangent and probe only); the caller
+// `state_bytes` (4: f32; 2: bf16) and a direction, tables and output of
+// `operand_bytes` (4: f32; 2: bf16, with bf16 state rows); the caller
 // sizes the persistent grid from them.  Returns a CUDA error code.
 extern "C" int gls_lattice_config(int dim, int degree, int n_q1d, int mode,
-                                  int state_bytes, int route,
-                                  int* blocks_per_sm, int* smem_bytes,
-                                  int* threads) {
+                                  int state_bytes, int operand_bytes,
+                                  int route, int* blocks_per_sm,
+                                  int* smem_bytes, int* threads) {
   Launch a{};
   return static_cast<int>(dispatch_shape(dim, degree, n_q1d, mode,
-                                         state_bytes, route, true, a,
-                                         blocks_per_sm, smem_bytes, threads));
+                                         state_bytes, operand_bytes, route,
+                                         true, a, blocks_per_sm, smem_bytes,
+                                         threads));
 }
 
 // Launches one variant on `stream` with `grid` blocks: route STAGED (0)
@@ -739,15 +784,18 @@ extern "C" int gls_lattice_config(int dim, int degree, int n_q1d, int mode,
 // the same tables in host memory (`host_tables`), whose Laplacian rows must
 // be zero (a lattice of boxes), as the caller confirms with
 // `laplacian_free` = 1.  The state rows ue, up and fq are f32
-// (`state_bytes` 4, row pitch E) or, for the tangent and the probe, bf16
-// (2, row pitch `state_pitch`, even, and 4-byte aligned rows); due and out
-// are f32 with row pitch E.  Returns cudaGetLastError() after the launch
-// (0 on success); cudaErrorInvalidValue for a (dim, degree, points per
-// axis, mode, state type, route) that is not compiled or REGISTERS without
+// (`state_bytes` 4, row pitch E) or bf16 (2, row pitch `state_pitch`,
+// even, and 4-byte aligned rows); due, the tables (both copies) and out
+// are f32 (`operand_bytes` 4; due and out with row pitch E) or, with bf16
+// state rows, bf16 (2; due and out at the rows' pitch `state_pitch`).
+// Returns cudaGetLastError() after the launch (0 on success);
+// cudaErrorInvalidValue for a (dim, degree, points per axis, mode, state
+// and operand types, route) that is not compiled or REGISTERS without
 // `laplacian_free`.  Does not synchronise and allocates nothing.
 extern "C" int gls_lattice_launch(
     int dim, int degree, int n_q1d, int mode, int state_bytes,
-    const void* ue, const void* due, const void* up, const void* fq,
+    int operand_bytes, const void* ue, const void* due, const void* up,
+    const void* fq,
     const void* tables, const void* host_tables, void* out,
     int64_t n_elements, int64_t state_pitch, float nu, float h, float alpha0,
     float sdt, int supg, int pspg, int gls_adjoint, int lsic,
@@ -757,12 +805,12 @@ extern "C" int gls_lattice_launch(
     return static_cast<int>(cudaErrorInvalidValue);
   Launch a{};
   a.ue = ue;
-  a.due = static_cast<const float*>(due);
+  a.due = due;
   a.up = up;
   a.fq = fq;
-  a.tables = static_cast<const float*>(tables);
-  a.host_tables = static_cast<const float*>(host_tables);
-  a.out = static_cast<float*>(out);
+  a.tables = tables;
+  a.host_tables = host_tables;
+  a.out = out;
   a.E = n_elements;
   a.pitch = state_pitch;
   a.ph = Physics{nu, h, alpha0, sdt, supg, pspg, gls_adjoint, lsic,
@@ -773,6 +821,7 @@ extern "C" int gls_lattice_launch(
   a.stream = static_cast<cudaStream_t>(stream);
   int blocks, smem, threads;
   return static_cast<int>(dispatch_shape(dim, degree, n_q1d, mode,
-                                         state_bytes, route, false, a,
-                                         &blocks, &smem, &threads));
+                                         state_bytes, operand_bytes, route,
+                                         false, a, &blocks, &smem,
+                                         &threads));
 }

@@ -11,10 +11,14 @@
 // rows (an R x BE box of each input) are loaded asynchronously into a
 // ring of two shared-memory stages, so tile i+1 is in flight while tile i
 // computes.  An input's elements are 4 bytes (f32, row pitch E) or 2
-// bytes (bf16, the frozen linearization state of B1 and B2, row pitch
-// Inputs::narrow_pitch, an even number of elements); each stays in its own
-// type in the stage and is widened to f32 where the kernel reads it.  Two
-// load paths, chosen by the caller per launch:
+// bytes (bf16, row pitch Inputs::narrow_pitch, an even number of elements):
+// the frozen linearization state of B1 and B2 (the bf16-state instances),
+// or every row, the direction included (the bf16-operand instances of B1,
+// B2 and B3, whose tables and output are bf16 too: `narrow` rounds each
+// output once, to nearest even, where it is stored).  Each input stays in
+// its own type in the stage and is widened to f32 where the kernel reads
+// it, so all arithmetic is f32.  Two load paths, chosen by the caller per
+// launch:
 //   LOAD_TMA          one cp.async.bulk.tensor per input and stage, issued
 //                     by one thread and completed on an mbarrier; needs
 //                     every row pitch a multiple of 16 bytes (E % 4 == 0
@@ -56,6 +60,12 @@ __host__ __device__ constexpr int box_words(int rows, int be, int esz) {
   return pad32(rows * be * esz / 4);
 }
 
+// words of a table of n `esz`-byte entries in shared memory (an odd count
+// of bf16 entries takes the last word half), rounded up to 128 bytes
+__host__ __device__ constexpr int table_words(int n, int esz) {
+  return pad32((n * esz + 3) / 4);
+}
+
 // The input rows of one launch: pointer and row count per input, each
 // input's tensor map for the TMA path, and the row pitch (elements) of its
 // 2-byte inputs.  A 4-byte input's row pitch is E.
@@ -66,14 +76,23 @@ struct Inputs {
   int64_t narrow_pitch;
 };
 
-// The state type of a kernel instance from its element bytes (4: f32, 2:
-// bf16), and the widening read of one element
+// The element type of a kernel instance's rows, tables or output from its
+// bytes (4: f32, 2: bf16), the widening read of one element and the
+// narrowing of an f32 result to it (bf16: round to nearest even, once)
 template <int SE>
 using state_t = typename std::conditional<SE == 4, float, __nv_bfloat16>::type;
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+template <class T>
+__device__ __forceinline__ T narrow(float x) {
+  if constexpr (std::is_same<T, float>::value)
+    return x;
+  else
+    return __float2bfloat16_rn(x);
 }
 
 // element i of a row block of type T staged at `base` in shared memory

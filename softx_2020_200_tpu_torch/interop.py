@@ -16,8 +16,14 @@ import torch
 
 
 def state_from_numpy(u, previous=None, *, device, dtype):
-    """-> (u tensor, [previous tensors]) on ``device`` in ``dtype``."""
+    """-> (u tensor, [previous tensors]) on ``device`` in ``dtype``.  numpy
+    has no bf16: ``torch.bfloat16`` goes through float32 and rounds once
+    from there (to nearest even), so the same float32 values round to the
+    same bf16 values in both packages."""
     def conv(a):
+        if dtype == torch.bfloat16:
+            return torch.as_tensor(np.array(a, np.float32),
+                                   device=device).to(dtype)
         return torch.as_tensor(np.array(a), dtype=dtype, device=device)
 
     return conv(u), [conv(p) for p in (previous or [])]

@@ -33,13 +33,27 @@ tangent takes neither.  Dispatch is on the device of the tensors:
 
 - CPU tensors take the plain PyTorch version (``make_lattice_gd_kernel``),
   with the tangent by ``torch.func.jvp``;
-- CUDA tensors launch the hand-written kernel (float32), on a persistent
-  grid (``ops/persistent_tiles.py``) and one of two routes chosen per
-  launch from E (``route_for``): STAGED (2D and 3D: element tiles through
-  a shared-memory ring, one thread per pencil and element) or REGISTERS
-  (2D: one thread per element);
+- CUDA tensors launch the hand-written kernel (float32, or its
+  bf16-operand instances for a module built with ``dtype=torch.bfloat16``,
+  below), on a persistent grid (``ops/persistent_tiles.py``) and one of
+  two routes chosen per launch from E (``route_for``): STAGED (2D and 3D:
+  element tiles through a shared-memory ring, one thread per pencil and
+  element) or REGISTERS (2D: one thread per element);
 - anything else raises.  There is no fallback from CUDA to the plain
-  version.
+  version, nor from a bf16 instance to a float32 one.
+
+A module built with ``dtype=torch.bfloat16`` is B3 with a bf16 compute
+dtype (``pallas_lattice_gd.py:60``, ``:70``, ``:86-89``, ``:208``): bf16
+storage of every operand (the rows ue, due, vpe and fq at one even pitch,
+and the 81 packed entries of ``pack_1d_tables``, rounded once here) and of
+the output, rounded once to bf16 (round to nearest even) where it is
+stored, at the rows' pitch; float32 arithmetic inside (B3 computes in
+bf16 op by op, a rounding sequence no second compiler reproduces: a
+difference of rounding, not of function).  Its plain version, the CPU
+path of such a module and the card's yardstick, is defined the same way:
+the bf16 operands widened to float32, the float32 plain kernel on the
+dense tables that the rounded 1D tables make (their tensor products, in
+float32: the function the kernel computes), the output rounded to bf16.
 """
 
 from __future__ import annotations
@@ -73,6 +87,9 @@ REG_THREADS = 128
 REG_MIN_PER_SM = 96
 STAGED_BE = 32             # elements of a STAGED tile: one warp
 TABLE_FLOATS = 81
+# the compute dtypes of a module on the card: float32, or every operand in
+# bf16
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 _BUILD: cuda_build.KernelBuild | None = None
 _CONFIG: dict = {}
@@ -85,11 +102,12 @@ def get_build() -> cuda_build.KernelBuild:
     if _BUILD is None:
         _BUILD = cuda_build.load(
             SOURCE, "gd_lattice_launch",
-            [ctypes.c_int] * 3 + [ctypes.c_void_p] * 6 + [ctypes.c_int64]
-            + [ctypes.c_float] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+            [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6
+            + [ctypes.c_int64] * 2 + [ctypes.c_float] * 3
+            + [ctypes.c_int] * 3 + [ctypes.c_void_p])
         _BUILD.lib.gd_lattice_config.restype = ctypes.c_int
         _BUILD.lib.gd_lattice_config.argtypes = (
-            [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3)
+            [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)] * 3)
     return _BUILD
 
 
@@ -155,6 +173,13 @@ def pack_1d_tables(tab: dict) -> np.ndarray:
                           for k in _TABLE_ORDER]).astype(np.float32)
     assert out.size == TABLE_FLOATS
     return out
+
+
+def _bf16_values(a) -> np.ndarray:
+    """``a`` rounded to bf16 (through float32, as ``Tensor.bfloat16``
+    does), as float64 values."""
+    return torch.as_tensor(np.asarray(a, np.float64)).float().bfloat16(
+        ).double().numpy()
 
 
 def dense_from_1d(dim: int, tab: dict):
@@ -229,13 +254,14 @@ def route_for(dim: int, n_elements: int, n_sms: int,
                            REG_MIN_PER_SM, n_sms)
 
 
-def tile_config(dim: int, mode: int, route: int = pt.STAGED) -> dict:
-    """The shape of one variant's launch, as ``Shape<D, MODE>`` in
+def tile_config(dim: int, mode: int, route: int = pt.STAGED,
+                operand_bytes: int = 4) -> dict:
+    """The shape of one variant's launch, as ``Shape<D, MODE, OE>`` in
     ``csrc/gd_lattice.cu`` computes it: elements per tile ``be`` (per
     block on the REGISTERS route), threads per block, the input rows of a
-    ring stage (ue, due, vpe, fq) and the shared-memory bytes (two
-    stages, then the scratch rows S0 and S1 per element); REGISTERS uses
-    none."""
+    ring stage (ue, due, vpe, fq, of ``operand_bytes`` each) and the
+    shared-memory bytes (two stages, then the f32 scratch rows S0 and S1
+    per element); REGISTERS uses none."""
     nnv, nnp = 3 ** dim, 2 ** dim
     rs = dim * nnv + nnp
     tan = mode == _TANGENT
@@ -246,15 +272,18 @@ def tile_config(dim: int, mode: int, route: int = pt.STAGED) -> dict:
                     smem_bytes=0)
     be = STAGED_BE
     s0, s1 = (78, 42) if dim == 2 else (261, 261)
-    floats = pt.STAGES * pt.stage_floats(rows, be) + (s0 + s1) * be
+    floats = (pt.STAGES * pt.stage_floats(rows, be, (operand_bytes,) * 4)
+              + (s0 + s1) * be)
     return dict(be=be, threads=nnv // 3 * be, rows=rows,
                 smem_bytes=4 * floats)
 
 
-def config_on_card(dim: int, mode: int, route: int) -> tuple[int, int, int]:
-    """(blocks per SM, shared-memory bytes, threads) of one variant, from
-    the compiled library (cached)."""
-    key = (dim, 1, mode, route)
+def config_on_card(dim: int, mode: int, route: int,
+                   operand_bytes: int = 4) -> tuple[int, int, int]:
+    """(blocks per SM, shared-memory bytes, threads) of one variant with
+    rows, tables and output of ``operand_bytes``, from the compiled
+    library (cached)."""
+    key = (dim, 1, mode, operand_bytes, route)
     if key not in _CONFIG:
         out = [ctypes.c_int() for _ in range(3)]
         err = get_build().lib.gd_lattice_config(
@@ -271,8 +300,10 @@ class LatticeGDKernel(nn.Module):
 
     ``launches`` counts CUDA kernel launches (class-wide), and
     ``launches_by_shape`` the same per (dim, velocity degree, points per
-    axis, E, variant, route); the plain version on CPU tensors does not
-    count.
+    axis, E, variant, route; "primal_bf16op" and "tangent_bf16op" for
+    bf16 operands); the plain version on CPU tensors does not count.
+    ``dtype`` is the compute dtype: on the card float32, or bfloat16 for
+    the bf16-operand instances; any dtype on the CPU.
     """
 
     launches = 0
@@ -283,15 +314,18 @@ class LatticeGDKernel(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cuda"):
         super().__init__()
+        if torch.device(device).type == "cuda" and dtype not in KERNEL_DTYPES:
+            raise ValueError(f"CUDA GD lattice kernel: no instance takes "
+                             f"{dtype} (compiled: {KERNEL_DTYPES})")
         self.dim, self.degree_pressure = dim, degree_pressure
+        # the operands' bytes, and the dtype the plain version computes in
+        self._ob = 2 if dtype == torch.bfloat16 else 4
+        self._wide = torch.float32 if self._ob == 2 else dtype
         self.nq, self.nnv = np.asarray(Bv).shape
         self.nnp = np.asarray(Bp).shape[1]
         self.rows = dim * self.nnv + self.nnp
         self.nu, self.gamma = float(nu), float(gamma)
         tables = gd_affine_tables(dim, Bv, Gv, Bp, w, xe0)
-        for name, t in zip(("Tv", "Pv", "Tp", "Pp"), tables):
-            self.register_buffer(name, torch.as_tensor(
-                np.array(t), dtype=dtype, device=device))
         self.q1d = round(self.nq ** (1 / dim))
         self.supported = ((dim, degree_pressure, self.q1d) in SUPPORTED
                           and self.q1d ** dim == self.nq)
@@ -300,19 +334,55 @@ class LatticeGDKernel(nn.Module):
         # tensor products are this operator's dense tables
         self.geometry = affine_geometry(xe0, Gv)      # (J^-1, det J)
         self._host_tables = None
+        dense = [np.array(t) for t in tables]
         if self.supported:
             tab = gd_1d_tables(dim, *self.geometry)
             scale = max(np.abs(t).max() for t in tables)
             if all(np.abs(a - b).max() <= 1e-12 * scale
                    for a, b in zip(dense_from_1d(dim, tab), tables)):
                 self._host_tables = pack_1d_tables(tab)
+                if self._ob == 2:
+                    # the 1D tables rounded to bf16 once; the plain
+                    # version's dense tables are their tensor products
+                    tab = {k: _bf16_values(v) for k, v in tab.items()}
+                    dense = dense_from_1d(dim, tab)
+                    self._host_tables = torch.as_tensor(
+                        pack_1d_tables(tab)).to(torch.bfloat16)
+        if self._ob == 2 and self._host_tables is None:
+            dense = [_bf16_values(t) for t in dense]
+        # the plain version's dense tables (float32 for a bf16 module)
+        for name, t in zip(("Tv", "Pv", "Tp", "Pp"), dense):
+            self.register_buffer(name, torch.as_tensor(
+                t, dtype=self._wide, device=device))
+        self._host_tables_ptr = (
+            None if self._host_tables is None else
+            self._host_tables.data_ptr() if self._ob == 2 else
+            self._host_tables.ctypes.data)
         self._plans = {}
 
     def plain(self):
-        """The plain PyTorch kernel on this module's tables."""
+        """The plain PyTorch kernel on this module's tables (float32 for a
+        bf16 module)."""
         return make_lattice_gd_kernel(
             dim=self.dim, nnv=self.nnv, nq=self.nq, Tv=self.Tv, Pv=self.Pv,
             Tp=self.Tp, Pp=self.Pp, nu=self.nu, gamma=self.gamma)
+
+    def _rounded(self, x):
+        """A plain result in the module's output type: rounded once to
+        bf16 for a bf16 module."""
+        return x.to(torch.bfloat16) if self._ob == 2 else x
+
+    # the plain version of each mode, on any device: the CPU path, and on
+    # the card the yardstick of the kernel (chip_smoke.py)
+    def plain_residual(self, ue, vpe, fq, alpha0):
+        return self._rounded(self.plain()(
+            *(t.to(self._wide) for t in (ue, vpe, fq)), alpha0))
+
+    def plain_tangent(self, ue, due, alpha0):
+        plain = self.plain()
+        return self._rounded(torch.func.jvp(
+            lambda v: plain(v, None, None, alpha0), (ue.to(self._wide),),
+            (due.to(self._wide),))[1])
 
     def _on_cuda(self, ue) -> bool:
         if ue.device.type == "cpu":
@@ -325,27 +395,26 @@ class LatticeGDKernel(nn.Module):
     def residual(self, ue, vpe, fq, alpha0):
         """r[d*nnv + nnp, E]: the element residuals."""
         if not self._on_cuda(ue):
-            return self.plain()(ue, vpe, fq, alpha0)
-        out = torch.empty_like(ue)
+            return self.plain_residual(ue, vpe, fq, alpha0)
+        out = pt.launch_output(ue, ue.shape, self._ob)
         self._launch(_PRIMAL, ue, None, vpe, fq, out, alpha0)
         return out
 
     def tangent(self, ue, due, alpha0):
         """dr[d*nnv + nnp, E] along ``due``: the exact Jacobian action."""
         if not self._on_cuda(ue):
-            return torch.func.jvp(
-                lambda v: self.plain()(v, None, None, alpha0), (ue,),
-                (due,))[1]
-        out = torch.empty_like(ue)
+            return self.plain_tangent(ue, due, alpha0)
+        out = pt.launch_output(ue, ue.shape, self._ob)
         self._launch(_TANGENT, ue, due, None, None, out, alpha0)
         return out
 
     def _call(self, mode, ue, due, vpe, fq, alpha0, route="auto"):
         """One variant on CUDA tensors with a forced ``route``; the
         solvers leave the route to the launch plan."""
-        out = torch.empty_like(ue)
+        out = pt.launch_output(ue, ue.shape, self._ob)
         self._launch(mode, ue, due, vpe, fq, out, alpha0, route)
         return out
+
 
     # ------------------------------------------------------------------
     def _plan(self, mode, E, device, route):
@@ -367,9 +436,10 @@ class LatticeGDKernel(nn.Module):
                     "3-point Gauss rule")
             n_sms = pt.sm_count(device)
             r = route_for(self.dim, E, n_sms, route)
+            op = {"operand_bytes": 2} if self._ob == 2 else {}
             grid = pt.persistent_grid(
-                E, tile_config(self.dim, mode, r)["be"],
-                config_on_card(self.dim, mode, r)[0], n_sms)
+                E, tile_config(self.dim, mode, r, **op)["be"],
+                config_on_card(self.dim, mode, r, **op)[0], n_sms)
             self._plans[key] = (r, grid)
         return self._plans[key]
 
@@ -381,29 +451,39 @@ class LatticeGDKernel(nn.Module):
             expect.append((due, (self.rows, E)))
         else:
             expect += [(vpe, (d * self.nnv, E)), (fq, (d * self.nq, E))]
-        dev = ue.get_device()
-        for t, shape in expect:
-            if (t.shape != shape or t.dtype != torch.float32
-                    or t.get_device() != dev or not t.is_contiguous()):
-                raise ValueError(
-                    "CUDA GD lattice kernel takes contiguous float32 "
-                    f"tensors on {ue.device}: got {tuple(t.shape)} "
-                    f"{t.dtype} on {t.device} where {shape} was expected")
+        dev, ob = ue.get_device(), self._ob
+        if ob == 2:
+            # bf16 operands: every row bf16 at one even pitch
+            if ue.dtype != torch.bfloat16:
+                raise ValueError(f"CUDA GD lattice kernel with bf16 "
+                                 f"operands: got {ue.dtype} rows")
+            pitch = pt.check_rows("GD lattice", dev, expect, [])
+        else:
+            pitch = E
+            for t, shape in expect:
+                if (t.shape != shape or t.dtype != torch.float32
+                        or t.get_device() != dev or not t.is_contiguous()):
+                    raise ValueError(
+                        "CUDA GD lattice kernel takes contiguous float32 "
+                        f"tensors on {ue.device}: got {tuple(t.shape)} "
+                        f"{t.dtype} on {t.device} where {shape} was "
+                        "expected")
         r, grid = self._plan(mode, E, dev, route)
         ptrs = [t.data_ptr() for t, _ in expect if t is not out]
         err = get_build().lib.gd_lattice_launch(
-            d, self.degree_pressure, mode, ptrs[0],
+            d, self.degree_pressure, mode, ob, ptrs[0],
             due.data_ptr() if due is not None else None,
             vpe.data_ptr() if vpe is not None else None,
             fq.data_ptr() if fq is not None else None,
-            self._host_tables.ctypes.data, out.data_ptr(), E, self.nu,
-            self.gamma, float(alpha0), r, grid, pt.load_path(E, ptrs),
+            self._host_tables_ptr, out.data_ptr(), E, pitch, self.nu,
+            self.gamma, float(alpha0), r, grid,
+            pt.load_path(E, ptrs, [ob * pitch]),
             torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"GD lattice kernel launch failed: CUDA "
                                f"error {err}")
         cls = LatticeGDKernel
         cls.launches += 1
-        key = (d, self.degree_pressure + 1, self.q1d, E, MODES[mode],
-               ROUTE_NAMES[r])
+        key = (d, self.degree_pressure + 1, self.q1d, E,
+               MODES[mode] + ("_bf16op" if ob == 2 else ""), ROUTE_NAMES[r])
         cls.launches_by_shape[key] = cls.launches_by_shape.get(key, 0) + 1

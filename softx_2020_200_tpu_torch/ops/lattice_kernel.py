@@ -23,9 +23,10 @@ Dispatch is on the device of the tensors it is given:
   frozen when the stabilization flags say so);
 - CUDA tensors launch the hand-written kernel (float32; its tangent is
   the frozen-tau linearization, as B2's; the tangent and the probes also
-  take bf16 state rows, see below);
+  take bf16 state rows, and a module built with ``dtype=torch.bfloat16``
+  launches the bf16-operand instances, see below);
 - anything else raises.  There is no fallback from CUDA to the plain
-  version.
+  version, nor from a bf16 instance to a float32 one.
 
 The tangent and the node-block probes take the frozen state (ue, up, fq)
 in float32 or in bf16 (``jacobian state precision = bf16``, rows from
@@ -36,6 +37,20 @@ T_proj, the direction and the output stay float32 (B2's one-pass bf16
 product on the TPU's matrix unit is a rate trick of that chip, not
 ported).  On the CPU a bf16 state is widened to the compute dtype and
 differentiated with tau frozen, as B2 computes it.
+
+A module built with ``dtype=torch.bfloat16`` is B2 with a bf16 compute
+dtype (``pallas_lattice.py:124-128``, ``:253-258``): the rows ue, due, up
+and fq and the tables T_all and T_proj are bf16 (rounded once, here, from
+the float64 tables; packed for the kernel, and for the REGISTERS route in
+host memory, as bf16), every product and the pointwise physics run in
+float32, and the output is rounded once to bf16 (round to nearest even)
+where it is stored, at the rows' pitch.  All three modes have such an
+instance ("primal_bf16op", "tangent_bf16op", "probe_bf16op" in
+``launches_by_shape``); the tangent freezes tau, as on float32.  Its
+plain version, the CPU path of such a module and the card's yardstick,
+is defined the same way: the bf16 operands widened to float32, the
+float32 plain kernel (tau frozen for the tangent and the probes), the
+output rounded to bf16.
 
 A launch is a persistent grid (``ops/persistent_tiles.py``) on one of two
 routes, chosen per launch from the shape, E and the tables
@@ -63,8 +78,11 @@ SOURCE = os.path.join(cuda_build.CSRC, "gls_lattice.cu")
 
 _PRIMAL, _TANGENT, _PROBE = 0, 1, 2
 MODES = ("primal", "tangent", "probe")
-# the variants that take bf16 state rows
+# the variants that take bf16 state rows (float32 direction, tables and
+# output); every mode has a bf16-operand instance
 BF16_MODES = (_TANGENT, _PROBE)
+# the compute dtypes of a module: float32, or every operand in bf16
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 REG_THREADS = 128          # REGISTERS: one thread per element
 # (dim, degree, Gauss points per axis): Q1/Q2 with degree + 1 points, and
 # Q1 with 3, which the Q1 multigrid levels of a Q2 deck use
@@ -87,12 +105,12 @@ def get_build() -> cuda_build.KernelBuild:
     if _BUILD is None:
         _BUILD = cuda_build.load(
             SOURCE, "gls_lattice_launch",
-            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 7
+            [ctypes.c_int] * 6 + [ctypes.c_void_p] * 7
             + [ctypes.c_int64] * 2 + [ctypes.c_float] * 4
             + [ctypes.c_int] * 10 + [ctypes.c_void_p])
         _BUILD.lib.gls_lattice_config.restype = ctypes.c_int
         _BUILD.lib.gls_lattice_config.argtypes = (
-            [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)] * 3)
+            [ctypes.c_int] * 7 + [ctypes.POINTER(ctypes.c_int)] * 3)
     return _BUILD
 
 
@@ -110,25 +128,27 @@ def route_for(dim: int, degree: int, n_q1d: int, n_elements: int,
 
 
 def tile_config(dim: int, degree: int, n_q1d: int, mode: int,
-                route: int = pt.STAGED, state_bytes: int = 4) -> dict:
-    """The shape of one variant's launch, as ``Shape<D, K, Q, MODE, SE>``
-    in ``csrc/gls_lattice.cu`` computes it: elements per tile ``be`` (per
-    block on the REGISTERS route), threads per block, the input rows of a
-    ring stage (ue, due, up, fq), their bytes per element (the state's
-    ``state_bytes``; due f32) and the shared-memory bytes (tables, two
-    stages, the staged coefficients); REGISTERS uses none."""
+                route: int = pt.STAGED, state_bytes: int = 4,
+                operand_bytes: int = 4) -> dict:
+    """The shape of one variant's launch, as ``Shape<D, K, Q, MODE, SE,
+    OE>`` in ``csrc/gls_lattice.cu`` computes it: elements per tile ``be``
+    (per block on the REGISTERS route), threads per block, the input rows
+    of a ring stage (ue, due, up, fq), their bytes per element (the
+    state's ``state_bytes``; due's ``operand_bytes``, like the tables')
+    and the shared-memory bytes (tables, two stages, the staged
+    coefficients); REGISTERS uses none."""
     nn, nq = (degree + 1) ** dim, n_q1d ** dim
     c = dim + 1
     rows = (c * nn, c * nn if mode == _TANGENT else 0, dim * nn, dim * nq)
-    sb = state_bytes
-    elem_bytes = (sb, 4, sb, sb)
+    sb, ob = state_bytes, operand_bytes
+    elem_bytes = (sb, ob, sb, sb)
     if route == pt.REGISTERS:
         return dict(be=REG_THREADS, threads=REG_THREADS, rows=rows,
                     elem_bytes=elem_bytes, smem_bytes=0)
     M, Mnl = (dim + 2) * nq, (dim + 1) * nq
     slots = max(nq, nn)
     be = 32 if slots * 32 <= 512 else 16
-    floats = (pt.pad32(2 * M * nn)
+    floats = (pt.table_words(2 * M * nn, ob)
               + pt.STAGES * pt.stage_floats(rows, be, elem_bytes)
               + (dim * M + Mnl) * be)
     return dict(be=be, threads=slots * be, rows=rows, elem_bytes=elem_bytes,
@@ -136,14 +156,16 @@ def tile_config(dim: int, degree: int, n_q1d: int, mode: int,
 
 
 def config_on_card(dim: int, degree: int, n_q1d: int, mode: int,
-                   route: int, state_bytes: int = 4) -> tuple[int, int, int]:
+                   route: int, state_bytes: int = 4,
+                   operand_bytes: int = 4) -> tuple[int, int, int]:
     """(blocks per SM, shared-memory bytes, threads) of one variant with
-    state rows of ``state_bytes``, from the compiled library (cached)."""
-    key = (dim, degree, n_q1d, mode, route, state_bytes)
+    state rows of ``state_bytes`` and a direction, tables and output of
+    ``operand_bytes``, from the compiled library (cached)."""
+    key = (dim, degree, n_q1d, mode, route, state_bytes, operand_bytes)
     if key not in _CONFIG:
         out = [ctypes.c_int() for _ in range(3)]
         err = get_build().lib.gls_lattice_config(
-            dim, degree, n_q1d, mode, state_bytes, route,
+            dim, degree, n_q1d, mode, state_bytes, operand_bytes, route,
             *(ctypes.byref(o) for o in out))
         if err != 0:
             raise RuntimeError(f"GLS lattice kernel {key}: CUDA error {err}")
@@ -289,8 +311,11 @@ class LatticeGLSKernel(nn.Module):
 
     ``launches`` counts CUDA kernel launches (class-wide), and
     ``launches_by_shape`` the same per (dim, degree, points per axis, E,
-    variant: "tangent_bf16" and "probe_bf16" for bf16 state); the plain
-    version on CPU tensors does not count.
+    variant: "tangent_bf16" and "probe_bf16" for bf16 state,
+    "primal_bf16op", "tangent_bf16op" and "probe_bf16op" for bf16
+    operands); the plain version on CPU tensors does not count.
+    ``dtype`` is the compute dtype: on the card float32, or bfloat16 for
+    the bf16-operand instances; any dtype on the CPU.
     """
 
     launches = 0
@@ -300,11 +325,17 @@ class LatticeGLSKernel(nn.Module):
                  nu: float, stab, dtype: torch.dtype = torch.float32,
                  device: torch.device | str = "cuda"):
         super().__init__()
+        if torch.device(device).type == "cuda" and dtype not in KERNEL_DTYPES:
+            raise ValueError(f"CUDA GLS lattice kernel: no instance takes "
+                             f"{dtype} (compiled: {KERNEL_DTYPES})")
         self.dim, self.degree = dim, degree
         self.nc = dim + 1
         self.nq, self.nn = B.shape
         self.nu = float(nu)
         self.stab = stab
+        # the operands' bytes, and the dtype the plain version computes in
+        self._ob = 2 if dtype == torch.bfloat16 else 4
+        self._wide = torch.float32 if self._ob == 2 else dtype
         T, P, h, _ = affine_tables(
             dim, self.nn, self.nq, B, G,
             np.asarray(H).reshape(self.nq, self.nn, dim, dim), w, xe0,
@@ -319,11 +350,17 @@ class LatticeGLSKernel(nn.Module):
                                                       device=device))
         self.register_buffer("T_proj", torch.as_tensor(P, dtype=dtype,
                                                        device=device))
-        # packed float32 tables for the CUDA kernel: T_all then T_proj,
-        # each row-major; the REGISTERS route takes them from the host
-        self._host_tables = np.concatenate(
-            [T.reshape(-1), P.reshape(-1)]).astype(np.float32)
-        self._host_tables_ptr = self._host_tables.ctypes.data
+        # packed tables for the CUDA kernel, in the operand type (float32,
+        # or the bf16 T_all and T_proj above): T_all then T_proj, each
+        # row-major; the REGISTERS route takes them from the host copy
+        packed = np.concatenate([T.reshape(-1), P.reshape(-1)])
+        if self._ob == 2:
+            self._host_tables = torch.cat([self.T_all.reshape(-1),
+                                           self.T_proj.reshape(-1)]).cpu()
+            self._host_tables_ptr = self._host_tables.data_ptr()
+        else:
+            self._host_tables = packed.astype(np.float32)
+            self._host_tables_ptr = self._host_tables.ctypes.data
         self.register_buffer("tables", torch.as_tensor(
             self._host_tables, device=device))
         self._plain_cache = {}
@@ -335,14 +372,17 @@ class LatticeGLSKernel(nn.Module):
         self.q1d = round(self.nq ** (1 / dim))
 
     def plain(self, stab=None):
-        """The plain PyTorch kernel on this module's device and dtype
-        (``stab`` overrides the stabilization flags, e.g. frozen tau)."""
+        """The plain PyTorch kernel on this module's device, in its dtype
+        (float32 on bf16 tables widened, for a bf16 module) (``stab``
+        overrides the stabilization flags, e.g. frozen tau)."""
         stab = stab or self.stab
         key = (stab, self.T_all.dtype, self.T_all.device)
         if key not in self._plain_cache:
             self._plain_cache[key] = make_lattice_kernel(
-                dim=self.dim, nn=self.nn, nq=self.nq, T_all=self.T_all,
-                T_proj=self.T_proj, h=self.h, nu=self.nu, stab=stab)
+                dim=self.dim, nn=self.nn, nq=self.nq,
+                T_all=self.T_all.to(self._wide),
+                T_proj=self.T_proj.to(self._wide), h=self.h, nu=self.nu,
+                stab=stab)
         return self._plain_cache[key]
 
     def _on_cuda(self, ue) -> bool:
@@ -353,30 +393,52 @@ class LatticeGLSKernel(nn.Module):
         return True
 
     def _plain_state(self, state):
-        """The plain kernel and the state rows it reads on the CPU: a bf16
-        state widened to the compute dtype, with tau frozen (B2's
-        linearization of a bf16 state)."""
+        """The plain kernel and the state rows it reads: a bf16 state
+        widened to the compute dtype (float32 for a bf16 module), with tau
+        frozen (B2's linearization of a bf16 state, and the bf16-operand
+        tangent's)."""
         if state[0].dtype != torch.bfloat16:
             return self.plain(), state
         frozen = dataclasses.replace(self.stab, frozen_tau=True)
-        return self.plain(frozen), [t.to(self.T_all.dtype) for t in state]
+        return self.plain(frozen), [t.to(self._wide) for t in state]
+
+    def _rounded(self, x):
+        """A plain result in the module's output type: rounded once to
+        bf16 for a bf16 module."""
+        return x.to(torch.bfloat16) if self._ob == 2 else x
+
+    # the plain version of each mode, on any device: the CPU path, and on
+    # the card the yardstick of the kernel (chip_smoke.py)
+    def plain_residual(self, ue, up, fq, alpha0, sdt):
+        return self._rounded(self.plain()(
+            *(t.to(self._wide) for t in (ue, up, fq)), alpha0, sdt))
+
+    def plain_tangent(self, ue, due, up, fq, alpha0, sdt):
+        kernel, (ue, up, fq) = self._plain_state((ue, up, fq))
+        return self._rounded(lattice_tangent(
+            kernel, ue, due.to(self._wide), up, fq, alpha0, sdt))
+
+    def plain_node_blocks(self, ue, up, fq, alpha0, sdt):
+        kernel, (ue, up, fq) = self._plain_state((ue, up, fq))
+        return self._rounded(lattice_node_blocks(kernel, ue, up, fq, alpha0,
+                                                 sdt, self.nn))
 
     # ------------------------------------------------------------------
     def residual(self, ue, up, fq, alpha0, sdt):
         """r[c*nn, E]: the element residuals (full tau)."""
         if not self._on_cuda(ue):
-            return self.plain()(ue, up, fq, alpha0, sdt)
-        out = torch.empty_like(ue)
+            return self.plain_residual(ue, up, fq, alpha0, sdt)
+        out = pt.launch_output(ue, ue.shape, self._ob)
         self._launch(_PRIMAL, ue, None, (up, fq, alpha0, sdt), out)
         return out
 
     def tangent(self, ue, due, up, fq, alpha0, sdt):
         """dr[c*nn, E] along ``due``: exact or frozen tau per the flags on
-        CPU (frozen for a bf16 state); frozen tau on CUDA."""
+        CPU (frozen for a bf16 state or bf16 operands); frozen tau on
+        CUDA."""
         if not self._on_cuda(ue):
-            kernel, (ue, up, fq) = self._plain_state((ue, up, fq))
-            return lattice_tangent(kernel, ue, due, up, fq, alpha0, sdt)
-        out = torch.empty_like(due)
+            return self.plain_tangent(ue, due, up, fq, alpha0, sdt)
+        out = pt.launch_output(ue, due.shape, self._ob)
         self._launch(_TANGENT, ue, due, (up, fq, alpha0, sdt), out)
         return out
 
@@ -384,10 +446,9 @@ class LatticeGLSKernel(nn.Module):
         """Element node-diagonal Jacobian blocks [nn, c*c, E] (row-major
         (i, j)): on CUDA one probe launch per (node, component)."""
         if not self._on_cuda(ue):
-            kernel, (ue, up, fq) = self._plain_state((ue, up, fq))
-            return lattice_node_blocks(kernel, ue, up, fq, alpha0, sdt,
-                                       self.nn)
+            return self.plain_node_blocks(ue, up, fq, alpha0, sdt)
         return self._call(_PROBE, ue, None, (up, fq, alpha0, sdt))
+
 
     # ------------------------------------------------------------------
     def _call(self, mode, ue, due, args, route="auto"):
@@ -396,11 +457,11 @@ class LatticeGLSKernel(nn.Module):
         nn*c launches.  ``route`` forces a route; the solvers leave it to
         the launch plan."""
         if mode != _PROBE:
-            out = ue.new_empty(ue.shape, dtype=torch.float32)
+            out = pt.launch_output(ue, ue.shape, self._ob)
             self._launch(mode, ue, due, args, out, (0, 0), route)
             return out
         c, E = self.nc, ue.shape[-1]
-        out = ue.new_empty((self.nn, c * c, E), dtype=torch.float32)
+        out = pt.launch_output(ue, (self.nn, c * c, E), self._ob)
         for n0 in range(self.nn):
             for j in range(c):
                 self._launch(_PROBE, ue, None, args, out, (n0, j), route)
@@ -409,9 +470,9 @@ class LatticeGLSKernel(nn.Module):
     def _plan(self, mode, q1d, E, device, route, sb=4):
         """(route, grid) of a launch on E elements, cached per variant,
         state bytes ``sb``, E and forced route (the device is the
-        tables'): the host cost of a launch is most of a small kernel's
-        time, and the bf16 variants have their own registers, shared
-        memory and occupancy."""
+        tables', the operand type the module's): the host cost of a
+        launch is most of a small kernel's time, and the bf16 variants
+        have their own registers, shared memory and occupancy."""
         key = (mode, E, route, sb)
         if key not in self._plans:
             d, k = self.dim, self.degree
@@ -423,9 +484,10 @@ class LatticeGLSKernel(nn.Module):
                     f"axis, and Q1 with 3)")
             n_sms = pt.sm_count(device)
             r = route_for(d, k, q1d, E, n_sms, self.laplacian_free, route)
+            op = {"operand_bytes": 2} if self._ob == 2 else {}
             grid = pt.persistent_grid(
-                E, tile_config(d, k, q1d, mode, r, sb)["be"],
-                config_on_card(d, k, q1d, mode, r, sb)[0], n_sms)
+                E, tile_config(d, k, q1d, mode, r, sb, **op)["be"],
+                config_on_card(d, k, q1d, mode, r, sb, **op)[0], n_sms)
             self._plans[key] = (r, grid)
         return self._plans[key]
 
@@ -433,25 +495,30 @@ class LatticeGLSKernel(nn.Module):
         up, fq, alpha0, sdt = args
         d, nn, nq, c, q1d = self.dim, self.nn, self.nq, self.nc, self.q1d
         E = ue.shape[-1]
-        sb = pt.state_bytes(ue)
-        if sb != 4 and mode not in BF16_MODES:
+        sb, ob = pt.state_bytes(ue), self._ob
+        if ob == 2 and sb != 2:
+            raise ValueError(f"CUDA GLS lattice kernel with bf16 operands: "
+                             f"got {ue.dtype} rows")
+        if sb != 4 and ob == 4 and mode not in BF16_MODES:
             raise ValueError("CUDA GLS lattice kernel: bf16 state rows are "
                              "taken by the tangent and the probes only")
-        f32 = [(out, out.shape), (self.tables, self.tables.shape)]
+        state = [(ue, (c * nn, E)), (up, (d * nn, E)), (fq, (d * nq, E))]
+        other = [(out, out.shape), (self.tables, self.tables.shape)]
         if due is not None:
-            f32.append((due, (c * nn, E)))
+            other.append((due, (c * nn, E)))
         dev = ue.get_device()
-        pitch = pt.check_rows(
-            "GLS lattice", dev, [(ue, (c * nn, E)), (up, (d * nn, E)),
-                                 (fq, (d * nq, E))], f32)
+        # bf16 operands: every tensor is bf16 at the state rows' pitch
+        pitch = (pt.check_rows("GLS lattice", dev, state + other, [])
+                 if ob == 2 else
+                 pt.check_rows("GLS lattice", dev, state, other))
         route, grid = self._plan(mode, q1d, E, dev, route, sb)
         ptrs = [t.data_ptr() for t in (ue, up, fq)]
         pitch_bytes = [sb * pitch]
         if due is not None:
             ptrs.append(due.data_ptr())
-            pitch_bytes.append(4 * E)
+            pitch_bytes.append(2 * pitch if ob == 2 else 4 * E)
         err = get_build().lib.gls_lattice_launch(
-            d, self.degree, q1d, mode, sb, ptrs[0],
+            d, self.degree, q1d, mode, sb, ob, ptrs[0],
             ptrs[3] if due is not None else None, ptrs[1], ptrs[2],
             self.tables.data_ptr(), self._host_tables_ptr, out.data_ptr(), E,
             pitch, self.nu, self.h, float(alpha0), float(sdt), *self._flags,
@@ -463,6 +530,6 @@ class LatticeGLSKernel(nn.Module):
                                f"error {err}")
         cls = LatticeGLSKernel
         cls.launches += 1
-        key = (d, self.degree, q1d, E,
-               MODES[mode] + ("_bf16" if sb == 2 else ""))
+        key = (d, self.degree, q1d, E, MODES[mode] + (
+            "_bf16op" if ob == 2 else "_bf16" if sb == 2 else ""))
         cls.launches_by_shape[key] = cls.launches_by_shape.get(key, 0) + 1

@@ -21,6 +21,12 @@ state precision = bf16``): ``state_rows`` rounds it once per
 linearization into rows whose pitch is E rounded up to 8 elements, so that
 both paths take it at any E; the kernels widen each element to f32 where
 they read it.
+
+The bf16-operand instances of B1, B2 and B3 (an operator built with
+``dtype=torch.bfloat16``) take every row in bf16, the direction too, at
+one even pitch (``narrow_rows`` lays them out at the pitch of
+``state_rows``), bf16 tables, and write a bf16 output at the rows' pitch
+(``empty_rows``); their arithmetic is f32.
 """
 
 from __future__ import annotations
@@ -50,6 +56,12 @@ def pad32(n: int) -> int:
     return (n + 31) // 32 * 32
 
 
+def table_words(n: int, elem_bytes: int = 4) -> int:
+    """Words (4 bytes) of a table of ``n`` entries of ``elem_bytes`` in
+    shared memory, rounded up to 128 bytes (``tiles::table_words``)."""
+    return pad32(-(-n * elem_bytes // 4))
+
+
 def stage_floats(rows, be: int, elem_bytes=None) -> int:
     """Words (4 bytes) of one ring stage holding an R x ``be`` box of each
     input (``rows`` per input, 0 for one the variant does not read), of
@@ -73,6 +85,38 @@ def state_rows(x: torch.Tensor) -> torch.Tensor:
                       device=x.device)
     out[..., :E] = x.float()
     return out[..., :E]
+
+
+def narrow_pitch(E: int) -> int:
+    """The row pitch of ``state_rows`` for rows of E elements: E rounded
+    up to ``STATE_PITCH_ALIGN``."""
+    return -(-E // STATE_PITCH_ALIGN) * STATE_PITCH_ALIGN
+
+
+def narrow_rows(x: torch.Tensor) -> torch.Tensor:
+    """``x`` [..., E] as bf16 rows at the pitch ``state_rows`` lays out:
+    ``x`` itself where it is so already (bf16 at that pitch, 16-byte
+    aligned), else ``state_rows(x)``."""
+    if (x.dtype == torch.bfloat16 and x.data_ptr() % 16 == 0
+            and row_pitch(x) == narrow_pitch(x.shape[-1])):
+        return x
+    return state_rows(x)
+
+
+def empty_rows(shape, pitch: int, device) -> torch.Tensor:
+    """An uninitialised bf16 output [..., E] whose rows lie at ``pitch``
+    elements (the input rows' pitch of a bf16-operand launch)."""
+    *lead, E = shape
+    return torch.empty(*lead, max(pitch, E), dtype=torch.bfloat16,
+                       device=device)[..., :E]
+
+
+def launch_output(rows: torch.Tensor, shape, operand_bytes: int):
+    """The output ``shape`` of a launch on ``rows``: float32, or for bf16
+    operands (``operand_bytes`` 2) bf16 at the rows' pitch."""
+    if operand_bytes == 2:
+        return empty_rows(shape, row_pitch(rows) or shape[-1], rows.device)
+    return rows.new_empty(shape, dtype=torch.float32)
 
 
 def row_pitch(t: torch.Tensor) -> int | None:
@@ -153,7 +197,8 @@ def split_for(n_elements: int, candidates, n_sms: int, threads: int) -> int:
 
 
 def state_bytes(t: torch.Tensor) -> int:
-    """Bytes per element of a launch's state rows: 2 for bf16, else 4."""
+    """Bytes per element of a launch's state rows (or, of a bf16-operand
+    launch, of every row, table and output): 2 for bf16, else 4."""
     return 2 if t.dtype == torch.bfloat16 else 4
 
 
@@ -162,7 +207,9 @@ def check_rows(kernel: str, device: int, state, f32) -> int:
     ``f32`` [(tensor, shape)] contiguous float32; ``state`` [(tensor,
     shape)], the frozen state rows, all float32 and contiguous, or all
     bf16 at one even row pitch with 4-byte aligned rows (``state_rows``
-    lays them out so).  Returns the state rows' pitch in elements; raises
+    lays them out so).  A bf16-operand launch passes every tensor, the
+    direction, the tables and the output included, in ``state`` and none
+    in ``f32``.  Returns the state rows' pitch in elements; raises
     ValueError on anything the kernel does not take."""
     bf16 = state[0][0].dtype == torch.bfloat16
     for t, shape in f32 if bf16 else f32 + state:

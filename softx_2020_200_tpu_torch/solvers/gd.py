@@ -22,6 +22,13 @@ has no stabilization parameter, so the Jacobian action is exact on both
 paths: ``linearize`` captures the element state once per Newton
 iteration and ``jvp`` applies J dx.
 
+With ``dtype=torch.bfloat16`` every buffer is bf16, as in the JAX
+package; on the lattice path the gathers keep the dtype and lay the rows
+out at one even pitch (``persistent_tiles.narrow_rows``), B3 runs its
+bf16-operand instances (bf16 rows, tables and output, float32 arithmetic
+inside; on the CPU its plain version), and the strided scatter sums the
+bf16 outputs in bf16.
+
 Time stepping is BDF1-3 or SDIRK2/3 (the stages through the velocity
 history only); a checkpoint is the JAX package's ``.npz`` (u, previous,
 control, pvd, n_dofs, and on a forest its leaves and base mesh), read by
@@ -68,6 +75,7 @@ from ..ops.gd_multigrid import (GDVelocityLevel, build_gd_hierarchy,
 from ..ops.lattice_gd_kernel import LatticeGDKernel
 from ..ops.lattice_kernel import is_translate_lattice
 from ..ops.operators import assemble, build_assembly_map
+from ..ops.persistent_tiles import narrow_rows
 from ..ops.preconditioners import _invert_blocks
 from ..ops.structured import StructuredLayout
 from ..utils.tables import Table
@@ -213,21 +221,28 @@ class GDOperator(nn.Module):
         return torch.cat([v.reshape(-1), p])
 
     # lattice rows (element-lattice order) ------------------------------
+    def _laid_out(self, rows):
+        """Rows as B3 takes them: a bf16 operator's at the pitch of
+        ``narrow_rows``, others as they are."""
+        return narrow_rows(rows) if self.dtype == torch.bfloat16 else rows
+
     def _vrows(self, v):
         """Nodal v[Nv, d] -> rows [d*nnv, E] (component-major)."""
-        return self.layout_v.gather(v).reshape(-1, self.layout_v.E)
+        return self._laid_out(self.layout_v.gather(v).reshape(
+            -1, self.layout_v.E))
 
     def _rows(self, x):
         """Flat x -> mixed rows [d*nnv + nnp, E]: velocity component i at
         rows i*nnv + n, then the pressure."""
         v, p = self.split(x)
-        return torch.cat([self._vrows(v), self.layout_p.gather(
-            p[:, None]).reshape(-1, self.layout_p.E)])
+        return self._laid_out(torch.cat([
+            self.layout_v.gather(v).reshape(-1, self.layout_v.E),
+            self.layout_p.gather(p[:, None]).reshape(-1, self.layout_p.E)]))
 
     def _fq_rows(self, fq):
         """fq[E, q, d] in space element order -> rows [d*q, E]."""
-        return fq[self.elem_perm].permute(2, 1, 0).reshape(
-            -1, self.layout_v.E)
+        return self._laid_out(fq[self.elem_perm].permute(2, 1, 0).reshape(
+            -1, self.layout_v.E))
 
     def _scatter_rows(self, r):
         """Mixed rows [d*nnv + nnp, E] -> assembled flat [Nv*d + Np]."""

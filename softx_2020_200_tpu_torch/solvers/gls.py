@@ -35,6 +35,18 @@ kernels widen every element on read, so the direction, the arithmetic
 and the output stay in the compute dtype; the residual is untouched.
 This is the JAX package's ``state_dtype`` of its Pallas kernels: an
 inexact Newton with a rounded-coefficient Jacobian, frozen tau.
+
+With ``dtype=torch.bfloat16`` every buffer is bf16, as in the JAX
+package (``softx_2020_200_tpu/solvers/gls.py:168-177``), and so is every
+row the operator hands its kernel: the gathers keep the dtype and lay the
+rows out at one even pitch (``persistent_tiles.narrow_rows``), the kernel
+runs its bf16-operand instance (bf16 rows, tables and output, float32
+arithmetic inside; on the CPU its plain version), and the strided scatter
+or the gather-sum assembly sums the bf16 outputs in bf16, in the same
+order as in float32, as the JAX package sums in its dtype.  The tangent
+freezes tau.  ``state_dtype=torch.bfloat16`` adds nothing to a bf16
+operator.  On the card the kernels take float32 and bfloat16; another
+dtype raises when the operator is built.
 """
 
 from __future__ import annotations
@@ -53,7 +65,7 @@ from ..ops.gls_kernel import GLSElementKernel
 from ..ops.lattice_kernel import LatticeGLSKernel, is_translate_lattice
 from ..ops.operators import (assemble, build_assembly_map,
                              node_multiplicity)
-from ..ops.persistent_tiles import state_rows
+from ..ops.persistent_tiles import narrow_rows
 from ..ops.structured import StructuredLayout
 
 
@@ -106,11 +118,14 @@ def probe_columns(tangent, ue):
     element) with n = ue.numel() // E in ``ue``'s own local order: column
     k is ``tangent(due)`` along the element-local one-hot direction
     ``due`` (local row k of every element at once), one probe live at a
-    time.  Each column is stored whole and contiguous."""
+    time.  Each column is stored whole and contiguous; a bf16 direction
+    lies at the pitch of ``narrow_rows``, as the bf16 kernels take it."""
     E = ue.shape[-1]
     n = ue.numel() // E
     out = ue.new_empty((n, n, E))
     due = torch.zeros_like(ue)
+    if due.dtype == torch.bfloat16:
+        due = narrow_rows(due)
     flat = due.view(n, E)
     for k in range(n):
         flat[k] = 1.0
@@ -127,7 +142,8 @@ class GLSOperator(nn.Module):
     all of them.  ``state_dtype`` None keeps the Jacobian state in
     ``dtype``; ``torch.bfloat16`` stores it in bf16 (see the module's
     note), and B1's bf16 geometry rows are made here for the operator's
-    device.
+    device.  ``dtype=torch.bfloat16`` runs the kernels' bf16-operand
+    instances (the module's note).
     """
 
     def __init__(self, space: FESpace, nu: float, n_q1d: int | None = None,
@@ -137,6 +153,10 @@ class GLSOperator(nn.Module):
                  state_dtype: torch.dtype | None = None,
                  lattice: bool = True):
         super().__init__()
+        if (torch.device(device).type == "cuda"
+                and dtype not in (torch.float32, torch.bfloat16)):
+            raise ValueError(f"GLS operator on the card: no kernel instance "
+                             f"takes {dtype} (float32 or bfloat16)")
         if state_dtype not in (None, torch.bfloat16):
             raise ValueError(f"Jacobian state dtype {state_dtype}: None "
                              "(the compute dtype) or torch.bfloat16")
@@ -191,8 +211,19 @@ class GLSOperator(nn.Module):
                 dim=self.dim, degree=self.degree, B=B, G=G, H=H, w=wts,
                 nu=self.nu, stab=stab, dtype=dtype, device=device)
             # the geometry B1's tangent and probes read: bf16 with a bf16
-            # state (B1 rounds xe and h too), made once
-            self.xe_state = self._state(self.xe_soa)
+            # state (B1 rounds xe and h too), made once.  A bf16 operator's
+            # residual reads the same rows, its coordinates relative to
+            # each element's first node (rounded from float64): J is the
+            # same, and bf16 rounds them to 2^-9 of an element's size,
+            # where absolute bf16 coordinates move a fine curved mesh's
+            # nodes by a large part of an element (ROADMAP C5, C7)
+            xe_rows = self.xe_soa
+            if dtype == torch.bfloat16:
+                rel = xe - xe[:, :1]
+                xe_rows = torch.as_tensor(np.ascontiguousarray(
+                    np.transpose(rel, (1, 2, 0))), dtype=dtype,
+                    device=device)
+            self.xe_state = self._state(xe_rows)
             self.h_state = self._state(self.h)
 
     @property
@@ -206,29 +237,40 @@ class GLSOperator(nn.Module):
     # ------------------------------------------------------------------
     def _state(self, rows):
         """Jacobian-state rows in the state dtype: rounded to bf16 (once,
-        in rows ``state_rows`` lays out for the kernels) or as they are."""
-        return rows if self.state_dtype is None else state_rows(rows)
+        in rows ``state_rows`` lays out for the kernels) or as they are;
+        a bf16 operator's rows, at that layout."""
+        if self.state_dtype is None and self.dtype != torch.bfloat16:
+            return rows
+        return narrow_rows(rows)
+
+    def _laid_out(self, rows):
+        """Element rows as the kernel takes them: a bf16 operator's at the
+        pitch of ``narrow_rows``, others as they are."""
+        return narrow_rows(rows) if self.dtype == torch.bfloat16 else rows
 
     def _soa(self, u):
-        """Nodal u[N, k] -> element rows [nn, k, E] (contiguous)."""
-        return u[self.elem_nodes_t].transpose(1, 2).contiguous()
+        """Nodal u[N, k] -> element rows [nn, k, E] (contiguous, or at
+        the bf16 pitch)."""
+        return self._laid_out(u[self.elem_nodes_t].transpose(1, 2)
+                              .contiguous())
 
     def _assemble_rows(self, r):
         """Element rows r[nn, k, E] -> assembled [N, k]."""
         return assemble(r.permute(2, 0, 1), self.amap_idx)
 
     def _fq_soa(self, fq):
-        return fq.permute(1, 2, 0).contiguous()             # [q, d, E]
+        return self._laid_out(fq.permute(1, 2, 0).contiguous())  # [q, d, E]
 
     def _rows(self, u):
         """Nodal u[N, k] -> lattice rows [k*nn, E] (element-lattice
         order)."""
-        return self.layout.gather(u).reshape(-1, self.layout.E)
+        return self._laid_out(self.layout.gather(u).reshape(
+            -1, self.layout.E))
 
     def _fq_rows(self, fq):
         """fq[E, q, d] in space element order -> lattice rows [d*q, E]."""
-        return fq[self.elem_perm].permute(2, 1, 0).reshape(
-            -1, self.layout.E)
+        return self._laid_out(fq[self.elem_perm].permute(2, 1, 0).reshape(
+            -1, self.layout.E))
 
     def _scatter_rows(self, r):
         """Lattice rows [k*nn, E] -> assembled [N, k]."""
@@ -240,10 +282,17 @@ class GLSOperator(nn.Module):
             r = self.kernel.residual(self._rows(u), self._rows(uprev_combo),
                                      self._fq_rows(fq), alpha0, sdt)
             return self._scatter_rows(r)
-        r = self.kernel.residual(self._soa(u), self.xe_soa,
-                                 self._soa(uprev_combo), self._fq_soa(fq),
-                                 self.h, alpha0, sdt)
+        xe, h = self._geometry()
+        r = self.kernel.residual(self._soa(u), xe, self._soa(uprev_combo),
+                                 self._fq_soa(fq), h, alpha0, sdt)
         return self._assemble_rows(r)
+
+    def _geometry(self):
+        """B1's full-precision geometry rows (xe, h): a bf16 operator's
+        are its state rows."""
+        if self.dtype == torch.bfloat16:
+            return self.xe_state, self.h_state
+        return self.xe_soa, self.h
 
     def residual(self, u, bc_mask, uprev_combo, fq, alpha0, sdt):
         """Constrained residual: zero at Dirichlet DoFs."""
@@ -317,8 +366,8 @@ class GLSOperator(nn.Module):
             args = (self._rows(uprev_combo), self._fq_rows(fq))
         else:
             ue = self._soa(u)
-            args = (self.xe_soa, self._soa(uprev_combo), self._fq_soa(fq),
-                    self.h)
+            xe, h = self._geometry()
+            args = (xe, self._soa(uprev_combo), self._fq_soa(fq), h)
         cols = probe_columns(
             lambda due: self.kernel.tangent(ue, due, *args, alpha0, sdt), ue)
         E = cols.shape[-1]
