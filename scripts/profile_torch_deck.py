@@ -43,7 +43,7 @@ def profile(deck: str) -> None:
     import chip_smoke
     from softx_2020_200_tpu_torch.apps.common import run_app
 
-    dim = 3 if "tgv" in deck else 2
+    dim = 3 if "tgv" in deck or "sphere" in deck else 2
     solver = "gd" if "gd" in deck[:-len(".prm")].split("_") else "gls"
     counters = chip_smoke._launch_counters()
     with tempfile.TemporaryDirectory() as tmp:

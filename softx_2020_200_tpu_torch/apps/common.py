@@ -170,8 +170,7 @@ def _run_sharded(s: GLSNavierStokesSolver, devices: list) -> None:
         if not prm.test.enable:
             print(f"*** Time step : {ctrl.iteration}  "
                   f"time = {t:.{prec}g}  dt = {ctrl.dt:.{prec}g} ***")
-        startup = startup_left > 0
-        if startup:
+        if startup_left > 0:
             k = target_order - startup_left
             dt_full = ctrl.dt_history[0]
             dt_a = s_scale * dt_full
@@ -204,10 +203,10 @@ def _run_sharded(s: GLSNavierStokesSolver, devices: list) -> None:
                 print(f"L2 error velocity : {ev:.{prec}e}")
             if ctrl.is_output_iteration():
                 s.write_output(ug, t)
-        # the startup step adapts nothing, as on one device (the JAX
-        # package's sharded loop adapts there too, and then N shards
-        # diverge from one device on a deck that adapts every step)
-        if (not startup and ma.type == "kelly" and ma.frequency > 0
+        # the startup step adapts too, as in the JAX package's sharded
+        # loop (its one-device loop does not: on a deck that adapts every
+        # step N shards then adapt once more than one device)
+        if (ma.type == "kelly" and ma.frequency > 0
                 and ctrl.iteration % ma.frequency == 0):
             out = s.refine_mesh_kelly([sh.to_global(v) for v in [u] + prevs])
             sh = ShardedGLSSolver.from_solver(s, devices)

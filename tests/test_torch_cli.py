@@ -5,10 +5,11 @@ diff (``tests/test_golden_apps.py::numdiff``, rtol 2e-3), the Kelly
 deck's among them, and prints what the JAX package's CLI prints on
 decks with SDIRK, pseudo-transient continuation, checkpoints, additive
 Schwarz and Kelly adaptation; a checkpoint of an adapted forest
-restarts in either package.  Over N shards on the CPU (``deck.prm N
---device cpu``) it reproduces the JAX package's multi-device goldens
-(``tests/test_golden_apps.py``, the ``*_np8`` and ``kelly_np4`` decks,
-the GD deck 8-way and the restart across shard counts).
+restarts in either package.  Its runs over N shards on the CPU
+(``deck.prm N --device cpu``, ``_run_shards``) are in
+``test_torch_cli_sharded.py`` (N shards against one device) and
+``test_torch_cli_sharded_golden.py`` (the JAX package's multi-device
+goldens and the restart across shard counts).
 """
 
 import contextlib
@@ -341,64 +342,3 @@ def _run_shards(name, n, tmp_path, monkeypatch, solver="gls"):
     out = _run(2, argv, tmp_path, monkeypatch, solver=solver)
     return "\n".join(ln for ln in out.splitlines()
                      if not ln.startswith(_PORT_ONLY))
-
-
-@pytest.mark.parametrize("name,solver", [("mms_bdf2_np8", "gls"),
-                                         ("gd_mms_bdf2", "gd")])
-def test_cli_sharded_reproduces_golden_output(name, solver, tmp_path,
-                                              monkeypatch):
-    """8 shards print the golden (``test_golden_mms_bdf2_multidevice``,
-    ``test_golden_gd_mms_bdf2_sharded``)."""
-    out = _run_shards(name, 8, tmp_path, monkeypatch, solver)
-    with open(os.path.join(GOLDEN_DIR, name + ".output")) as fh:
-        numdiff(out, fh.read())
-
-
-@pytest.mark.parametrize("name,n,rtol,atol", [
-    ("sdirk_np8", 8, 1e-5, 1e-9), ("adaptive_np8", 8, 1e-5, 1e-9),
-    ("kelly_np4", 4, 2e-3, 1e-7)])
-def test_cli_sharded_matches_one_device(name, n, rtol, atol, tmp_path,
-                                        monkeypatch):
-    """SDIRK2 stages, CFL-adaptive dt (the sharded CFL reduction drives
-    the dt sequence) and transient Kelly adaptation (gather, adapt,
-    re-shard on the forest, hanging rows per shard): N shards print what
-    one device prints, under the JAX package's tolerances."""
-    (tmp_path / "one").mkdir()
-    one = _run_shards(name, 1, tmp_path / "one", monkeypatch)
-    out = _run_shards(name, n, tmp_path, monkeypatch)
-    numdiff(out, one, rtol=rtol, atol=atol)
-
-
-def test_cli_sharded_restart_across_shard_counts(tmp_path, monkeypatch):
-    """Per-shard checkpoints (``test_golden_restart_sharded_cross_device_
-    count``): leg a 4-way writes the manifest and one file per shard,
-    never the global field; the JAX package's reader gives the port's
-    stacks from those files; leg b restores 8-way and prints the restart
-    golden."""
-    import numpy as np
-
-    from softx_2020_200_tpu.parallel.sharded import \
-        ShardedGLSSolver as JaxSharded
-    from softx_2020_200_tpu_torch.core.parameters import \
-        SimulationParameters
-    from softx_2020_200_tpu_torch.parallel.sharded import ShardedGLSSolver
-    from softx_2020_200_tpu_torch.solvers.base import GLSNavierStokesSolver
-    _run_shards("restart_adaptive_a", 4, tmp_path, monkeypatch)
-    assert (tmp_path / "restart_adaptive.shard3.npz").exists()
-    assert not (tmp_path / "restart_adaptive.shard4.npz").exists()
-    man = np.load(tmp_path / "restart_adaptive.npz")
-    assert "u" not in man and "previous" not in man
-    prm = SimulationParameters.from_file(
-        os.path.join(GOLDEN_DIR, "restart_adaptive_b.prm"), dim=2)
-    s = GLSNavierStokesSolver(prm, device="cpu", dtype=torch.float64)
-    layout = ShardedGLSSolver.from_solver(s, ["cpu"] * 8).layout
-    path = str(tmp_path / "restart_adaptive")
-    got = ShardedGLSSolver.read_checkpoint_shards(path, layout,
-                                                  torch.float64)
-    want = JaxSharded.read_checkpoint_shards(path, layout, np.float64)
-    for a, b in zip(got, want):
-        np.testing.assert_array_equal(a, b)
-    assert np.abs(got[0]).max() > 0
-    out = _run_shards("restart_adaptive_b", 8, tmp_path, monkeypatch)
-    with open(os.path.join(GOLDEN_DIR, "restart_adaptive_b.output")) as fh:
-        numdiff(out, fh.read())
