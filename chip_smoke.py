@@ -136,9 +136,23 @@ Phases (each prints its own lines; any failed check raises):
    solve and the GMG evictions against the JAX package's float32 run
    with tau frozen, every solve under its tolerance, the force on the
    sphere per cycle against its float64 run; then B1 is compared and
-   timed at every shape the run launched.
+   timed at every shape the run launched;
+16. the validation drivers (``scripts/run_cavity_torch.py``,
+   ``run_tgv_torch.py``, ``run_cylinder_torch.py``) through their own
+   ``run`` at full width for a short window: (a) the lid-driven cavity at
+   Re 400, Q2 256^2 (789,507 DoF, B2, 6 GMG levels) in full, u_min and
+   the largest profile error at Ghia's stations against the float64
+   solution, Newton within 1 of the JAX package's chip run's 9; (b) the TGV at 48^3, 3
+   BDF2 steps (B2, GMG on 3 lattice levels), KE and enstrophy per step
+   against the JAX package's float64 run and FGMRES per Newton iteration
+   within 1 of its float32 run; (c) the cylinder at Re 100 in Q2 from
+   refinement 4 (6,912 cells, B1 with forest GMG and its Q1 p-level),
+   10 steps with Kelly every 5, the cells after each adaptation against
+   the JAX package's float32 run and Cd and Cl per step against its
+   float64 run; no GMG eviction in any; then B1 at every shape the
+   cylinder launched.
 
-Phases 4-13 and 15 hold their physics numbers against the JAX package
+Phases 4-13, 15 and 16 hold their physics numbers against the JAX package
 run on the CPU in float64 on the same decks (``JAX_REFERENCE`` below;
 where float32 moves a count or a flagged cell, against its float32 run)
 and check which kernel each deck launched. The line before the last
@@ -1416,7 +1430,33 @@ B1_SHAPES = (("2D Q2 Taylor-Couette r3", 2, 2, 3),
              ("3D Q1 64^3 (moved)", 3, 1, 64))
 
 
-def phase_kernel_times(torch, device, parent=None) -> tuple[dict, float]:
+def _host_spaces(only: set):
+    """Start building, in one thread, the FE spaces that phases 3b (B1's
+    shapes) and 3c (B2's periodic lattices) time, as far as ``only``
+    runs them (host NumPy work: the 96^3 lattice alone takes about half
+    a minute), so that it overlaps phase 2's compilers; returns a
+    function from a shape's label to its space, which waits for it."""
+    import concurrent.futures
+    from softx_2020_200_tpu_torch import native
+    from softx_2020_200_tpu_torch.fem import basis, dof, mesh  # noqa: F401
+    # the modules and the native mesh library (built at first use) are
+    # loaded here, so that the thread never races the main one for them
+    native.get_lib()
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    futures = {}
+    if "3b" in only:
+        for label, dim, degree, cells in B1_SHAPES:
+            futures[label] = pool.submit(_space, dim, degree, cells, seed=7)
+    if "3c" in only:
+        for label, dim, degree, _, cells in B2_SHAPES + B2_LEVELS:
+            futures[label] = pool.submit(_lattice, dim, degree, cells,
+                                         periodic=True)
+    pool.shutdown(wait=False)
+    return lambda label: futures.pop(label).result()
+
+
+def phase_kernel_times(torch, device, spaces,
+                       parent=None) -> tuple[dict, float]:
     """B1 against plain at its main path's shapes (and, for comparison
     with B2, at the 3D Q1 sizes on a non-affine box): compared first on
     every route, then timed (with the parent's kernel when ``parent`` is
@@ -1426,7 +1466,7 @@ def phase_kernel_times(torch, device, parent=None) -> tuple[dict, float]:
     from softx_2020_200_tpu_torch.ops import gls_kernel as gk
     times, worst = {}, 0.0
     for label, dim, degree, cells in B1_SHAPES:
-        space = _space(dim, degree, cells, seed=7)
+        space = spaces(label)
         _, kernel, plain, forced, parent_fns, state = _variants(
             torch, space, device, seed=3, parent=parent)
         E, reg = space.n_elements, (dim, degree) in gk.REGISTER_SHAPES
@@ -1526,8 +1566,14 @@ B2_SHEAR = 0.02
 # the coarser multigrid levels of phases 6, 7 and 11, compared and timed
 # too: they carry most of B2's launches on the main path.  The Q1 levels
 # with 2 points per axis are the cavity's halved levels and the p-level
-# of the MMS deck at refinement 7 (128^2)
-B2_LEVELS = (("3D Q1 16^3 (TGV level 1)", 3, 1, 2, (16,) * 3),
+# of the MMS deck at refinement 7 (128^2).  The first four are the
+# lattice of scripts/run_tgv_torch.py (96^3) and its levels, of which
+# phase 16 runs the last three
+B2_LEVELS = (("3D Q1 96^3 (TGV driver)", 3, 1, 2, (96,) * 3),
+             ("3D Q1 48^3 (phase 16 TGV)", 3, 1, 2, (48,) * 3),
+             ("3D Q1 24^3 (phase 16 TGV level 1)", 3, 1, 2, (24,) * 3),
+             ("3D Q1 12^3 (phase 16 TGV level 2)", 3, 1, 2, (12,) * 3),
+             ("3D Q1 16^3 (TGV level 1)", 3, 1, 2, (16,) * 3),
              ("3D Q1 8^3 (TGV level 2)", 3, 1, 2, (8,) * 3),
              ("2D Q1 64^2 q=3 (MMS level 3)", 2, 1, 3, (64,) * 2),
              ("2D Q1 32^2 q=3 (MMS level 4)", 2, 1, 3, (32,) * 2),
@@ -1584,7 +1630,8 @@ def _sheared_lattices(torch, device) -> float:
     return worst
 
 
-def phase_lattice_kernel(torch, device, parent=None) -> tuple[dict, float]:
+def phase_lattice_kernel(torch, device, spaces,
+                         parent=None) -> tuple[dict, float]:
     from softx_2020_200_tpu_torch.ops import lattice_kernel as lk
     print("== phase 3c: B2 parity (CUDA kernel vs plain PyTorch, float32, "
           f"tolerance {KERNEL_RTOL:g} of the max-abs scale; every route, "
@@ -1609,7 +1656,7 @@ def phase_lattice_kernel(torch, device, parent=None) -> tuple[dict, float]:
     worst = max(worst, _sheared_lattices(torch, device))
     times = {}
     for label, dim, degree, q1d, cells in B2_SHAPES + B2_LEVELS:
-        space = _lattice(dim, degree, cells, periodic=True)
+        space = spaces(label)
         op, kernel, plain, forced, parent_fns, state = _variants(
             torch, space, device, seed=5, n_q1d=q1d, parent=parent)
         check(op.layout is not None, f"{label} took B1")
@@ -1999,7 +2046,6 @@ def drive_app(torch, dim: int, deck: str, kernel: str | None,
     (``_b1_states``); ``devices`` shards the run over them (phase 13),
     and the result's ``shards`` holds each sharded solver's report."""
     from softx_2020_200_tpu_torch.apps.common import run_app
-    counters = _launch_counters()
     reports = []
     with contextlib.ExitStack() as stack:
         if engines is not None:
@@ -2014,27 +2060,13 @@ def drive_app(torch, dim: int, deck: str, kernel: str | None,
             fh.write(deck_text(deck))
         cwd = os.getcwd()
         os.chdir(tmp)
-        buf = io.StringIO()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for cls in counters.values():
-            cls.launches = 0
-            cls.launches_by_shape = {}
-        t0 = time.perf_counter()
         try:
-            with contextlib.redirect_stdout(buf):
-                rc = run_app(dim, [path], solver=solver, device="cuda",
-                             dtype=torch.float32, devices=devices)
-            torch.cuda.synchronize()
+            rc, out, seconds, launches, by_shape = _counted(
+                torch, lambda: run_app(dim, [path], solver=solver,
+                                       device="cuda", dtype=torch.float32,
+                                       devices=devices))
         finally:
             os.chdir(cwd)
-        seconds = time.perf_counter() - t0
-        launches = {name: cls.launches for name, cls in counters.items()}
-        by_shape = {name: dict(cls.launches_by_shape)
-                    for name, cls in counters.items()}
-    out = buf.getvalue()
-    for line in out.splitlines():
-        print(f"  | {line}")
     check(rc == 0, f"{deck}: app returned {rc}")
     check("GMG stagnated" not in out,
           f"{deck}: multigrid stagnated and fell back to block-Jacobi")
@@ -2061,13 +2093,44 @@ def drive_app(torch, dim: int, deck: str, kernel: str | None,
           f"Newton iteration, {res['syncs_per_newton']:.1f} host syncs per "
           f"Newton iteration, peak device memory {peak:.1f} MiB, launches "
           f"{launches}")
+    _check_launched(deck, launches, kernel)
+    return res
+
+
+def _counted(torch, call):
+    """``call()`` with its standard output captured and echoed, and every
+    kernel's launch count set to 0 just before it: (its value, the
+    output, seconds, launches per kernel, launches per kernel and
+    shape).  Resets the peak device memory too."""
+    counters = _launch_counters()
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for cls in counters.values():
+        cls.launches = 0
+        cls.launches_by_shape = {}
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        value = call()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    out = buf.getvalue()
+    for line in out.splitlines():
+        print(f"  | {line}")
+    return (value, out, seconds,
+            {name: cls.launches for name, cls in counters.items()},
+            {name: dict(cls.launches_by_shape)
+             for name, cls in counters.items()})
+
+
+def _check_launched(label: str, launches: dict, kernel: str | None):
+    """``kernel`` launched (None: no kernel) and no other."""
     for name in KERNELS:
         if name == kernel:
-            check(launches[name] > 0, f"{deck}: {name} was never launched")
+            check(launches[name] > 0, f"{label}: {name} was never launched")
         else:
-            check(launches[name] == 0, f"{deck}: {name} was launched "
+            check(launches[name] == 0, f"{label}: {name} was launched "
                   f"{launches[name]} times")
-    return res
 
 
 def _close(got: float, want: float, rtol: float) -> bool:
@@ -3835,6 +3898,213 @@ def phase_sphere(torch, times_b1: dict) -> tuple[list, float]:
 
 
 # ----------------------------------------------------------------------
+# phase 16: the validation drivers (scripts/run_*_torch.py) at full width
+# ----------------------------------------------------------------------
+# B1's shapes that phase 16's cylinder launched and earlier passes did
+# not time: label -> (dim, degree, points per axis), filled by its pass
+VALIDATION_SHAPES: dict = {}
+# The drivers' cases, by scripts/jax_driver_references.py CASE ... (JAX
+# on the CPU, with JAX_ENABLE_X64=1 for f64 and without for f32), and
+# the JAX package's own chip run of the cavity (docs/cavity256q2_run.log)
+JAX_REFERENCE.update({
+    # run_cavity.py at CAV_N=256 CAV_ORDER=2 on the JAX package's chip
+    # (f32): 9 Newton and 207 linear iterations
+    "cavity256q2": {"u_min": -0.3249844014644623,
+                    "max_profile_err": 0.003821596088409429,
+                    "newton": 9},
+    # tgv --n 48 --steps 3 (dt 0.02): 4 solves (the BDF2 startup's two,
+    # then one per step), GMG on 3 levels, f64 and f32 both 8 Newton and
+    # 27 FGMRES iterations (6, 7, 7, 7); KE and enstrophy per step, f64.
+    # The JAX package's chip run at 96^3 (docs/tgv96_r5_run.log lines
+    # 3-5) printed KE 1.247224e-01, 1.247128e-01, 1.247034e-01.  The JAX
+    # package's f64 run at 96^3 was not made: it holds the full-size
+    # state (a Krylov basis of 201 x 3,538,944 f64, 5.7 GB) on the CPU,
+    # and at 8x the cells of 48^3 (2.9 minutes) its time is estimated at
+    # 23 minutes or more, not measured
+    "tgv48": {"kinetic_energy": [1.239234931e-01, 1.239138615e-01,
+                                 1.239043249e-01],
+              "enstrophy": [3.721395925e-01, 3.721569180e-01,
+                            3.722053588e-01],
+              "fgmres_per_newton_f32": 3.375, "levels": 3},
+    # cylinder --order 2 --refine 4 --steps 10 --frequency 5 (dt 0.01):
+    # 11 solves, forest GMG with the Q1 p-level; f64: 26 Newton and 151
+    # FGMRES iterations, cells 9,951 and 14,328; f32: 35 Newton and 194
+    # FGMRES, cells 9,987 and 14,457, the impulsive start's first two
+    # solves at the 8-iteration cap above 1e-6.  Forces on the cylinder
+    # per step, f64
+    "cylinder_q2r4": {
+        "cells_f32": [9987, 14457], "solves_above_tolerance_f32": 2,
+        "forces": [(-2.416911137e+00, 3.456618890e-03),
+                   (9.653737779e-02, 1.772770933e-04),
+                   (1.056671534e-01, -2.151687999e-04),
+                   (1.059778598e-01, -1.892769720e-04),
+                   (1.081254724e-01, -2.296136177e-04),
+                   (1.118298647e-01, -2.827396724e-04),
+                   (1.150418918e-01, -3.563451984e-04),
+                   (1.193747671e-01, -4.361907402e-04),
+                   (1.237522933e-01, -5.192336060e-04),
+                   (1.281308155e-01, -5.922941144e-04)]},
+})
+# The cavity at 256^2 in float64, Newton to 7.0e-12 in 7 iterations
+# (scripts/run_cavity_torch.py --device cpu --dtype float64, on the
+# CPU): the discrete solution the float32 runs approach.  The card's
+# float32 run stops at the float32 floor of the Newton residual (7.0e-8
+# against the deck's 1e-8) within 4.9e-7 of it along the centerline;
+# the JAX package's chip run lies 3.1e-4 from it in u_min and 7.7e-4
+# in the largest profile error (ROADMAP C11).  Phase 16 holds the card
+# to this solution within the bounds the JAX chip run was to be held
+# to, and prints its distance from the JAX chip run beside them
+CAVITY_F64 = {"u_min": -0.3246718669950805,
+              "max_profile_err": 0.0030477628008858393}
+CAVITY_UMIN_ATOL = 2e-4
+CAVITY_PROFILE_ATOL = 3e-4
+
+
+def drive_script(torch, name: str, argv: list, kernel: str,
+                 b1_states: dict | None = None) -> dict:
+    """Run the driver ``scripts/<name>.py`` on the card through its own
+    ``run(parse_args(argv))`` (float32), with every kernel's launch count
+    set to 0 just before and read just after; its output is echoed.
+    Checks that it launched ``kernel`` and no other, and that multigrid
+    was never evicted.  Returns the driver's summary with the launch
+    counts, memory and seconds, as ``drive_app``."""
+    import importlib
+    mod = importlib.import_module(name)
+    with contextlib.ExitStack() as stack:
+        if b1_states is not None:
+            stack.enter_context(_b1_states(b1_states))
+        res, out, seconds, launches, by_shape = _counted(
+            torch, lambda: mod.run(mod.parse_args(
+                argv + ["--device", "cuda", "--dtype", "float32"])))
+    res.update(deck=name, out=out, seconds=seconds, launches=launches,
+               launches_by_shape=by_shape,
+               peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20)
+    print(f"  wall {seconds:.2f} s, peak device memory "
+          f"{res['peak_mib']:.1f} MiB, launches {launches}")
+    check("GMG stagnated" not in out and res["gmg_evictions"] == 0,
+          f"{name}: multigrid stagnated and fell back to block-Jacobi")
+    _check_launched(name, launches, kernel)
+    return res
+
+
+def _validation_cavity(torch, tmp: str) -> dict:
+    """(a) The cavity at Q2 256^2 in full: u_min and the largest profile
+    error at Ghia's stations against the float64 solution (beside their
+    distance from the JAX package's chip run), Newton against that
+    run's."""
+    ref = JAX_REFERENCE["cavity256q2"]
+    res = drive_script(torch, "run_cavity_torch",
+                       ["--out", os.path.join(tmp, "cavity.dat")],
+                       "gls_lattice")
+    print(f"  {res['cells']} cells, {res['dofs']} DoF, {res['levels']} GMG "
+          f"levels; Newton {res['newton_iters']} (JAX chip {ref['newton']}),"
+          f" {res['linear_iters']} FGMRES, {res['s_per_newton']:.4f} s per "
+          f"Newton iteration, solves above tolerance "
+          f"{res['solves_above_tolerance']}, Newton residuals "
+          + " ".join(f"{r:.3e}" for r in res["newton_residuals"]))
+    check(res["levels"] == 6, f"cavity: {res['levels']} GMG levels")
+    check(abs(res["newton_iters"] - ref["newton"]) <= 1,
+          f"cavity: {res['newton_iters']} Newton iterations")
+    for key, atol in (("u_min", CAVITY_UMIN_ATOL),
+                      ("max_profile_err", CAVITY_PROFILE_ATOL)):
+        want = CAVITY_F64[key]
+        d = abs(res[key] - want)
+        print(f"  {key} {res[key]:.7f}: f64 {want:.7f}, difference {d:.2e} "
+              f"(bound {atol:g}); JAX chip f32 {ref[key]:.7f}, difference "
+              f"{abs(res[key] - ref[key]):.2e} (C11)")
+        check(d <= atol, f"cavity: {key} {res[key]} against {want}")
+    return res
+
+
+def _validation_tgv(torch, tmp: str) -> dict:
+    """(b) The TGV at 48^3 for 3 steps: KE and enstrophy per step against
+    the JAX package's f64 run, FGMRES per Newton iteration against its
+    f32 run, GMG on 3 levels."""
+    ref = JAX_REFERENCE["tgv48"]
+    res = drive_script(torch, "run_tgv_torch",
+                       ["--n", "48", "--t-end", "0.06", "--every", "1",
+                        "--out", os.path.join(tmp, "tgv.dat")],
+                       "gls_lattice")
+    check(res["levels"] == ref["levels"], f"tgv48: {res['levels']} levels")
+    _check_energies("tgv48", res["out"])
+    ke = [row[1] for row in res["series"]]
+    for step, (k, r) in enumerate(zip(ke, ref["kinetic_energy"]), start=1):
+        check(_close(k, r, ENERGY_RTOL), f"tgv48 step {step}: KE {k}")
+    lin = res["fgmres_iterations"] / res["newton_iterations"]
+    want = ref["fgmres_per_newton_f32"]
+    print(f"  FGMRES per Newton iteration {lin:.3f} (JAX CPU f32 "
+          f"{want:.3f}, bound +-1); solves above tolerance "
+          f"{res['solves_above_tolerance']}")
+    check(abs(lin - want) <= 1.0, f"tgv48: {lin:.3f} FGMRES per Newton "
+          "iteration")
+    check(res["solves_above_tolerance"] == 0, "tgv48: a solve above "
+          "tolerance")
+    return res
+
+
+def _validation_cylinder(torch, tmp: str, states: dict) -> dict:
+    """(c) The Q2 cylinder at refinement 4 (6,912 cells) for 10 steps with
+    Kelly every 5: cells after each adaptation against the JAX package's
+    f32 run, Cd and Cl per step against its f64 run."""
+    ref = JAX_REFERENCE["cylinder_q2r4"]
+    res = drive_script(torch, "run_cylinder_torch",
+                       ["--t-end", "0.1", "--frequency", "5", "--every",
+                        "5", "--out", os.path.join(tmp, "cyl.dat")],
+                       "gls_element", b1_states=states)
+    got = [a["cells"] for a in res["adaptations"]]
+    print(f"  cells after each adaptation: {got} (JAX CPU f32 "
+          f"{ref['cells_f32']})")
+    check(len(got) == len(ref["cells_f32"]), f"cylinder: {len(got)} "
+          "adaptations")
+    for g, w in zip(got, ref["cells_f32"]):
+        check(abs(g - w) <= CELLS_RTOL * w, f"cylinder: cells {got}")
+    check(len(res["series"]) == len(ref["forces"]),
+          f"cylinder: {len(res['series'])} steps")
+    for step, ((_, fx, fy), (rx, ry)) in enumerate(
+            zip(res["series"], ref["forces"]), start=1):
+        err = max(abs(fx - rx), abs(fy - ry)) / max(abs(rx), abs(ry))
+        print(f"  step {step:2d}: Cd {20 * fx: .6e} Cl {20 * fy: .6e}; JAX "
+              f"CPU f64 Cd {20 * rx: .6e} Cl {20 * ry: .6e}; difference "
+              f"{err:.2e} of |Cd|")
+        check(err <= FORCE_KELLY_RTOL, f"cylinder step {step}: force "
+              f"({fx}, {fy}) against ({rx}, {ry})")
+    print(f"  Newton {res['newton_iterations']}, FGMRES "
+          f"{res['fgmres_iterations']} in {res['newton_solves']} solves, "
+          f"{res['solves_above_tolerance']} above tolerance (JAX CPU f32 "
+          f"{ref['solves_above_tolerance_f32']})")
+    check(res["solves_above_tolerance"]
+          <= ref["solves_above_tolerance_f32"],
+          "cylinder: more solves above tolerance than the JAX f32 run")
+    return res
+
+
+def phase_validation(torch, times_b1: dict) -> tuple[list, list, float]:
+    """Phase 16: the three validation drivers through their own ``run``
+    on the card at full width for a short window (the cavity in full,
+    the TGV at 48^3 for 3 steps, the Q2 cylinder for 10 steps with two
+    adaptations), each held to the JAX package; then B1 at every shape
+    the cylinder launched.  Returns the B1 runs, the B2 runs and the
+    worst max-abs error of the per-shape pass."""
+    print("== phase 16: the validation drivers (scripts/run_*_torch.py): "
+          "cavity Q2 256^2, TGV 48^3, Q2 cylinder with Kelly")
+    states = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        print(" -- (a) lid-driven cavity Re 400, Q2 256^2 (B2, p- and "
+              "h-GMG)")
+        cav = _validation_cavity(torch, tmp)
+        print(" -- (b) TGV Re 1600 at 48^3, 3 BDF2 steps (B2, lattice GMG)")
+        tgv = _validation_tgv(torch, tmp)
+        print(" -- (c) cylinder Re 100, Q2 refinement 4, 10 steps, Kelly "
+              "every 5 (B1, forest GMG with the Q1 p-level)")
+        cyl = _validation_cylinder(torch, tmp, states)
+    for r in (cav, tgv, cyl):
+        r.pop("series", None)
+    worst = _recorded_shapes(torch, states, times_b1, "validation",
+                             VALIDATION_SHAPES)
+    return [cyl], [cav, tgv], worst
+
+
+# ----------------------------------------------------------------------
 # the variants of each kernel's timed shapes, as _time_variants names
 # them, and the launch variant each one's time is per launch of
 VARIANTS = {"gls_element": ("primal", "tangent", "node blocks",
@@ -3863,7 +4133,8 @@ def _shape_keys(kernel: str) -> dict:
     if kernel == "gd_lattice":
         return {s[0]: (s[1], 2, 3) for s in B3_SHAPES}
     return {**{s[0]: (s[1], s[2], s[2] + 1) for s in B1_SHAPES},
-            **FOREST_SHAPES, **SHARD_SHAPES, **SPHERE_SHAPES}
+            **FOREST_SHAPES, **SHARD_SHAPES, **SPHERE_SHAPES,
+            **VALIDATION_SHAPES}
 
 
 def _shape_bound(kernel: str, label: str, what: str, E: int):
@@ -4003,7 +4274,7 @@ def _print_bounds(times: dict, kernel: str) -> None:
 
 
 PHASES = ("2", "3", "3b", "3c", "3d", "4", "5", "6", "7", "8", "9", "10",
-          "11", "12", "13", "14", "15")
+          "11", "12", "13", "14", "15", "16")
 
 
 def main(argv=None) -> int:
@@ -4026,7 +4297,7 @@ def main(argv=None) -> int:
         return 0
     only = set(args.phases.split(",")) if args.phases else set(PHASES)
     check(only <= set(PHASES), f"unknown phases {only - set(PHASES)}")
-    if only & {"3", "3b", "3c", "3d", "14", "15"}:
+    if only & {"3", "3b", "3c", "3d", "14", "15", "16"}:
         only.add("2")
     if "13" in only:
         only |= {"7", "12"}
@@ -4036,7 +4307,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
+    # the package, and the drivers of phase 16 (scripts/run_*_torch.py)
+    sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -4050,6 +4322,7 @@ def main(argv=None) -> int:
     parent = load_parent(args.parent) if args.parent else None
     if parent is not None:
         print(f"parent: softx_2020_200_tpu_torch from {parent.root}")
+    spaces = _host_spaces(only)
     if "2" in only:
         phase_build(parent)
         stamp("2")
@@ -4059,12 +4332,14 @@ def main(argv=None) -> int:
         worst_b1 = phase_kernel_parity(torch, device)
         stamp("3")
     if "3b" in only:
-        times_b1, worst_at_scale = phase_kernel_times(torch, device, parent)
+        times_b1, worst_at_scale = phase_kernel_times(torch, device, spaces,
+                                                       parent)
         worst_b1 = max(worst_b1, worst_at_scale)
         _print_bounds(times_b1, "gls_element")
         stamp("3b")
     if "3c" in only:
-        times_b2, worst_b2 = phase_lattice_kernel(torch, device, parent)
+        times_b2, worst_b2 = phase_lattice_kernel(torch, device, spaces,
+                                                  parent)
         _print_bounds(times_b2, "gls_lattice")
         stamp("3c")
     if "3d" in only:
@@ -4124,6 +4399,14 @@ def main(argv=None) -> int:
         _print_bounds({k: v for k, v in times_b1.items()
                        if k in SPHERE_SHAPES}, "gls_element")
         stamp("15")
+    if "16" in only:
+        b1_val, b2_val, worst_val = phase_validation(torch, times_b1)
+        b1_runs += b1_val
+        b2_runs += b2_val
+        worst_b1 = max(worst_b1, worst_val)
+        _print_bounds({k: v for k, v in times_b1.items()
+                       if k in VALIDATION_SHAPES}, "gls_element")
+        stamp("16")
     if only != set(PHASES):
         print(f"phases {sorted(only)} passed; no contract line")
         return 0

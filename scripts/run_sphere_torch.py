@@ -27,20 +27,20 @@ The card's name and power limit are printed first; the run is float32
 from __future__ import annotations
 
 import argparse
-import json
 import math
 import os
 import re
-import subprocess
 import sys
 import tempfile
 import time
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
+SCRIPTS = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(SCRIPTS)
+sys.path[:0] = [ROOT, SCRIPTS]
 
 import torch  # noqa: E402
 
+import torch_driver  # noqa: E402
 from softx_2020_200_tpu_torch.apps import common  # noqa: E402
 from softx_2020_200_tpu_torch.solvers import \
     postprocessing as post  # noqa: E402
@@ -65,16 +65,6 @@ def deck_text(args) -> str:
         if n != 1:
             raise ValueError(f"deck key {key!r} found {n} times")
     return text
-
-
-def card() -> str:
-    try:
-        return subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], capture_output=True, text=True,
-            timeout=30).stdout.strip()
-    except (OSError, subprocess.SubprocessError):
-        return "nvidia-smi not available"
 
 
 def device_tensors(engine) -> dict:
@@ -114,7 +104,7 @@ def device_tensors(engine) -> dict:
     return out
 
 
-def main(argv=None) -> int:
+def parse_args(argv=None):
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--refine", type=int, help="initial refinement "
                         "(the deck's: 2)")
@@ -124,26 +114,21 @@ def main(argv=None) -> int:
                         "(the deck's: 400000)")
     parser.add_argument("--fraction", type=float, help="Kelly refinement "
                         "fraction (the deck's: 0.15)")
-    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
-    args = parser.parse_args(argv)
+    torch_driver.add_device_args(parser, dtype=False)
+    return parser.parse_args(argv)
+
+
+def run(args) -> dict:
+    """The deck through the 3D GLS app with a line per cycle; returns the
+    summary (the rows of the cycles under ``cycles``)."""
     cuda = args.device == "cuda"
-    if cuda and not torch.cuda.is_available():
-        print("run_sphere_torch: CUDA is not available (use --device cpu)",
-              file=sys.stderr)
-        return 1
-    print(f"card: {card() if cuda else 'none (cpu)'}", flush=True)
-    rows, last = [], {"stats": None, "strikes": 0, "sections": {},
-                      "t": time.perf_counter()}
+    rows, last = [], {"sections": {}, "t": time.perf_counter()}
+    since = torch_driver.Since()
     residuals = []
     t0 = time.perf_counter()
 
     def on_cycle(engine, u, t):
-        st = engine.stats
-        prev = last["stats"] or {k: 0 for k in st}
-        d = {k: st[k] - prev[k] for k in st}
-        last["stats"] = dict(st)
-        strikes = engine._gmg_strikes - last["strikes"]
-        last["strikes"] = engine._gmg_strikes
+        d = since.step(engine)
         sections = {k: v[0] for k, v in engine.timer.sections.items()}
         adapt = {k: sections.get(k, 0.0) - last["sections"].get(k, 0.0)
                  for k in ADAPT_SECTIONS}
@@ -151,16 +136,14 @@ def main(argv=None) -> int:
         f = post.forces_on_boundary(engine.op, u,
                                     engine.space.boundary_faces[SPHERE])
         f = [float(x) for x in f.cpu()]
-        peak = (torch.cuda.max_memory_allocated() / 2 ** 30 if cuda
-                else None)
-        n = max(d["newton_iterations"], 1)
+        peak = torch_driver.peak_gib(cuda)
+        n = max(d["newton"], 1)
         row = {"cycle": len(rows), "cells": engine.space.n_elements,
                "dofs": engine.space.n_dofs(engine.dim + 1),
-               "newton": d["newton_iterations"],
-               "fgmres": d["linear_iterations"],
+               "newton": d["newton"], "fgmres": d["fgmres"],
                "final_residual": residuals[-1] if residuals else None,
-               "above_tolerance": d["solves_above_tolerance"],
-               "gmg_evictions": strikes,
+               "above_tolerance": d["above_tolerance"],
+               "gmg_evictions": d["gmg_evictions"],
                "preconditioner": engine.precond_kind,
                "s_per_newton": d["newton_seconds"] / n,
                "adapt_s": adapt, "peak_gib": peak, "force": f,
@@ -171,7 +154,7 @@ def main(argv=None) -> int:
         print(f"cycle {row['cycle']}: cells {row['cells']} dofs "
               f"{row['dofs']} newton {row['newton']} fgmres {row['fgmres']} "
               f"final residual {row['final_residual']:.4e} evictions "
-              f"{strikes} ({row['preconditioner']}) s/newton "
+              f"{d['gmg_evictions']} ({row['preconditioner']}) s/newton "
               f"{row['s_per_newton']:.4f} adapt "
               + " ".join(f"{k} {v:.2f}" for k, v in adapt.items())
               + (f" peak {peak:.3f} GiB" if peak is not None else "")
@@ -217,17 +200,19 @@ def main(argv=None) -> int:
             cwd = os.getcwd()
             os.chdir(tmp)
             try:
-                rc = common.run_app(3, [path, "--device", args.device])
+                common.run_app(3, [path, "--device", args.device])
             finally:
                 os.chdir(cwd)
     finally:
         common.SOLVERS["gls"] = engine_cls
-    print(json.dumps({
-        "case": "sphere_re100_steady_kelly", "card": card() if cuda else None,
-        "flags": vars(args),
-        "cycles": rows, "Cd_final": rows[-1]["Cd"] if rows else None,
-        "wall_s": time.perf_counter() - t0}), flush=True)
-    return rc
+    return {"case": "sphere_re100_steady_kelly", "flags": vars(args),
+            "cycles": rows, "Cd_final": rows[-1]["Cd"] if rows else None,
+            "wall_s": time.perf_counter() - t0}
+
+
+def main(argv=None) -> int:
+    return torch_driver.main("run_sphere_torch", parse_args, run, argv,
+                             drop=())
 
 
 if __name__ == "__main__":
