@@ -83,7 +83,7 @@ Phases (each prints its own lines; any failed check raises):
 12. Kelly adaptation on the forest, through the apps, every mesh and
    forest multigrid level on B1 (Q1 levels below a Q2 mesh with 3 Gauss
    points per axis): the cylinder at Re 100 as the example writes it but
-   7 steps with Kelly after every one (cells after each adaptation, Cd
+   4 steps with Kelly after every one (cells after each adaptation, Cd
    and Cl per step), the same deck restarted on its forest after step 2,
    the lid-driven cavity at Re 400 with 3 Kelly cycles (cells, Newton and
    Krylov per cycle, the centerline u at Ghia's stations),
@@ -150,9 +150,27 @@ Phases (each prints its own lines; any failed check raises):
    10 steps with Kelly every 5, the cells after each adaptation against
    the JAX package's float32 run and Cd and Cl per step against its
    float64 run; no GMG eviction in any; then B1 at every shape the
-   cylinder launched.
+   cylinder launched;
+17. BASELINE #2, the convergence ladders, through
+   ``scripts/run_convergence_torch.py``'s own ``run_ladder`` (float32,
+   its ``F32_TOLERANCE``): the trig MMS in Q1 (8^2, 16^2, 32^2 by
+   uniform cycles, then 32^2 and 64^2 as their own decks) and Q2 (4^2 to
+   16^2, then 16^2 and 32^2), grad-div Q2-Q1 (4^2 to 32^2),
+   Taylor-Couette Q2 (r1, r2, then r2 and r3 with GMRES(1000)) with its
+   torques, and BDF1-3 (BDF3 with ``history_from_exact``) and SDIRK2 at
+   dt 0.1 and 0.05, SDIRK3 at dt 0.1, on the transient MMS at 4^2: the L2
+   errors per level within 1 % of the JAX package's float64 values where
+   those are above 1e-6 (velocity) and 1e-5 (pressure), below that within
+   5e-8 and 5e-7 (the float32 stopping criteria's own error), every rate
+   inside the JAX test's bound, SDIRK3 under half SDIRK2's error, the
+   torques within 1 % of the JAX package's, the inner within 7 % of
+   -4 pi nu B and the outer within 12 % of minus the inner, and the kernel each
+   level launched (a lattice level B2, a uniform cycle past the first and
+   Taylor-Couette B1, grad-div B3); then B1 at every shape they launched
+   (B2's and B3's new shapes are compared and timed in phases 3c and
+   3d).
 
-Phases 4-13, 15 and 16 hold their physics numbers against the JAX package
+Phases 4-13 and 15-17 hold their physics numbers against the JAX package
 run on the CPU in float64 on the same decks (``JAX_REFERENCE`` below;
 where float32 moves a count or a flagged cell, against its float32 run)
 and check which kernel each deck launched. The line before the last
@@ -452,19 +470,25 @@ end
 GHIA_Y = (0.0547, 0.0625, 0.0703, 0.1016, 0.1719, 0.2813, 0.4531, 0.5,
           0.6172, 0.7344, 0.8516, 0.9531, 0.9609, 0.9688, 0.9766)
 _CYL_CUTS = [("frequency", "1"), ("checkpoint", "false"), _VERBOSE_NEWTON]
+# steps of the cylinder deck in phases 12 and 13 (dt 0.01); the JAX
+# references below hold the first 7
+CYLINDER_STEPS = 4
 DECKS.update({
     # BASELINE #3 as written (Q1, channel_with_cylinder, refinement 2 =
     # 432 cells on the forest, Kelly on velocity 0.12 / 0.02 at levels
     # 1-5 and at most 30,000 cells, BDF2 dt 0.01, Newton 1e-6, 'auto' ->
     # FGMRES with forest GMG, forces every step), cut: adaptation every
-    # step (not every 50th), 7 steps (time end 0.07, not 8.0), no
-    # checkpoint.  From step 8 on (2,748 cells) the forest V-cycle needs
-    # 1,000-2,800 FGMRES iterations per solve in both packages, at about
-    # 32 ms each on an H100 (launch-bound, D0): 15 steps (ending at 9,222
-    # cells, as in the JAX package) took 280 s there, GMG evicted after
-    # step 11 in f32, and 9 steps 136 s, too much of the script's limit
+    # step (not every 50th), CYLINDER_STEPS steps (time end 0.04, not
+    # 8.0), no checkpoint.  From step 8 on (2,748 cells) the forest
+    # V-cycle needs 1,000-2,800 FGMRES iterations per solve in both
+    # packages, at about 32 ms each on an H100 (launch-bound, D0): 15
+    # steps (ending at 9,222 cells, as in the JAX package) took 280 s
+    # there, 9 steps 136 s, and 7 steps 44 s on one device and 89 s over
+    # phase 13's 4 shards; 4 steps keep the impulsive start, 3
+    # adaptations (4 over shards) and the restart's steps 3-4
     "cylinder_kelly.prm": ("examples/cylinder_re100.prm",
-                           [("time end", "0.07")] + _CYL_CUTS),
+                           [("time end", f"{CYLINDER_STEPS / 100:g}")]
+                           + _CYL_CUTS),
     # the same deck in two legs: 2 steps with a checkpoint written after
     # the second step's adaptation, then a restart that takes steps 3-4
     "cylinder_kelly_a.prm": ("examples/cylinder_re100.prm", [
@@ -669,7 +693,8 @@ JAX_REFERENCE.update({
         # every solve to 1e-6; f32: 39 Newton and 2,012 FGMRES, the same
         # cells, the first three solves above 1e-6 (3.1e-5, 1.9e-5,
         # 1.1e-6), as on one device.  Forces on the cylinder per step,
-        # f64 and f32 (the f32 run is 3.0e-5 of |Cd| off at step 3)
+        # f64 and f32 (the f32 run is 3.0e-5 of |Cd| off at step 3).
+        # Phases 12 and 13 run the first CYLINDER_STEPS of these steps
         "cells_4way_f32": [588, 801, 1089, 1470, 2004, 2724, 3876],
         "solves_above_tolerance_4way_f32": 3,
         "forces_4way": [(-1.177192e+00, -1.225015e-03),
@@ -1584,6 +1609,17 @@ B2_LEVELS = (("3D Q1 96^3 (TGV driver)", 3, 1, 2, (96,) * 3),
              ("2D Q1 16^2 q=2 (cavity level 4)", 2, 1, 2, (16,) * 2))
 
 
+# phase 17's lattices (label, dim, degree, Gauss points per axis, cells)
+# that no shape above covers: the Q2 MMS and transient decks at 4^2 and
+# its Q1 p-level, the Q2 MMS at 16^2 and 32^2, the Q1 MMS at 8^2.  Tiny,
+# so compared and timed on the default route only
+B2_LADDER = (("2D Q2 4^2 (MMS, transient)", 2, 2, 3, (4,) * 2),
+             ("2D Q1 4^2 q=2 (MMS p-level)", 2, 1, 2, (4,) * 2),
+             ("2D Q1 8^2 q=2 (Q1 MMS)", 2, 1, 2, (8,) * 2),
+             ("2D Q2 16^2 (MMS)", 2, 2, 3, (16,) * 2),
+             ("2D Q2 32^2 (MMS)", 2, 2, 3, (32,) * 2))
+
+
 def _sheared_lattices(torch, device) -> float:
     """B2 with the default route on a box lattice and then on a sheared
     one of the same size, each against its plain version; the box must
@@ -1638,7 +1674,7 @@ def phase_lattice_kernel(torch, device, spaces,
           "both load paths; float32 and bf16 state), a box and a sheared "
           "lattice, then parity and times at the main path's shapes and "
           "levels (ms)")
-    worst = 0.0
+    worst, t0 = 0.0, time.perf_counter()
     for dim, degree, q1d, cells in B2_PARITY:
         space = _lattice(dim, degree, cells)
         for lsic in (False, True):
@@ -1653,7 +1689,9 @@ def phase_lattice_kernel(torch, device, spaces,
                 _outputs(torch, plain), reg))
             worst = max(worst, _check_bf16(torch, label, space.n_elements,
                                            state, reg))
+    print(f"  (parity lattices {time.perf_counter() - t0:.1f} s)")
     worst = max(worst, _sheared_lattices(torch, device))
+    print(f"  (sheared lattices done at {time.perf_counter() - t0:.1f} s)")
     times = {}
     for label, dim, degree, q1d, cells in B2_SHAPES + B2_LEVELS:
         space = spaces(label)
@@ -1671,6 +1709,15 @@ def phase_lattice_kernel(torch, device, spaces,
         worst = max(worst, _time_bf16(torch, label, E, state, times, q1))
         del op, kernel, plain, forced, parent_fns, state
         torch.cuda.empty_cache()
+    print(f"  (main-path shapes done at {time.perf_counter() - t0:.1f} s)")
+    for label, dim, degree, q1d, cells in B2_LADDER:
+        _, kernel, plain, _, _, _ = _variants(
+            torch, _lattice(dim, degree, cells, periodic=True), device,
+            seed=5, n_q1d=q1d)
+        E = math.prod(cells)
+        worst = max(worst, _compare(torch, label, E, kernel, plain))
+        _time_variants(torch, label, E, kernel, plain, times)
+        del kernel, plain
     return times, worst
 
 
@@ -1824,6 +1871,12 @@ B3_SHAPES = (("2D Q2-Q1 256^2 (GD cavity)", 2, (256,) * 2),
              ("2D Q2-Q1 128^2", 2, (128,) * 2))
 
 
+# phase 17's grad-div MMS lattices, below B3_SHAPES: compared and timed on
+# the default route only
+B3_LADDER = tuple((f"2D Q2-Q1 {n}^2 (GD MMS)", 2, (n,) * 2)
+                  for n in (4, 8, 16, 32))
+
+
 def _gd_variants(torch, dim, cells, periodic, device, seed, shear=0.0,
                  parent=None):
     """(operator, kernel calls, plain calls, forced, parent's calls) of
@@ -1933,6 +1986,14 @@ def phase_gd_kernel(torch, device, parent=None) -> tuple[dict, float]:
               f"({pt.sm_count(device)} SMs)")
         del op, kernel, plain, forced, parent_fns
         torch.cuda.empty_cache()
+    for label, dim, cells in B3_LADDER:
+        op, kernel, plain, _, _ = _gd_variants(torch, dim, cells, False,
+                                               device, seed=5)
+        check(op.layout_v is not None, f"{label} took the SoA path")
+        E = op.space_v.n_elements
+        worst = max(worst, _compare(torch, label, E, kernel, plain))
+        _time_variants(torch, label, E, kernel, plain, times)
+        del op, kernel, plain
     return times, worst
 
 
@@ -2800,11 +2861,14 @@ def _forces(out: str, bid: int) -> list:
 
 
 def _cylinder(torch, states: dict) -> dict:
-    """BASELINE #3 on the forest, 7 steps with Kelly after every step
-    but the first (the BDF2 startup sub-steps adapt nothing, as in the
-    JAX package): cells, Cd and Cl per step against the JAX package."""
+    """BASELINE #3 on the forest, CYLINDER_STEPS steps with Kelly after
+    every step but the first (the BDF2 startup sub-steps adapt nothing,
+    as in the JAX package): cells, Cd and Cl per step against the JAX
+    package's first steps."""
     deck = "cylinder_kelly.prm"
-    ref = JAX_REFERENCE[deck]
+    ref = dict(JAX_REFERENCE[deck])
+    ref["cells_f32"] = ref["cells_f32"][:CYLINDER_STEPS - 1]
+    ref["forces"] = ref["forces"][:CYLINDER_STEPS]
     res = drive_app(torch, 2, deck, "gls_element", b1_states=states)
     res["cells"] = _cells(deck, res["out"], ref)
     got = _forces(res["out"], 3)
@@ -2978,7 +3042,7 @@ def _recorded_shapes(torch, states: dict, times: dict, kind: str,
     from softx_2020_200_tpu_torch.ops import batched_kernel as bk
     timed = {(*_shape_keys("gls_element")[label], row["E"])
              for label, row in times.items()}
-    worst = 0.0
+    worst, t0 = 0.0, time.perf_counter()
     todo = sorted(k for k in states if k not in timed)
     print(f" -- B1 at the {len(todo)} {kind} shapes these decks launched "
           f"that no earlier pass timed (kernel, and plain version, ms)")
@@ -3005,6 +3069,8 @@ def _recorded_shapes(torch, states: dict, times: dict, kind: str,
         _time_variants(torch, label, E, kernel, plain, times)
         del k, ue, args, due, kernel, plain
         torch.cuda.empty_cache()
+    print(f"  {len(todo)} {kind} shapes checked and timed in "
+          f"{time.perf_counter() - t0:.1f} s")
     return worst
 
 
@@ -3015,7 +3081,8 @@ def phase_forest(torch, times_b1: dict) -> tuple[list, float]:
     print("== phase 12: Kelly adaptation on the forest (cylinder, cavity, "
           "Taylor-Couette with forest GMG, restart, GD, 3D sphere)")
     states, b1 = {}, []
-    print(" -- cylinder Re 100 (BASELINE #3), 7 steps, Kelly every step")
+    print(f" -- cylinder Re 100 (BASELINE #3), {CYLINDER_STEPS} steps, "
+          "Kelly every step")
     cyl = _cylinder(torch, states)
     b1.append(cyl)
     print(" -- the cylinder deck restarted on its forest after step 2")
@@ -3168,7 +3235,10 @@ def _sharded_cylinder(torch, devices, one: dict, states: dict) -> dict:
     f32 run's is up to 3.0e-5 of |Cd|).  Phase 12's 1-device run adapts
     once less and is printed beside it only for its seconds."""
     deck = "cylinder_kelly.prm"
-    ref = JAX_REFERENCE[deck]
+    ref = {k: v[:CYLINDER_STEPS] for k, v in JAX_REFERENCE[deck].items()
+           if k in ("cells_4way_f32", "forces_4way", "forces_4way_f32")}
+    ref["solves_above_tolerance_4way_f32"] = JAX_REFERENCE[deck][
+        "solves_above_tolerance_4way_f32"]
     res = drive_app(torch, 2, deck, "gls_element", b1_states=states,
                     devices=devices)
     _print_shards(res, one, "phase 12")
@@ -3371,7 +3441,8 @@ def phase_sharded(torch, times_b1: dict, earlier: dict) -> tuple[list,
     print(" -- MMS Q2 256^2 (phase 7's deck)")
     mms = _sharded_mms(torch, [dev] * SHARDS, earlier["mms_q2_r8.prm"],
                        states)
-    print(" -- the cylinder with Kelly (phase 12's deck, 7 steps)")
+    print(f" -- the cylinder with Kelly (phase 12's deck, {CYLINDER_STEPS} "
+          "steps)")
     cyl = _sharded_cylinder(torch, [dev] * SHARDS,
                             earlier["cylinder_kelly.prm"], states)
     print(" -- the cylinder restarted across shard counts (4 -> 2)")
@@ -4105,6 +4176,208 @@ def phase_validation(torch, times_b1: dict) -> tuple[list, list, float]:
 
 
 # ----------------------------------------------------------------------
+# phase 17: BASELINE #2, the convergence ladders
+# ----------------------------------------------------------------------
+# B1's shapes that phase 17's ladders launched and earlier passes did not
+# time: label -> (dim, degree, points per axis), filled by its pass
+CONVERGENCE_SHAPES: dict = {}
+# scripts/run_convergence_torch.py's flags for the phase: the JAX tests'
+# levels and one level further per spatial ladder; SDIRK3 at dt 0.1 only,
+# where the JAX test compares it with SDIRK2
+CONVERGENCE_ARGV = ["--max-q1", "64", "--max-q2", "32", "--max-gd", "32",
+                    "--max-tc", "3", "--tc-forest", "", "--time-refines",
+                    "2", "--min-dt", "0.05"]
+CONVERGENCE_MIN_DT = {"sdirk3": "0.1"}
+# The JAX package on the CPU in float64 at these levels
+# (scripts/jax_convergence_references.py with the flags above):
+# (ladder, label, route) -> (L2 velocity, L2 pressure[, torque on the
+# inner wall, on the outer wall])
+JAX_CONVERGENCE = {
+    ('q1', '8^2', 'cycle 0'):
+        (2.968924758e-02, 1.077936605e-01),
+    ('q1', '16^2', 'cycle 1'):
+        (7.618319435e-03, 3.544663573e-02),
+    ('q1', '32^2', 'cycle 2'):
+        (1.924701985e-03, 1.024454349e-02),
+    ('q1', '32^2', 'deck'):
+        (1.924701988e-03, 1.024454349e-02),
+    ('q1', '64^2', 'deck'):
+        (4.830258679e-04, 2.980929247e-03),
+    ('q2', '4^2', 'cycle 0'):
+        (1.335249829e-02, 5.864575177e-02),
+    ('q2', '8^2', 'cycle 1'):
+        (1.670397838e-03, 1.685771436e-02),
+    ('q2', '16^2', 'cycle 2'):
+        (2.070210935e-04, 4.589837666e-03),
+    ('q2', '16^2', 'deck'):
+        (2.070210934e-04, 4.589837666e-03),
+    ('q2', '32^2', 'deck'):
+        (2.578809225e-05, 1.176190097e-03),
+    ('gd', '4^2', 'deck'):
+        (1.221158865e-02, 3.998855193e-02),
+    ('gd', '8^2', 'deck'):
+        (1.618789013e-03, 5.325372519e-03),
+    ('gd', '16^2', 'deck'):
+        (2.051251878e-04, 1.129713789e-03),
+    ('gd', '32^2', 'deck'):
+        (2.572543039e-05, 2.769263695e-04),
+    ('tc', 'r1', 'deck'):
+        (4.062633203e-03, 5.664827214e-04, -7.207287403e-01, 8.131372844e-01),
+    ('tc', 'r2', 'deck'):
+        (7.363793772e-04, 1.135866213e-04, -7.840720122e-01, 8.407790360e-01),
+    ('tc', 'r2', 'deck GMRES(1000)'):
+        (7.363793771e-04, 1.135866244e-04, -7.840720122e-01, 8.407790360e-01),
+    ('tc', 'r3', 'deck GMRES(1000)'):
+        (1.169738231e-04, 2.286445283e-05, -8.176492436e-01, 8.414757870e-01),
+    ('bdf1', 'dt 0.1 @ 4^2', 'run_transient'):
+        (8.258111266e-04, 3.102918817e-03),
+    ('bdf1', 'dt 0.05 @ 4^2', 'run_transient'):
+        (4.221799486e-04, 1.524957843e-03),
+    ('bdf2', 'dt 0.1 @ 4^2', 'run_transient'):
+        (3.056683093e-05, 2.157923784e-04),
+    ('bdf2', 'dt 0.05 @ 4^2', 'run_transient'):
+        (9.813327348e-06, 5.185839902e-05),
+    ('bdf3', 'dt 0.1 @ 4^2', 'run_transient'):
+        (4.830573214e-06, 1.691712376e-05),
+    ('bdf3', 'dt 0.05 @ 4^2', 'run_transient'):
+        (5.653918084e-07, 1.990710218e-06),
+    ('sdirk2', 'dt 0.1 @ 4^2', 'run_transient'):
+        (3.511064281e-05, 2.473656145e-03),
+    ('sdirk2', 'dt 0.05 @ 4^2', 'run_transient'):
+        (9.011392176e-06, 1.216901799e-03),
+    ('sdirk3', 'dt 0.1 @ 4^2', 'run_transient'):
+        (1.191023597e-05, 1.483241852e-03),
+    ('sdirk3', 'dt 0.05 @ 4^2', 'run_transient'):
+        (2.309905028e-06, 7.200187374e-04),
+}
+# each level's L2 errors against the JAX package's f64 values: within 1 %
+# where these are above CONVERGENCE_L2_FLOOR, else within
+# CONVERGENCE_L2_ABS.  The float32 stopping criteria (the driver's
+# F32_TOLERANCE and F32_MIN_RESIDUAL) leave an error of their own, about
+# 1e-8 in the velocity and 2e-7 in the pressure on these decks (the
+# transient deck at 4^2, BDF3 at dt 0.05, f64 5.65e-7 and 1.99e-6: the
+# card 5.46e-7 and 5.59e-7, 1.98e-6 and 2.19e-6 in two runs, the port on
+# the CPU in float32 pressure 1.75e-6, the JAX package's float32 run
+# 4.50e-6), so 1 % is held on a pressure error above 1e-5 only
+CONVERGENCE_L2_RTOL = 1e-2
+CONVERGENCE_L2_FLOOR = {"velocity": 1e-6, "pressure": 1e-5}
+CONVERGENCE_L2_ABS = {"velocity": 5e-8, "pressure": 5e-7}
+# the torque on the inner wall against -4 pi nu B, and on the outer
+# against minus the inner (tests/test_postprocessing.py)
+TORQUE_RTOL = 7e-2
+TORQUE_BALANCE_RTOL = 1.2e-1
+
+
+def _level_kernel(row: dict) -> str:
+    """The kernel a ladder's level runs on: the lattice operator (B2) on
+    an MMS deck and the first uniform cycle, the general-geometry one
+    (B1) on the later cycles (uniform refinement keeps no lattice) and on
+    Taylor-Couette, B3 on grad-div."""
+    if row["ladder"] == "gd":
+        return "gd_lattice"
+    if row["ladder"] == "tc" or (row["route"].startswith("cycle")
+                                 and row["route"] != "cycle 0"):
+        return "gls_element"
+    return "gls_lattice"
+
+
+def _check_ladder(conv, name: str, rows: list) -> None:
+    """One ladder's rows against the JAX package's float64 values, the JAX
+    tests' bounds and the kernel of each level."""
+    for row in rows:
+        key = (row["ladder"], row["label"], row["route"])
+        want = JAX_CONVERGENCE[key]
+        for what, got, ref in zip(("velocity", "pressure"),
+                                  (row["error_velocity"],
+                                   row["error_pressure"]), want):
+            rel = ref > CONVERGENCE_L2_FLOOR[what]
+            print(f"  {name} {row['label']:14s} {row['route']:18s} L2 "
+                  f"{what} card {got:.8e}, JAX CPU f64 {ref:.8e}, rel diff "
+                  f"{abs(got - ref) / ref:.3e}"
+                  + (f" (bound {CONVERGENCE_L2_RTOL:g})" if rel else
+                     f", abs diff {abs(got - ref):.3e} (bound "
+                     f"{CONVERGENCE_L2_ABS[what]:g}: below the float32 "
+                     "stopping floor)"))
+            check(_close(got, ref, CONVERGENCE_L2_RTOL) if rel
+                  else abs(got - ref) <= CONVERGENCE_L2_ABS[what],
+                  f"{name} {row['label']}: L2 {what} {got} against {ref}")
+        kernel = _level_kernel(row)
+        check(row["launches"][kernel] > 0 and all(
+            n == 0 for k, n in row["launches"].items() if k != kernel),
+            f"{name} {row['label']} ({row['route']}): launches "
+            f"{row['launches']}, expected {kernel} alone")
+        check(row["gmg_evictions"] == 0, f"{name} {row['label']}: "
+              "multigrid was evicted")
+        if len(want) == 4:
+            ti, to = row["torque_inner"], row["torque_outer"]
+            print(f"  {name} {row['label']}: torque inner {ti:.6f} (exact "
+                  f"{conv.TC_TORQUE:.6f}, JAX CPU f64 {want[2]:.6f}), outer "
+                  f"{to:.6f} (JAX CPU f64 {want[3]:.6f})")
+            check(_close(ti, want[2], CONVERGENCE_L2_RTOL)
+                  and _close(to, want[3], CONVERGENCE_L2_RTOL),
+                  f"{name} {row['label']}: torques {ti}, {to} against JAX "
+                  f"{want[2]}, {want[3]}")
+            if row["label"] != "r1":
+                check(_close(ti, conv.TC_TORQUE, TORQUE_RTOL),
+                      f"{name} {row['label']}: torque {ti}")
+                check(_close(to, -ti, TORQUE_BALANCE_RTOL),
+                      f"{name} {row['label']}: outer torque {to}")
+    for row in rows:
+        for what, key in (("velocity", name), ("pressure", "q2_pressure")):
+            r = row.get(f"rate_{what}")
+            if r is None or key not in conv.RATE_BOUNDS or (
+                    what == "pressure" and name != "q2"):
+                continue
+            lo, hi = conv.RATE_BOUNDS[key]
+            print(f"  {name} {row['label']}: {what} rate {r:.4f} (JAX test "
+                  f"bound {lo} to {hi})")
+            check((lo is None or r > lo) and (hi is None or r < hi),
+                  f"{name} {row['label']}: {what} rate {r}")
+
+
+def phase_convergence(torch, times_b1: dict) -> tuple[list, list, list,
+                                                       float]:
+    """Phase 17: the convergence ladders through the driver's own
+    ``run_ladder`` on the card, each ladder's launches counted from 0,
+    held to the JAX package (``_check_ladder``); SDIRK3 under half
+    SDIRK2's error at dt 0.1; then B1 at every shape they launched.
+    Returns the B1, B2 and B3 runs and the worst max-abs error of the
+    per-shape pass."""
+    import run_convergence_torch as conv
+    print("== phase 17: BASELINE #2, the convergence ladders "
+          "(scripts/run_convergence_torch.py): trig MMS Q1 and Q2, GD "
+          "Q2-Q1, Taylor-Couette Q2 with its torques, BDF1-3 and "
+          "SDIRK2-3")
+    states, runs = {}, {k: [] for k in KERNELS}
+    ladders = {}
+    for name in conv.LADDERS:
+        argv = CONVERGENCE_ARGV + ["--ladders", name, "--min-dt",
+                                   CONVERGENCE_MIN_DT.get(name, "0.05"),
+                                   "--device", "cuda", "--dtype", "float32"]
+        args = conv.parse_args(argv)
+        print(f" -- {name}")
+        with _b1_states(states):
+            rows, out, seconds, launches, by_shape = _counted(
+                torch, lambda: conv.run_ladder(name, args))
+        run = dict(deck=f"convergence {name}", out=out, seconds=seconds,
+                   launches=launches, launches_by_shape=by_shape)
+        print(f"  wall {seconds:.2f} s, launches {launches}")
+        _check_ladder(conv, name, rows)
+        ladders[name] = rows
+        for k in KERNELS:
+            if launches[k]:
+                runs[k].append(run)
+    e2 = ladders["sdirk2"][0]["error_velocity"]
+    e3 = ladders["sdirk3"][0]["error_velocity"]
+    print(f"  SDIRK3 at dt 0.1: {e3:.6e} against SDIRK2's {e2:.6e}")
+    check(e3 < 0.5 * e2, f"SDIRK3 {e3} not under half SDIRK2's {e2}")
+    worst = _recorded_shapes(torch, states, times_b1, "convergence",
+                             CONVERGENCE_SHAPES)
+    return (runs["gls_element"], runs["gls_lattice"], runs["gd_lattice"],
+            worst)
+
+
+# ----------------------------------------------------------------------
 # the variants of each kernel's timed shapes, as _time_variants names
 # them, and the launch variant each one's time is per launch of
 VARIANTS = {"gls_element": ("primal", "tangent", "node blocks",
@@ -4129,12 +4402,12 @@ def _shape_keys(kernel: str) -> dict:
     """label -> (dim, degree, points per axis) of a kernel's timed shapes
     (B3: the velocity degree)."""
     if kernel == "gls_lattice":
-        return {s[0]: s[1:4] for s in B2_SHAPES + B2_LEVELS}
+        return {s[0]: s[1:4] for s in B2_SHAPES + B2_LEVELS + B2_LADDER}
     if kernel == "gd_lattice":
-        return {s[0]: (s[1], 2, 3) for s in B3_SHAPES}
+        return {s[0]: (s[1], 2, 3) for s in B3_SHAPES + B3_LADDER}
     return {**{s[0]: (s[1], s[2], s[2] + 1) for s in B1_SHAPES},
             **FOREST_SHAPES, **SHARD_SHAPES, **SPHERE_SHAPES,
-            **VALIDATION_SHAPES}
+            **VALIDATION_SHAPES, **CONVERGENCE_SHAPES}
 
 
 def _shape_bound(kernel: str, label: str, what: str, E: int):
@@ -4274,7 +4547,7 @@ def _print_bounds(times: dict, kernel: str) -> None:
 
 
 PHASES = ("2", "3", "3b", "3c", "3d", "4", "5", "6", "7", "8", "9", "10",
-          "11", "12", "13", "14", "15", "16")
+          "11", "12", "13", "14", "15", "16", "17")
 
 
 def main(argv=None) -> int:
@@ -4284,7 +4557,7 @@ def main(argv=None) -> int:
     parser.add_argument("--phases", metavar="LIST",
                         help="run only these phases (comma-separated, "
                         "e.g. 2,3c; phase 1 always runs, phase 2 with any "
-                        "of 3-3d, 14 and 15, and phases 7 and 12 with 13, "
+                        "of 3-3d and 14-17, and phases 7 and 12 with 13, "
                         "which holds its runs to theirs); prints no "
                         "contract line")
     parser.add_argument("--parent", metavar="DIR",
@@ -4297,7 +4570,7 @@ def main(argv=None) -> int:
         return 0
     only = set(args.phases.split(",")) if args.phases else set(PHASES)
     check(only <= set(PHASES), f"unknown phases {only - set(PHASES)}")
-    if only & {"3", "3b", "3c", "3d", "14", "15", "16"}:
+    if only & {"3", "3b", "3c", "3d", "14", "15", "16", "17"}:
         only.add("2")
     if "13" in only:
         only |= {"7", "12"}
@@ -4307,7 +4580,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "run needs an NVIDIA GPU", file=sys.stderr)
         return 1
-    # the package, and the drivers of phase 16 (scripts/run_*_torch.py)
+    # the package, and the drivers of phases 16 and 17
+    # (scripts/run_*_torch.py)
     sys.path[:0] = [ROOT, os.path.join(ROOT, "scripts")]
     device = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4407,6 +4681,16 @@ def main(argv=None) -> int:
         _print_bounds({k: v for k, v in times_b1.items()
                        if k in VALIDATION_SHAPES}, "gls_element")
         stamp("16")
+    if "17" in only:
+        b1_conv, b2_conv, b3_conv, worst_conv = phase_convergence(torch,
+                                                                  times_b1)
+        b1_runs += b1_conv
+        b2_runs += b2_conv
+        b3_runs += b3_conv
+        worst_b1 = max(worst_b1, worst_conv)
+        _print_bounds({k: v for k, v in times_b1.items()
+                       if k in CONVERGENCE_SHAPES}, "gls_element")
+        stamp("17")
     if only != set(PHASES):
         print(f"phases {sorted(only)} passed; no contract line")
         return 0

@@ -45,7 +45,8 @@ def peak_gib(cuda: bool):
 class Since:
     """The solver's counts since the last ``step`` (the first from 0, or
     from the solver's counts when given): Newton and FGMRES iterations,
-    solves above tolerance and multigrid evictions to block-Jacobi."""
+    solves above tolerance and multigrid evictions to block-Jacobi (GLS
+    only)."""
 
     def __init__(self, solver=None):
         self.stats = dict(solver.stats) if solver is not None else None
@@ -55,8 +56,10 @@ class Since:
         st = solver.stats
         prev = self.stats or {k: 0 for k in st}
         d = {k: st[k] - prev[k] for k in st}
-        strikes = solver._gmg_strikes - self.strikes
-        self.stats, self.strikes = dict(st), solver._gmg_strikes
+        # the GD engine has no multigrid fallback, so no strikes
+        now = getattr(solver, "_gmg_strikes", 0)
+        strikes = now - self.strikes
+        self.stats, self.strikes = dict(st), now
         return {"newton": d["newton_iterations"],
                 "fgmres": d["linear_iterations"],
                 "above_tolerance": d["solves_above_tolerance"],

@@ -160,20 +160,36 @@ def tangent_batched(kernel, ue, due, xe, uprev, fq, h, alpha0, sdt):
         (ue,), (due,))[1]
 
 
+# elements times probes in one vectorised pass of the plain node blocks:
+# a 3D Q2 probe holds about 17 KiB of float32 intermediates per element,
+# so a pass stays near 1 GiB
+PROBE_ELEMENTS = 1 << 16
+
+
+def probe_chunks(n_probes: int, E: int, device):
+    """The probe indices 0..n_probes-1, in chunks of PROBE_ELEMENTS // E
+    probes (at least one)."""
+    step = max(1, min(n_probes, PROBE_ELEMENTS // max(E, 1)))
+    for k0 in range(0, n_probes, step):
+        yield torch.arange(k0, min(n_probes, k0 + step), device=device)
+
+
 def node_blocks_batched(kernel, ue, xe, uprev, fq, h, alpha0, sdt):
     """Node-diagonal Jacobian blocks [nn, c*c, E] (row-major (i, j)):
 
         blocks[n, i*c+j, e] = d r[n, i, e] / d ue[n, j, e]
 
-    from nn*c forward-mode probes, each differentiating every element at
-    once (the layout the CUDA probe kernel writes)."""
+    from nn*c forward-mode probes (probe n*c + j), each differentiating
+    every element at once (the layout the CUDA probe kernel writes),
+    vectorised over the probes with ``torch.func.vmap`` in chunks of
+    ``probe_chunks``."""
     nn, c, E = ue.shape
-    out = ue.new_empty((nn, c * c, E))
-    for k in range(nn * c):
-        n0, j = divmod(k, c)
-        probe = torch.zeros_like(ue)
-        probe[n0, j] = 1.0
-        col = tangent_batched(kernel, ue, probe, xe, uprev, fq, h,
-                              alpha0, sdt)[n0]              # [c(i), E]
-        out[n0, j::c] = col
-    return out
+    out = ue.new_empty((nn, c, c, E))                        # [n, i, j, E]
+    tangent = torch.func.vmap(lambda p: tangent_batched(
+        kernel, ue, p, xe, uprev, fq, h, alpha0, sdt))
+    for k in probe_chunks(nn * c, E, ue.device):
+        n0, j, m = k // c, k % c, torch.arange(len(k), device=ue.device)
+        probes = ue.new_zeros((len(k), nn, c, E))
+        probes[m, n0, j] = 1.0
+        out[n0, :, j] = tangent(probes)[m, n0]               # [m, c(i), E]
+    return out.reshape(nn, c * c, E)

@@ -73,6 +73,7 @@ from torch import nn
 
 from . import cuda_build
 from . import persistent_tiles as pt
+from .batched_kernel import probe_chunks
 
 SOURCE = os.path.join(cuda_build.CSRC, "gls_lattice.cu")
 
@@ -292,17 +293,19 @@ def lattice_tangent(kernel, ue, due, up, fq, alpha0, sdt):
 
 def lattice_node_blocks(kernel, ue, up, fq, alpha0, sdt, nn: int):
     """Node-diagonal Jacobian blocks [nn, c*c, E] (row-major (i, j)) from
-    nn*c forward-mode probes."""
+    nn*c forward-mode probes, vectorised as ``node_blocks_batched``
+    does."""
     cn, E = ue.shape
     c = cn // nn
-    out = ue.new_empty((nn, c * c, E))
-    for n0 in range(nn):
-        for j in range(c):
-            probe = torch.zeros_like(ue)
-            probe[j * nn + n0] = 1.0
-            col = lattice_tangent(kernel, ue, probe, up, fq, alpha0, sdt)
-            out[n0, j::c] = col[n0::nn]
-    return out
+    out = ue.new_empty((nn, c, c, E))                        # [n, i, j, E]
+    tangent = torch.func.vmap(lambda p: lattice_tangent(
+        kernel, ue, p, up, fq, alpha0, sdt))
+    for k in probe_chunks(nn * c, E, ue.device):
+        n0, j, m = k // c, k % c, torch.arange(len(k), device=ue.device)
+        probes = ue.new_zeros((len(k), cn, E))
+        probes[m, j * nn + n0] = 1.0
+        out[n0, :, j] = tangent(probes).reshape(len(k), c, nn, E)[m, :, n0]
+    return out.reshape(nn, c * c, E)
 
 
 class LatticeGLSKernel(nn.Module):

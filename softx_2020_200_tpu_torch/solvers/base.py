@@ -701,15 +701,20 @@ class GLSNavierStokesSolver:
         if self.control.is_output_iteration():
             self.write_output(u, t)
 
-    def run_transient(self, u0=None, on_step=None, verbose=None):
+    def run_transient(self, u0=None, on_step=None, verbose=None,
+                      history_from_exact: bool = False):
         """Transient BDF or SDIRK time loop, with the JAX package's
         startup sub-stepping: with ``startup time scaling`` s in (0, 1)
         the first step(s) of a BDF2/3 run are split into lower-order
         sub-steps of sizes (s dt, (1-s) dt) (not under SDIRK, not after a
-        restart).  A restart reads the checkpoint before that is decided;
-        a checkpoint is written after every ``frequency``-th step.
-        ``on_step(solver, u, t)`` runs after every step.  Returns the
-        final solution."""
+        restart).  With ``history_from_exact`` the BDF history is the
+        analytical solution at t - dt and t - 2 dt on the space's nodes
+        instead, the dt history holds the target order's steps (full
+        order from the first step, as temporal-order checks need) and
+        there is no startup sub-stepping.  A restart reads the
+        checkpoint before that is decided; a checkpoint is written after
+        every ``frequency``-th step.  ``on_step(solver, u, t)`` runs
+        after every step.  Returns the final solution."""
         ctrl = self.control
         sdirk_order = (int(ctrl.method.value[-1])
                        if ctrl.method.is_sdirk else 0)
@@ -721,6 +726,16 @@ class GLSNavierStokesSolver:
             u0 = self.initial_condition()
         u = u0
         previous = [u0] * 3    # newest first
+        if history_from_exact:
+            if self.exact is None:
+                raise ValueError("history_from_exact needs an analytical "
+                                 "solution")
+            c = self.dim + 1
+            previous = [u0] + [
+                self.exact.spatial(self.bh.node_coords,
+                                   ctrl.time - i * ctrl.dt)[:, :c]
+                for i in (1, 2)]
+            ctrl.dt_history = [ctrl.dt] * target_order
 
         prm = self.prm
         if prm.restart.restart:
@@ -728,7 +743,7 @@ class GLSNavierStokesSolver:
         s_scale = prm.simulation_control.startup_timestep_scaling
         startup_left = 0
         if (target_order >= 2 and not sdirk_order and 0.0 < s_scale < 1.0
-                and not prm.restart.restart):
+                and not history_from_exact and not prm.restart.restart):
             startup_left = target_order - 1
 
         while not ctrl.is_at_end():
