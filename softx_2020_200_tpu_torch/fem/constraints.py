@@ -25,6 +25,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.spans import put, take
+
+# the counters' name for these gathers and indexed writes
+SITE = "constraints"
+
 
 def master_slots(masters: np.ndarray):
     """(unique masters [U], slots [U, K]): row u of ``slots`` lists the
@@ -61,22 +66,22 @@ class HangingConstraints:
         if self.n == 0:
             return u
         vals = torch.einsum("hm,hmc->hc", self.weights.to(u.dtype),
-                            u[self.masters])
-        return u.index_put((self.ids,), vals)
+                            take(SITE, u, self.masters))
+        return put(SITE, u, self.ids, vals)
 
     def distribute_transpose(self, R):
         """Move constrained-row residuals onto masters; zero them."""
         if self.n == 0:
             return R
-        rh = R[self.ids]                                   # [H, c]
+        rh = take(SITE, R, self.ids)                       # [H, c]
         c = R.shape[1]
         flat = R.new_empty((self.masters.numel() + 1, c))
         flat[:-1].view(*self.masters.shape, c).copy_(
             self.weights.to(R.dtype)[:, :, None] * rh[:, None, :])
         flat[-1].zero_()
-        R = R.index_put((self.umasters,),
-                        R[self.umasters] + flat[self.slots].sum(dim=1))
-        return R.index_put((self.ids,), torch.zeros_like(rh))
+        R = put(SITE, R, self.umasters, take(SITE, R, self.umasters)
+                + take(SITE, flat, self.slots).sum(dim=1))
+        return put(SITE, R, self.ids, torch.zeros_like(rh))
 
     def to(self, device, dtype):
         """The constraints with weights in ``dtype`` on ``device``."""

@@ -20,6 +20,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.spans import span
+
 
 class HostSync:
     """Device-to-host reads: each one waits for the device to finish
@@ -31,9 +33,10 @@ class HostSync:
     def __call__(self, t):
         """A 0-d tensor -> float, or a 1-d tensor -> float64 numpy."""
         self.count += 1
-        if t.ndim == 0:
-            return float(t.item())
-        return t.detach().to("cpu", torch.float64).numpy()
+        with span("sync", "sync_wait_s"):
+            if t.ndim == 0:
+                return float(t.item())
+            return t.detach().to("cpu", torch.float64).numpy()
 
 
 def _identity(x):
@@ -60,6 +63,17 @@ def _rows(b, k: int, zero: bool = False):
         size = (k, b.shape[0])
         return b.new_zeros(size) if zero else b.new_empty(size)
     return b.rows(k, zero)
+
+
+def _cgs2(Vj, w, reduce_fn):
+    """CGS2: two passes of projection of ``w`` against the rows of
+    ``Vj``; returns (the projected w, the sum of both passes'
+    coefficients, ||w||)."""
+    h1 = _reduce(Vj @ w, reduce_fn)
+    w = w - h1 @ Vj
+    h2 = _reduce(Vj @ w, reduce_fn)
+    w = w - h2 @ Vj
+    return w, h1 + h2, norm(w, reduce_fn)
 
 
 def _back_substitute(R, g):
@@ -91,70 +105,71 @@ def gmres(matvec, b, x0=None, *, precond=None, m: int = 30,
     """
     precond = precond or _identity
     sync = sync if sync is not None else HostSync()
-    x = _zeros_like(b) if x0 is None else x0
-    r = b - matvec(x)
-    rnorm = sync(norm(r, reduce_fn))
-    iters = 0
-    restarts = 0
-    while rnorm > atol and restarts < max_restarts:
-        if restarts > 0:
+    with span("krylov.solve"):
+        x = _zeros_like(b) if x0 is None else x0
+        with span("krylov.matvec"):
             r = b - matvec(x)
-            beta = sync(norm(r, reduce_fn))
-        else:
-            beta = rnorm
-        V = _rows(b, m + 1)
-        V[0] = r / max(beta, 1e-300)
-        Z = _rows(b, m) if flexible else None
-        Hc = np.zeros((m + 1, m))
-        cs = np.zeros(m)
-        sn = np.zeros(m)
-        g = np.zeros(m + 1)
-        g[0] = beta
-        j = 0
-        rn = beta
-        while j < m and rn > atol:
-            z = precond(V[j])
-            if flexible:
-                Z[j] = z
-            w = matvec(z)
-            Vj = V[:j + 1]
-            # CGS2: two passes of projection against V[0..j]
-            h1 = _reduce(Vj @ w, reduce_fn)
-            w = w - h1 @ Vj
-            h2 = _reduce(Vj @ w, reduce_fn)
-            w = w - h2 @ Vj
-            col = sync(torch.cat([h1 + h2, norm(w, reduce_fn)[None]]))
-            hnext = col[-1]
-            V[j + 1] = w / max(hnext, 1e-300)
-            h = np.zeros(m + 1)
-            h[:j + 2] = col
-            # apply the stored Givens rotations to the new column
-            for i in range(j):
-                hi = cs[i] * h[i] + sn[i] * h[i + 1]
-                h[i + 1] = -sn[i] * h[i] + cs[i] * h[i + 1]
-                h[i] = hi
-            denom = np.sqrt(h[j] ** 2 + hnext ** 2)
-            c_new = h[j] / denom if denom > 0 else 1.0
-            s_new = h[j + 1] / denom if denom > 0 else 0.0
-            h[j] = c_new * h[j] + s_new * h[j + 1]
-            h[j + 1] = 0.0
-            g[j + 1] = -s_new * g[j]
-            g[j] = c_new * g[j]
-            cs[j], sn[j] = c_new, s_new
-            Hc[:, j] = h
-            rn = abs(g[j + 1])
-            j += 1
-        if j:
-            y = torch.as_tensor(_back_substitute(Hc[:j, :j], g[:j]),
-                                dtype=b.dtype, device=b.device)
-            if flexible:
-                x = x + y @ Z[:j]
+        rnorm = sync(norm(r, reduce_fn))
+        iters = 0
+        restarts = 0
+        while rnorm > atol and restarts < max_restarts:
+            if restarts > 0:
+                with span("krylov.matvec"):
+                    r = b - matvec(x)
+                beta = sync(norm(r, reduce_fn))
             else:
-                x = x + precond(y @ V[:j])
-        iters += j
-        restarts += 1
-        rnorm = rn
-    return x, rnorm, iters, restarts
+                beta = rnorm
+            V = _rows(b, m + 1)
+            V[0] = r / max(beta, 1e-300)
+            Z = _rows(b, m) if flexible else None
+            Hc = np.zeros((m + 1, m))
+            cs = np.zeros(m)
+            sn = np.zeros(m)
+            g = np.zeros(m + 1)
+            g[0] = beta
+            j = 0
+            rn = beta
+            while j < m and rn > atol:
+                with span("krylov.arnoldi"):
+                    z = precond(V[j])
+                    if flexible:
+                        Z[j] = z
+                    with span("krylov.matvec"):
+                        w = matvec(z)
+                    with span("krylov.orthogonalize"):
+                        w, h12, hnorm = _cgs2(V[:j + 1], w, reduce_fn)
+                    col = sync(torch.cat([h12, hnorm[None]]))
+                    hnext = col[-1]
+                    V[j + 1] = w / max(hnext, 1e-300)
+                    h = np.zeros(m + 1)
+                    h[:j + 2] = col
+                    # apply the stored Givens rotations to the new column
+                    for i in range(j):
+                        hi = cs[i] * h[i] + sn[i] * h[i + 1]
+                        h[i + 1] = -sn[i] * h[i] + cs[i] * h[i + 1]
+                        h[i] = hi
+                    denom = np.sqrt(h[j] ** 2 + hnext ** 2)
+                    c_new = h[j] / denom if denom > 0 else 1.0
+                    s_new = h[j + 1] / denom if denom > 0 else 0.0
+                    h[j] = c_new * h[j] + s_new * h[j + 1]
+                    h[j + 1] = 0.0
+                    g[j + 1] = -s_new * g[j]
+                    g[j] = c_new * g[j]
+                    cs[j], sn[j] = c_new, s_new
+                    Hc[:, j] = h
+                    rn = abs(g[j + 1])
+                    j += 1
+            if j:
+                y = torch.as_tensor(_back_substitute(Hc[:j, :j], g[:j]),
+                                    dtype=b.dtype, device=b.device)
+                if flexible:
+                    x = x + y @ Z[:j]
+                else:
+                    x = x + precond(y @ V[:j])
+            iters += j
+            restarts += 1
+            rnorm = rn
+        return x, rnorm, iters, restarts
 
 
 def gmres_fixed(matvec, b, x0=None, *, precond=None, m: int = 4,
@@ -171,59 +186,58 @@ def gmres_fixed(matvec, b, x0=None, *, precond=None, m: int = 4,
     zero right-hand side or a breakdown yields no update instead of a
     division by zero.  Returns x.
     """
-    atol = 1e-30
-    precond = precond or _identity
-    x = _zeros_like(b) if x0 is None else x0
-    r = b if x0 is None else b - matvec(x0)
-    tiny = 1e-300 if b.dtype == torch.float64 else 1e-30
-    beta = norm(r, reduce_fn)
-    V = _rows(b, m + 1, zero=True)
-    V[0] = r / torch.clamp_min(beta, tiny)
-    Z = _rows(b, m) if flexible else None
-    small = dict(dtype=b.dtype, device=b.device)
-    H = torch.zeros((m + 1, m), **small)
-    for j in range(m):
-        z = precond(V[j])
+    with span("krylov.fixed"):
+        atol = 1e-30
+        precond = precond or _identity
+        x = _zeros_like(b) if x0 is None else x0
+        r = b if x0 is None else b - matvec(x0)
+        tiny = 1e-300 if b.dtype == torch.float64 else 1e-30
+        beta = norm(r, reduce_fn)
+        V = _rows(b, m + 1, zero=True)
+        V[0] = r / torch.clamp_min(beta, tiny)
+        Z = _rows(b, m) if flexible else None
+        small = dict(dtype=b.dtype, device=b.device)
+        H = torch.zeros((m + 1, m), **small)
+        for j in range(m):
+            z = precond(V[j])
+            if flexible:
+                Z[j] = z
+            with span("krylov.matvec"):
+                w = matvec(z)
+            with span("krylov.orthogonalize"):
+                w, h, hnext = _cgs2(V[:j + 1], w, reduce_fn)
+            V[j + 1] = w / torch.clamp_min(hnext, tiny)
+            H[:j + 1, j] = h
+            H[j + 1, j] = hnext
+        # Givens rotations, in the order the JAX loop applies them
+        g = torch.zeros(m + 1, **small)
+        g[0] = beta
+        before = [beta]                  # residual before each step
+        for j in range(m):
+            a, c_ = H[j, j], H[j + 1, j]
+            denom = torch.sqrt(a * a + c_ * c_)
+            pos = denom > 0
+            cs = torch.where(pos, a / torch.clamp_min(denom, tiny),
+                             torch.ones_like(a))
+            sn = torch.where(pos, c_ / torch.clamp_min(denom, tiny),
+                             torch.zeros_like(a))
+            rot = torch.stack([torch.stack([cs, sn]),
+                               torch.stack([-sn, cs])])
+            H[j:j + 2, j:] = rot @ H[j:j + 2, j:]
+            g[j:j + 2] = rot @ g[j:j + 2]
+            before.append(torch.abs(g[j + 1]))
+        active = torch.cumprod(
+            (torch.stack(before[:m]) > atol).to(b.dtype), dim=0) > 0
+        both = active[:, None] & active[None, :]
+        zero, one = torch.zeros_like(g[:m]), torch.ones_like(g[:m])
+        R = (torch.where(both, H[:m].triu(), torch.zeros_like(H[:m]))
+             + torch.diag(torch.where(active, zero, one)))
+        rhs = torch.where(active, g[:m], zero)
+        y = torch.linalg.solve_triangular(R, rhs[:, None],
+                                          upper=True)[:, 0]
         if flexible:
-            Z[j] = z
-        w = matvec(z)
-        Vj = V[:j + 1]
-        # CGS2: two passes of projection against V[0..j]
-        h1 = _reduce(Vj @ w, reduce_fn)
-        w = w - h1 @ Vj
-        h2 = _reduce(Vj @ w, reduce_fn)
-        w = w - h2 @ Vj
-        hnext = norm(w, reduce_fn)
-        V[j + 1] = w / torch.clamp_min(hnext, tiny)
-        H[:j + 1, j] = h1 + h2
-        H[j + 1, j] = hnext
-    # Givens rotations, in the order the JAX loop applies them
-    g = torch.zeros(m + 1, **small)
-    g[0] = beta
-    before = [beta]                  # residual before each step
-    for j in range(m):
-        a, c_ = H[j, j], H[j + 1, j]
-        denom = torch.sqrt(a * a + c_ * c_)
-        pos = denom > 0
-        cs = torch.where(pos, a / torch.clamp_min(denom, tiny),
-                         torch.ones_like(a))
-        sn = torch.where(pos, c_ / torch.clamp_min(denom, tiny),
-                         torch.zeros_like(a))
-        rot = torch.stack([torch.stack([cs, sn]), torch.stack([-sn, cs])])
-        H[j:j + 2, j:] = rot @ H[j:j + 2, j:]
-        g[j:j + 2] = rot @ g[j:j + 2]
-        before.append(torch.abs(g[j + 1]))
-    active = torch.cumprod((torch.stack(before[:m]) > atol).to(b.dtype),
-                           dim=0) > 0
-    both = active[:, None] & active[None, :]
-    zero, one = torch.zeros_like(g[:m]), torch.ones_like(g[:m])
-    R = (torch.where(both, H[:m].triu(), torch.zeros_like(H[:m]))
-         + torch.diag(torch.where(active, zero, one)))
-    rhs = torch.where(active, g[:m], zero)
-    y = torch.linalg.solve_triangular(R, rhs[:, None], upper=True)[:, 0]
-    if flexible:
-        return x + y @ Z
-    return x + precond(y @ V[:m])
+            return x + y @ Z
+        return x + precond(y @ V[:m])
 
 
 def bicgstab(matvec, b, x0=None, *, precond=None, max_iters: int = 1000,

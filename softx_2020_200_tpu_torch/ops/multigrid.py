@@ -37,6 +37,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.spans import count, span, take
 from ..fem.dof import FESpace
 from ..fem.mesh import subdivided_hyper_rectangle
 from .linalg import gmres_fixed
@@ -47,6 +48,13 @@ from .preconditioners import apply_node_block_state, node_blocks_to_state
 # Jacobi sweep per smooth (weight 0.7), a K-cycle of 2 FGMRES steps, the
 # w/k wrap on the first coarse level only, at most 10 levels
 N_SMOOTH, OMEGA, CYCLE_M, CYCLE_LEVELS, MAX_LEVELS = 1, 0.7, 2, 1, 10
+
+# the cycle's span names (``core/spans.py``) at each level k; level k's
+# restrict and prolong move its residual to level k + 1 and the
+# correction back
+SPANS = [{part: f"gmg.L{k}.{part}" for part in
+          ("smooth", "residual", "restrict", "prolong", "bottom")}
+         for k in range(MAX_LEVELS)]
 
 
 def _transfer_maps(fine_space, coarse_space):
@@ -112,9 +120,9 @@ class Level:
         """A nodal state of the level above -> this level (injection or
         interpolation)."""
         if self.inject is not None:
-            return x[self.inject]
+            return take("transfer", x, self.inject)
         return torch.einsum("nm,nmc->nc", self.inj_weights,
-                            x[self.inj_masters])
+                            take("transfer", x, self.inj_masters))
 
     def hc_distribute(self, u):
         return u if self.hc is None else self.hc.distribute(u)
@@ -128,7 +136,8 @@ def prolong(level: Level, vc):
     (its constrained rows, which the cycle keeps at zero, filled from
     their masters first)."""
     vc = level.hc_distribute(vc)
-    return torch.einsum("fm,fmc->fc", level.weights, vc[level.masters])
+    return torch.einsum("fm,fmc->fc", level.weights,
+                        take("transfer", vc, level.masters))
 
 
 def restrict(level: Level, rf):
@@ -136,7 +145,8 @@ def restrict(level: Level, rf):
     ``prolong``), as a gather-sum: no atomics, so the cycle adds in the
     same order on every run."""
     return level.hc_transpose(assemble(
-        level.weights[:, :, None] * rf[:, None, :], level.restrict_idx))
+        level.weights[:, :, None] * rf[:, None, :], level.restrict_idx,
+        "transfer"))
 
 
 def _coarsen_forest(forest):
@@ -345,20 +355,21 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
     n_levels = len(levels)
 
     def build_state(u, uprev, fq, alpha0, sdt, fine_mask):
-        states = []
-        ul, upl, fql, mask = u, uprev, fq, fine_mask
-        for li, lvl in enumerate(levels):
-            op = lvl.op
-            if li > 0:
-                ul, upl = lvl.down(ul), lvl.down(upl)
-                fql = u.new_zeros((op.space.n_elements, op.n_q, op.dim))
-                mask = lvl.mask
-            blocks = op.node_blocks(ul, mask, upl, fql, alpha0, sdt)
-            states.append((op.linearize(lvl.hc_distribute(ul), upl, fql,
-                                        alpha0, sdt), mask,
-                           node_blocks_to_state("block_jacobi", blocks,
-                                                mask)))
-        return states
+        with span("gmg.build"):
+            states = []
+            ul, upl, fql, mask = u, uprev, fq, fine_mask
+            for li, lvl in enumerate(levels):
+                op = lvl.op
+                if li > 0:
+                    ul, upl = lvl.down(ul), lvl.down(upl)
+                    fql = u.new_zeros((op.space.n_elements, op.n_q, op.dim))
+                    mask = lvl.mask
+                blocks = op.node_blocks(ul, mask, upl, fql, alpha0, sdt)
+                states.append((op.linearize(lvl.hc_distribute(ul), upl, fql,
+                                            alpha0, sdt), mask,
+                               node_blocks_to_state("block_jacobi", blocks,
+                                                    mask)))
+            return states
 
     def builder(u, uprev, fq, alpha0, sdt, fine_mask, pstate=None):
         if pstate is None:
@@ -389,25 +400,32 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
         def smooth(level, r, z=None):
             """One pre/post smoothing application: z ~ A_level^{-1} r."""
             matvec, sm, _ = mats[level]
-            if smoother == "krylov":
-                return solve(level, r, krylov_m, sm, x0=z)
-            z0 = OMEGA * sm(r) if z is None else z + OMEGA * sm(
-                r - matvec(z))
-            for _ in range(N_SMOOTH - 1):
-                z0 = z0 + OMEGA * sm(r - matvec(z0))
-            return z0
+            with span(SPANS[level + level_offset]["smooth"]):
+                if smoother == "krylov":
+                    return solve(level, r, krylov_m, sm, x0=z)
+                z0 = OMEGA * sm(r) if z is None else z + OMEGA * sm(
+                    r - matvec(z))
+                for _ in range(N_SMOOTH - 1):
+                    z0 = z0 + OMEGA * sm(r - matvec(z0))
+                return z0
 
         def vcycle(level, r):
             matvec, sm, mask = mats[level]
+            names = SPANS[level + level_offset]
             if level + 1 == n_levels:
-                return solve(level, r, coarse_iters, sm)
+                with span(names["bottom"]):
+                    return solve(level, r, coarse_iters, sm)
             z = smooth(level, r)
-            res = r - matvec(z)
-            rc = restrict(levels[level + 1], res)
-            rc = torch.where(mats[level + 1][2], torch.zeros_like(rc), rc)
+            with span(names["residual"]):
+                res = r - matvec(z)
+            with span(names["restrict"]):
+                rc = restrict(levels[level + 1], res)
+                rc = torch.where(mats[level + 1][2], torch.zeros_like(rc),
+                                 rc)
             zc = coarse_correct(level + 1, rc)
-            zf = prolong(levels[level + 1], zc)
-            z = z + torch.where(mask, torch.zeros_like(zf), zf)
+            with span(names["prolong"]):
+                zf = prolong(levels[level + 1], zc)
+                z = z + torch.where(mask, torch.zeros_like(zf), zf)
             return smooth(level, r, z=z)
 
         def coarse_correct(level, rc):
@@ -424,9 +442,15 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
             return solve(level, rc, CYCLE_M, lambda x: vcycle(level, x),
                          flexible=True)
 
-        if level_offset:
-            return lambda v: coarse_correct(0, v)
-        return lambda v: vcycle(0, v)
+        def apply(v):
+            """One cycle: the preconditioner's application."""
+            count("vcycles")
+            with span("gmg.cycle", "vcycle_s"):
+                if level_offset:
+                    return coarse_correct(0, v)
+                return vcycle(0, v)
+
+        return apply
 
     builder.state = build_state
     return builder

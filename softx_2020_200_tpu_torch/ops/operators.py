@@ -16,6 +16,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..core.spans import take
+
 
 @dataclass(frozen=True)
 class AssemblyMap:
@@ -59,14 +61,16 @@ def build_assembly_map(elem_nodes: np.ndarray, n_nodes: int,
                        max_multiplicity=M)
 
 
-def assemble(r_el, amap_idx):
+def assemble(r_el, amap_idx, site: str | None = None):
     """r_el[E, nn, c] (any strides) -> [N, c]: gather-sum through the
-    assembly map ``amap_idx[N, M]``."""
+    assembly map ``amap_idx[N, M]``; its gather is counted under the
+    caller's ``site`` (``core/spans.py``) when one is given."""
     E, nn, c = r_el.shape
     flat = r_el.new_empty((E * nn + 1, c))
     flat[:E * nn].view(E, nn, c).copy_(r_el)
     flat[E * nn].zero_()
-    return flat[amap_idx].sum(dim=1)
+    rows = flat[amap_idx] if site is None else take(site, flat, amap_idx)
+    return rows.sum(dim=1)
 
 
 def node_multiplicity(elem_nodes: np.ndarray, n_nodes: int) -> np.ndarray:

@@ -21,6 +21,7 @@ from typing import Callable
 
 import torch
 
+from ..core.spans import take
 from .operators import assemble
 from .smallmat import det_bm, inv_bm
 
@@ -100,11 +101,11 @@ def build_additive_schwarz(A_e, elem_nodes, amap_idx, inv_mult,
     dmax = diag.abs().amax(dim=-1, keepdim=True)
     diag.add_(1e-3 * dmax)
     Ainv = torch.linalg.inv(A_e)                    # [E, nn*c, nn*c]
-    weight = inv_mult[elem_nodes][:, :, None]       # [E, nn, 1]
+    weight = take("smoother", inv_mult, elem_nodes)[:, :, None]  # [E, nn, 1]
 
     def apply(v):
-        ve = v[elem_nodes].reshape(E, nloc, 1)
+        ve = take("smoother", v, elem_nodes).reshape(E, nloc, 1)
         ze = torch.bmm(Ainv, ve).view(E, nn, c) * weight
-        return torch.where(bc_mask, v, assemble(ze, amap_idx))
+        return torch.where(bc_mask, v, assemble(ze, amap_idx, "smoother"))
 
     return Preconditioner(apply=apply)

@@ -44,6 +44,7 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
+from ..core import spans
 from ..core.bdf import bdf_coefficients
 from ..core.expressions import VectorExpression
 from ..core.parameters import (BoundaryType, SimulationParameters,
@@ -51,7 +52,6 @@ from ..core.parameters import (BoundaryType, SimulationParameters,
 from ..core.pvd_handler import PVDHandler
 from ..core.sdirk import sdirk_coefficients
 from ..core.simulation_control import SimulationControl
-from ..core.timer import SectionTimer
 from ..fem.constraints import build_hanging_constraints
 from ..fem.dof import FESpace
 from ..fem.forest import Forest
@@ -204,11 +204,13 @@ def restore_forest(forest, data):
 
 def new_stats() -> dict:
     """The engine's counts over all its Newton solves (the CLI prints
-    them as the ``Newton summary`` line)."""
+    them as the ``Newton summary`` line), and the span counters
+    (``core/spans.py``), which move only while a profiler records."""
     return {"newton_solves": 0, "newton_iterations": 0,
             "linear_iterations": 0, "host_syncs": 0,
             "line_search_evaluations": 0, "linear_restarts": 0,
-            "solves_above_tolerance": 0, "newton_seconds": 0.0}
+            "solves_above_tolerance": 0, "newton_seconds": 0.0,
+            **spans.COUNTERS}
 
 
 def record_solve(stats: dict, res, seconds: float, tolerance: float):
@@ -222,6 +224,7 @@ def record_solve(stats: dict, res, seconds: float, tolerance: float):
     stats["solves_above_tolerance"] += int(
         res.res_history[res.n_iterations] > tolerance)
     stats["newton_seconds"] += seconds
+    spans.fold(stats)
 
 
 class GLSNavierStokesSolver:
@@ -243,7 +246,7 @@ class GLSNavierStokesSolver:
             torch.backends.cudnn.allow_tf32 = False
         self.pvd = PVDHandler()
         self.control = SimulationControl(prm.simulation_control)
-        self.timer = SectionTimer()
+        self.timer = spans.SpanTimer()
         self.tables: dict[str, list] = {"L2": [], "forces": [], "ke": [],
                                         "enstrophy": []}
         self._force_tables: dict[int, Table] = {}
@@ -261,40 +264,44 @@ class GLSNavierStokesSolver:
         and periodic pairs) in a forest and refines it there; a later
         call takes the adapted forest's mesh and non-conforming faces."""
         prm = self.prm
-        if mesh is not None:
-            self._mesh = mesh
-        if self._mesh is None:
-            if prm.mesh_adaptation.type == "kelly":
-                base = read_base_mesh(prm, self.dim, 0)
-                add_manifolds(prm, base, self.dim)
-                add_periodic_pairs(prm, base)
-                self.forest, self._mesh, self._elem_of, nc_faces = \
-                    new_forest(base, prm.mesh.initial_refinement)
-            else:
-                self._mesh = read_base_mesh(prm, self.dim,
-                                            prm.mesh.initial_refinement)
-                add_manifolds(prm, self._mesh, self.dim)
-        # periodic declarations reach the mesh before DoF numbering
-        add_periodic_pairs(prm, self._mesh)
+        with self.timer.section("setup_mesh"):
+            if mesh is not None:
+                self._mesh = mesh
+            if self._mesh is None:
+                if prm.mesh_adaptation.type == "kelly":
+                    base = read_base_mesh(prm, self.dim, 0)
+                    add_manifolds(prm, base, self.dim)
+                    add_periodic_pairs(prm, base)
+                    self.forest, self._mesh, self._elem_of, nc_faces = \
+                        new_forest(base, prm.mesh.initial_refinement)
+                else:
+                    self._mesh = read_base_mesh(prm, self.dim,
+                                                prm.mesh.initial_refinement)
+                    add_manifolds(prm, self._mesh, self.dim)
+            # periodic declarations reach the mesh before DoF numbering
+            add_periodic_pairs(prm, self._mesh)
 
         kw = dict(dtype=self.dtype, device=self.device)
-        self.space = FESpace(self._mesh, prm.fem.velocity_order)
-        self._nc_faces = nc_faces or []
-        self.hc = build_hanging_constraints(self.space, self._nc_faces).to(
-            self.device, self.dtype)
+        with self.timer.section("setup_space"):
+            self.space = FESpace(self._mesh, prm.fem.velocity_order)
+            self._nc_faces = nc_faces or []
+            self.hc = build_hanging_constraints(
+                self.space, self._nc_faces).to(self.device, self.dtype)
         stab = StabFlags(
             supg=prm.stabilization.supg,
             pspg=prm.stabilization.pspg,
             gls_viscous_adjoint=prm.stabilization.gls_viscous_adjoint,
             lsic=prm.stabilization.lsic,
             frozen_tau=prm.stabilization.frozen_tau_jacobian)
-        self.op = GLSOperator(
-            self.space, prm.physical_properties.kinematic_viscosity,
-            n_q1d=prm.fem.n_quadrature_points_1d, stab=stab,
-            state_dtype=(torch.bfloat16 if prm.linear_solver
-                         .jacobian_state_precision == "bf16" else None),
-            **kw)
-        self.bh = BoundaryHandler(self.space, prm.boundary_conditions, **kw)
+        with self.timer.section("setup_operator"):
+            self.op = GLSOperator(
+                self.space, prm.physical_properties.kinematic_viscosity,
+                n_q1d=prm.fem.n_quadrature_points_1d, stab=stab,
+                state_dtype=(torch.bfloat16 if prm.linear_solver
+                             .jacobian_state_precision == "bf16" else None),
+                **kw)
+            self.bh = BoundaryHandler(self.space, prm.boundary_conditions,
+                                      **kw)
 
         self.source = (VectorExpression(prm.source_term.xyz)
                        if prm.source_term.enable else None)
@@ -336,7 +343,8 @@ class GLSNavierStokesSolver:
             self.precond_kind = "block_jacobi"
         self.mg_levels = []
         if self.precond_kind == "gmg":
-            self.mg_levels = build_hierarchy(self)
+            with self.timer.section("setup_levels"):
+                self.mg_levels = build_hierarchy(self)
             if len(self.mg_levels) < 2:
                 # no hierarchy on this mesh: block-Jacobi
                 self.precond_kind = "block_jacobi"
@@ -676,12 +684,14 @@ class GLSNavierStokesSolver:
         dts: step sizes, dts[0] = current. order: effective BDF order.
         Returns (u_new, NewtonResult).
         """
-        alpha = bdf_coefficients(order, dts)
-        combo = torch.zeros_like(self._zero_prev)
-        for i in range(1, order + 1):
-            combo = combo + float(alpha[i]) * previous[i - 1][:, :self.dim]
-        res = self._newton(u, combo, t, float(alpha[0]),
-                           1.0 / float(dts[0]))
+        with spans.span("step"):
+            alpha = bdf_coefficients(order, dts)
+            combo = torch.zeros_like(self._zero_prev)
+            for i in range(1, order + 1):
+                combo = (combo
+                         + float(alpha[i]) * previous[i - 1][:, :self.dim])
+            res = self._newton(u, combo, t, float(alpha[0]),
+                               1.0 / float(dts[0]))
         self._log_newton(res, verbose)
         return res.u, res
 

@@ -63,7 +63,7 @@ from ..core.parameters import BoundaryType, SimulationParameters, Verbosity
 from ..core.pvd_handler import PVDHandler
 from ..core.sdirk import sdirk_coefficients
 from ..core.simulation_control import SimulationControl
-from ..core.timer import SectionTimer
+from ..core.spans import SpanTimer
 from ..fem.constraints import build_hanging_constraints
 from ..fem.dof import FESpace
 from ..fem.geometry import det_and_inv
@@ -401,7 +401,7 @@ class GDNavierStokesSolver:
             torch.backends.cudnn.allow_tf32 = False
         self.control = SimulationControl(prm.simulation_control)
         self.pvd = PVDHandler()
-        self.timer = SectionTimer()
+        self.timer = SpanTimer()
         self._force_tables: dict[int, Table] = {}
         self._torque_tables: dict[int, Table] = {}
         self.tables: dict[str, list] = {"ke": [], "enstrophy": []}

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ..core.spans import span, take
 from ..fem.dof import FESpace
 from ..fem.geometry import det_and_inv
 from ..ops.batched_kernel import element_size, make_batched_kernel
@@ -251,12 +252,12 @@ class GLSOperator(nn.Module):
     def _soa(self, u):
         """Nodal u[N, k] -> element rows [nn, k, E] (contiguous, or at
         the bf16 pitch)."""
-        return self._laid_out(u[self.elem_nodes_t].transpose(1, 2)
-                              .contiguous())
+        return self._laid_out(take("operator", u, self.elem_nodes_t)
+                              .transpose(1, 2).contiguous())
 
     def _assemble_rows(self, r):
         """Element rows r[nn, k, E] -> assembled [N, k]."""
-        return assemble(r.permute(2, 0, 1), self.amap_idx)
+        return assemble(r.permute(2, 0, 1), self.amap_idx, "operator")
 
     def _fq_soa(self, fq):
         return self._laid_out(fq.permute(1, 2, 0).contiguous())  # [q, d, E]
@@ -269,8 +270,8 @@ class GLSOperator(nn.Module):
 
     def _fq_rows(self, fq):
         """fq[E, q, d] in space element order -> lattice rows [d*q, E]."""
-        return self._laid_out(fq[self.elem_perm].permute(2, 1, 0).reshape(
-            -1, self.layout.E))
+        return self._laid_out(take("operator", fq, self.elem_perm).permute(
+            2, 1, 0).reshape(-1, self.layout.E))
 
     def _scatter_rows(self, r):
         """Lattice rows [k*nn, E] -> assembled [N, k]."""
@@ -278,14 +279,17 @@ class GLSOperator(nn.Module):
 
     def residual_free(self, u, uprev_combo, fq, alpha0, sdt):
         """Unconstrained residual R(u): [N, d+1] -> [N, d+1]."""
-        if self.layout is not None:
-            r = self.kernel.residual(self._rows(u), self._rows(uprev_combo),
-                                     self._fq_rows(fq), alpha0, sdt)
-            return self._scatter_rows(r)
-        xe, h = self._geometry()
-        r = self.kernel.residual(self._soa(u), xe, self._soa(uprev_combo),
-                                 self._fq_soa(fq), h, alpha0, sdt)
-        return self._assemble_rows(r)
+        with span("op.residual"):
+            if self.layout is not None:
+                r = self.kernel.residual(
+                    self._rows(u), self._rows(uprev_combo),
+                    self._fq_rows(fq), alpha0, sdt)
+                return self._scatter_rows(r)
+            xe, h = self._geometry()
+            r = self.kernel.residual(self._soa(u), xe,
+                                     self._soa(uprev_combo),
+                                     self._fq_soa(fq), h, alpha0, sdt)
+            return self._assemble_rows(r)
 
     def _geometry(self):
         """B1's full-precision geometry rows (xe, h): a bf16 operator's
@@ -314,40 +318,43 @@ class GLSOperator(nn.Module):
 
     def jvp(self, state: Linearization, du):
         """Unconstrained J(u) du: [N, d+1] -> [N, d+1]."""
-        if self.layout is not None:
-            dr = self.kernel.tangent(state.ue, self._rows(du), state.up,
-                                     state.fq, state.alpha0, state.sdt)
-            return self._scatter_rows(dr)
-        dr = self.kernel.tangent(state.ue, self._soa(du), self.xe_state,
-                                 state.up, state.fq, self.h_state,
-                                 state.alpha0, state.sdt)
-        return self._assemble_rows(dr)
+        with span("op.jvp"):
+            if self.layout is not None:
+                dr = self.kernel.tangent(state.ue, self._rows(du), state.up,
+                                         state.fq, state.alpha0, state.sdt)
+                return self._scatter_rows(dr)
+            dr = self.kernel.tangent(state.ue, self._soa(du), self.xe_state,
+                                     state.up, state.fq, self.h_state,
+                                     state.alpha0, state.sdt)
+            return self._assemble_rows(dr)
 
     def node_blocks(self, u, bc_mask, uprev_combo, fq, alpha0, sdt):
         """Assembled per-node (d+1)x(d+1) Jacobian diagonal blocks
         [N, c, c] for (block-)Jacobi, with Dirichlet rows/cols zeroed;
         the state in the state dtype, as the tangent reads it."""
-        c = self.nc
-        keep_mask = 1.0 - bc_mask.to(self.dtype)
-        if self.layout is not None:
+        with span("op.node_blocks"):
+            c = self.nc
+            keep_mask = 1.0 - bc_mask.to(self.dtype)
+            if self.layout is not None:
+                blocks = self.kernel.node_blocks(
+                    self._state(self._rows(u)),
+                    self._state(self._rows(uprev_combo)),
+                    self._state(self._fq_rows(fq)), alpha0,
+                    sdt)                                  # [nn, c*c, E]
+                keep = self.layout.gather(keep_mask)      # [c, nn, E]
+                keep2 = (keep[:, None] * keep[None, :]).permute(2, 0, 1, 3)
+                blocks = blocks * keep2.reshape(blocks.shape)
+                return self.layout.scatter(blocks.transpose(0, 1)).reshape(
+                    self.n_nodes, c, c)
             blocks = self.kernel.node_blocks(
-                self._state(self._rows(u)),
-                self._state(self._rows(uprev_combo)),
-                self._state(self._fq_rows(fq)), alpha0, sdt)  # [nn, c*c, E]
-            keep = self.layout.gather(keep_mask)          # [c, nn, E]
-            keep2 = (keep[:, None] * keep[None, :]).permute(2, 0, 1, 3)
+                self._state(self._soa(u)), self.xe_state,
+                self._state(self._soa(uprev_combo)),
+                self._state(self._fq_soa(fq)), self.h_state, alpha0,
+                sdt)                                      # [nn, c*c, E]
+            keep = self._soa(keep_mask)                   # [nn, c, E]
+            keep2 = keep[:, :, None, :] * keep[:, None, :, :]
             blocks = blocks * keep2.reshape(blocks.shape)
-            return self.layout.scatter(blocks.transpose(0, 1)).reshape(
-                self.n_nodes, c, c)
-        blocks = self.kernel.node_blocks(
-            self._state(self._soa(u)), self.xe_state,
-            self._state(self._soa(uprev_combo)),
-            self._state(self._fq_soa(fq)), self.h_state, alpha0,
-            sdt)                                         # [nn, c*c, E]
-        keep = self._soa(keep_mask)                      # [nn, c, E]
-        keep2 = keep[:, :, None, :] * keep[:, None, :, :]
-        blocks = blocks * keep2.reshape(blocks.shape)
-        return self._assemble_rows(blocks).reshape(self.n_nodes, c, c)
+            return self._assemble_rows(blocks).reshape(self.n_nodes, c, c)
 
     def element_matrices(self, u, bc_mask, uprev_combo, fq, alpha0, sdt):
         """Per-element dense Jacobian matrices [E, nn*c, nn*c] in the

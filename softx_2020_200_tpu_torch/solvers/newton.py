@@ -20,6 +20,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from ..core.spans import span
 from ..ops.linalg import HostSync, bicgstab, gmres, norm
 
 
@@ -94,16 +95,17 @@ def line_search(residual_fn, u, d, rnorm: float, config: NewtonConfig,
     the norm does not fall below ``rnorm``, at most ``max_halvings``
     times, and take the last step tried.  Returns (u + alpha d, its
     residual, the norm, alpha, residual evaluations)."""
-    alpha = 1.0
-    Rt = residual_fn(u + d)
-    nt = sync(norm(Rt, reduce_fn))
-    k = 0
-    while nt >= rnorm and k < config.max_halvings:
-        alpha *= 0.5
-        Rt = residual_fn(u + alpha * d)
+    with span("newton.line_search"):
+        alpha = 1.0
+        Rt = residual_fn(u + d)
         nt = sync(norm(Rt, reduce_fn))
-        k += 1
-    return u + alpha * d, Rt, nt, alpha, 1 + k
+        k = 0
+        while nt >= rnorm and k < config.max_halvings:
+            alpha *= 0.5
+            Rt = residual_fn(u + alpha * d)
+            nt = sync(norm(Rt, reduce_fn))
+            k += 1
+        return u + alpha * d, Rt, nt, alpha, 1 + k
 
 
 def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
@@ -154,23 +156,27 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
         return it >= W and rnorm > config.stall_factor * hist[it - W]
 
     while rnorm > config.tolerance and it < maxit and not stalled():
-        jv = jacobian_fn(u)
-        if stateful:
-            if pstate is None or it % skip == 0:
-                pstate = precond_state_fn(u)
-            state = pstate
-            precond = lambda v: precond_apply_fn(state, v)  # noqa: E731
-        else:
-            precond = precond_builder(u)
-        d, lin_rn, lin_atol, lin_it, cycles = linear_solve(
-            jv, precond, R, rnorm, config, sync, reduce_fn)
-        restarts += max(cycles - 1, 0)
-        lin_total += lin_it
-        if (lin_rn > lin_atol and on_linear_stall is not None
-                and on_linear_stall()):
-            continue
-        u, R, rnorm, alpha, evals = line_search(residual_fn, u, d, rnorm,
-                                                config, sync, reduce_fn)
+        with span("newton.iteration"):
+            with span("newton.linearize"):
+                jv = jacobian_fn(u)
+            with span("newton.precond_build"):
+                if stateful:
+                    if pstate is None or it % skip == 0:
+                        pstate = precond_state_fn(u)
+                    state = pstate
+                    precond = lambda v: precond_apply_fn(  # noqa: E731
+                        state, v)
+                else:
+                    precond = precond_builder(u)
+            d, lin_rn, lin_atol, lin_it, cycles = linear_solve(
+                jv, precond, R, rnorm, config, sync, reduce_fn)
+            restarts += max(cycles - 1, 0)
+            lin_total += lin_it
+            if (lin_rn > lin_atol and on_linear_stall is not None
+                    and on_linear_stall()):
+                continue
+            u, R, rnorm, alpha, evals = line_search(
+                residual_fn, u, d, rnorm, config, sync, reduce_fn)
         ls_evals += evals
         alphas[it] = alpha
         it += 1
