@@ -20,19 +20,26 @@ A span never synchronises, reads no tensor's value, allocates nothing
 on the device and keeps no tensor.
 
 The counters (``COUNTERS``) are the V-cycles and their host seconds,
-the host's seconds in device-to-host reads, and the calls and bytes of
+the host's seconds in device-to-host reads, the calls and bytes of
 the index gathers and indexed writes by call site (``SITES``), which
-``take`` and ``put`` make, each inside a span ``gather.<site>``.  The
+``take`` and ``put`` make, each inside a span ``gather.<site>``, and
+the multigrid preconditioner's builds with the states alive at each
+(``track_state``).  The
 counters are updated from the free functions of the Newton, Krylov and
 multigrid layers, which know no solver, so they accumulate here,
 process-wide like the profiler's own state, and ``fold`` moves them
 into a solver's ``stats`` at the end of each nonlinear solve
 (``solvers/base.py::record_solve``).
+
+Besides, and always, the module tallies the multigrid preconditioner
+states alive in the process (``live_states``): one per Newton
+iteration's cycle, from its build until reference counting frees it.
 """
 
 from __future__ import annotations
 
 import time
+import weakref
 from contextlib import contextmanager, nullcontext
 
 import torch.autograd.profiler as _profiler
@@ -48,13 +55,16 @@ SITES = ("transfer", "operator", "constraints", "smoother")
 
 COUNTERS = {"vcycles": 0, "vcycle_s": 0.0, "sync_wait_s": 0.0,
             **{f"gather_{what}_{site}": 0 for site in SITES
-               for what in ("bytes", "calls")}}
+               for what in ("bytes", "calls")},
+            "gmg_builds": 0, "gmg_states_live": 0}
 
 _counts = dict(COUNTERS)
 _GATHER_KEYS = {site: (f"gather_bytes_{site}", f"gather_calls_{site}")
                 for site in SITES}
 _GATHER_SPANS = {site: f"gather.{site}" for site in SITES}
 _NULL = nullcontext()
+# the multigrid preconditioner states alive now (``track_state``)
+_live = [0]
 
 
 class _Timed:
@@ -122,6 +132,27 @@ def put(site: str, x, index, values):
         out = x.index_put((index,), values)
     _tally(site, values, index)
     return out
+
+
+def _freed() -> None:
+    _live[0] -= 1
+
+
+def track_state(state) -> None:
+    """Tally ``state``, a multigrid cycle built at one linearization, as
+    alive until it is freed; while a profiler records, count the build
+    in ``gmg_builds`` and add the states alive, this one included, to
+    ``gmg_states_live``."""
+    _live[0] += 1
+    weakref.finalize(state, _freed)
+    if _profiler._is_profiler_enabled:
+        _counts["gmg_builds"] += 1
+        _counts["gmg_states_live"] += _live[0]
+
+
+def live_states() -> int:
+    """The multigrid preconditioner states alive in the process."""
+    return _live[0]
 
 
 def fold(stats: dict) -> None:

@@ -32,6 +32,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..core.spans import track_state
 from ..fem.dof import FESpace
 from ..fem.mesh import subdivided_hyper_rectangle
 from .batched_kernel import _det_inv_soa
@@ -39,7 +40,7 @@ from .linalg import gmres_fixed
 from .multigrid import (Level, _coarsen_forest, _transfer_maps,
                         forest_transfers, hanging_level, prolong, restrict)
 from .operators import assemble, build_assembly_map
-from .preconditioners import build_from_node_blocks
+from .preconditioners import apply_node_block_state, node_blocks_to_state
 
 # the JAX package's cycle: one smoothing step each way, weight 0.7, a
 # GMRES(20) bottom solve
@@ -256,11 +257,61 @@ def _forest_levels(solver, levels, n_q1d, min_elems, max_levels) -> None:
 
 
 # ----------------------------------------------------------------------
+class GDCycle:
+    """One velocity V-cycle of ``levels``, linearized once: ``states``
+    holds per level the velocity at the quadrature points, its gradient,
+    the Dirichlet mask and the block-Jacobi inverses, and the cycle's
+    parts are methods.  Nothing in it refers back to it, so reference
+    counting frees it, and every level's state with it, once the last
+    reference to ``apply`` goes."""
+
+    def __init__(self, levels, states, alpha0, *, n_smooth, omega,
+                 coarse_iters):
+        self.levels, self.states, self.alpha0 = levels, states, alpha0
+        self.n_smooth, self.omega = n_smooth, omega
+        self.coarse_iters = coarse_iters
+
+    def matvec(self, level, v):
+        lvl = self.levels[level]
+        uq, guq, mask, _ = self.states[level]
+        vin = lvl.hc_distribute(torch.where(mask, torch.zeros_like(v), v))
+        out = lvl.hc_transpose(lvl.op.matvec(vin, uq, guq, self.alpha0))
+        return torch.where(mask, v, out)
+
+    def block_jacobi(self, level, v):
+        return apply_node_block_state(self.states[level][3], v)
+
+    def vcycle(self, level, r):
+        mask, omega = self.states[level][2], self.omega
+        if level + 1 == len(self.levels):
+            shape = r.shape
+            return gmres_fixed(
+                lambda x: self.matvec(level, x.reshape(shape)).reshape(-1),
+                r.reshape(-1),
+                precond=lambda x: self.block_jacobi(
+                    level, x.reshape(shape)).reshape(-1),
+                m=self.coarse_iters).reshape(shape)
+        z = omega * self.block_jacobi(level, r)
+        for _ in range(self.n_smooth - 1):
+            z = z + omega * self.block_jacobi(level,
+                                              r - self.matvec(level, z))
+        rc = restrict(self.levels[level + 1], r - self.matvec(level, z))
+        rc = torch.where(self.states[level + 1][2], torch.zeros_like(rc),
+                         rc)
+        zf = prolong(self.levels[level + 1], self.vcycle(level + 1, rc))
+        z = z + torch.where(mask, torch.zeros_like(zf), zf)
+        return z + omega * self.block_jacobi(level, r - self.matvec(level, z))
+
+    def apply(self, r):
+        return self.vcycle(0, r)
+
+
 def make_gd_vcycle(levels: list[Level], *, n_smooth: int = N_SMOOTH,
                    omega: float = OMEGA, coarse_iters: int = COARSE_ITERS):
     """builder(v_lin, alpha0) -> apply(r [N, d]): one velocity V-cycle
-    linearized at the nodal velocity ``v_lin``."""
-    n_levels = len(levels)
+    linearized at the nodal velocity ``v_lin``; ``apply`` is a
+    ``GDCycle``'s bound method, and the levels' state lives as long as
+    it does."""
 
     def builder(v_lin, alpha0):
         # linearization velocities per level, injected (lattice) or
@@ -269,42 +320,18 @@ def make_gd_vcycle(levels: list[Level], *, n_smooth: int = N_SMOOTH,
         for lvl in levels[1:]:
             vs.append(lvl.down(vs[-1]))
 
-        mats = []
+        states = []
         for lvl, v in zip(levels, vs):
             lv, mask = lvl.op, lvl.mask
             uq, guq = lv.lin_state(v)
             blocks = lv.node_blocks(uq, guq, alpha0)
             keep = (~mask).to(blocks.dtype)
             blocks = blocks * keep[:, :, None] * keep[:, None, :]
-            smoother = build_from_node_blocks("block_jacobi", blocks,
-                                              mask).apply
-
-            def matvec(v, lvl=lvl, uq=uq, guq=guq, mask=mask):
-                vin = lvl.hc_distribute(torch.where(mask, torch.zeros_like(v),
-                                                    v))
-                out = lvl.hc_transpose(lvl.op.matvec(vin, uq, guq, alpha0))
-                return torch.where(mask, v, out)
-
-            mats.append((matvec, smoother, mask))
-
-        def vcycle(level, r):
-            matvec, smoother, mask = mats[level]
-            if level + 1 == n_levels:
-                shape = r.shape
-                return gmres_fixed(
-                    lambda x: matvec(x.reshape(shape)).reshape(-1),
-                    r.reshape(-1),
-                    precond=lambda x: smoother(x.reshape(shape)).reshape(-1),
-                    m=coarse_iters).reshape(shape)
-            z = omega * smoother(r)
-            for _ in range(n_smooth - 1):
-                z = z + omega * smoother(r - matvec(z))
-            rc = restrict(levels[level + 1], r - matvec(z))
-            rc = torch.where(mats[level + 1][2], torch.zeros_like(rc), rc)
-            zf = prolong(levels[level + 1], vcycle(level + 1, rc))
-            z = z + torch.where(mask, torch.zeros_like(zf), zf)
-            return z + omega * smoother(r - matvec(z))
-
-        return lambda r: vcycle(0, r)
+            states.append((uq, guq, mask, node_blocks_to_state(
+                "block_jacobi", blocks, mask)))
+        mg = GDCycle(levels, states, alpha0, n_smooth=n_smooth,
+                     omega=omega, coarse_iters=coarse_iters)
+        track_state(mg)
+        return mg.apply
 
     return builder

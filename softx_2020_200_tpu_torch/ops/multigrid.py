@@ -33,11 +33,12 @@ runs a fixed number of steps (``ops/linalg.py::gmres_fixed``).
 from __future__ import annotations
 
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
 
-from ..core.spans import count, span, take
+from ..core.spans import count, span, take, track_state
 from ..fem.dof import FESpace
 from ..fem.mesh import subdivided_hyper_rectangle
 from .linalg import gmres_fixed
@@ -327,6 +328,98 @@ def build_hierarchy(solver, min_elems: int = 256) -> list[Level]:
     return levels
 
 
+class Cycle:
+    """One multigrid cycle of ``levels``, linearized once: ``states`` is
+    ``make_vcycle``'s per-level (linearization, Dirichlet mask,
+    block-Jacobi inverses), and the cycle's parts are methods.  Nothing
+    in it refers back to it, so reference counting frees it, and every
+    level's state with it, once the last reference to ``apply`` goes:
+    when Newton drops the preconditioner."""
+
+    def __init__(self, levels, states, *, coarse_iters, smoother, krylov_m,
+                 cycle, level_offset):
+        self.levels, self.states = levels, states
+        self.coarse_iters, self.smoother = coarse_iters, smoother
+        self.krylov_m, self.cycle = krylov_m, cycle
+        self.level_offset = level_offset
+
+    def matvec(self, level, v):
+        """The level's operator, its Dirichlet rows the identity."""
+        lvl = self.levels[level]
+        lin, mask, _ = self.states[level]
+        zero = torch.zeros_like(v)
+        dv = lvl.hc_distribute(torch.where(mask, zero, v))
+        dr = lvl.hc_transpose(lvl.op.jvp(lin, dv))
+        return torch.where(mask, zero, dr) + torch.where(mask, v, zero)
+
+    def block_jacobi(self, level, v):
+        return apply_node_block_state(self.states[level][2], v)
+
+    def solve(self, level, r, m, precond, x0=None, flexible=False):
+        """``m`` (F)GMRES steps on level ``level`` from ``x0``."""
+        shape = r.shape
+        x = gmres_fixed(
+            lambda x: self.matvec(level, x.reshape(shape)).reshape(-1),
+            r.reshape(-1), x0=None if x0 is None else x0.reshape(-1),
+            precond=lambda x: precond(x.reshape(shape)).reshape(-1),
+            m=m, flexible=flexible)
+        return x.reshape(shape)
+
+    def smooth(self, level, r, z=None):
+        """One pre/post smoothing application: z ~ A_level^{-1} r."""
+        sm = partial(self.block_jacobi, level)
+        with span(SPANS[level + self.level_offset]["smooth"]):
+            if self.smoother == "krylov":
+                return self.solve(level, r, self.krylov_m, sm, x0=z)
+            z0 = OMEGA * sm(r) if z is None else z + OMEGA * sm(
+                r - self.matvec(level, z))
+            for _ in range(N_SMOOTH - 1):
+                z0 = z0 + OMEGA * sm(r - self.matvec(level, z0))
+            return z0
+
+    def vcycle(self, level, r):
+        mask = self.states[level][1]
+        names = SPANS[level + self.level_offset]
+        if level + 1 == len(self.levels):
+            with span(names["bottom"]):
+                return self.solve(level, r, self.coarse_iters,
+                                  partial(self.block_jacobi, level))
+        z = self.smooth(level, r)
+        with span(names["residual"]):
+            res = r - self.matvec(level, z)
+        with span(names["restrict"]):
+            rc = restrict(self.levels[level + 1], res)
+            rc = torch.where(self.states[level + 1][1],
+                             torch.zeros_like(rc), rc)
+        zc = self.coarse_correct(level + 1, rc)
+        with span(names["prolong"]):
+            zf = prolong(self.levels[level + 1], zc)
+            z = z + torch.where(mask, torch.zeros_like(zf), zf)
+        return self.smooth(level, r, z=z)
+
+    def coarse_correct(self, level, rc):
+        """The level-``level`` correction inside the parent cycle: plain
+        recursion (v), doubled (w), or FGMRES-wrapped (k)."""
+        wrapped = (self.cycle in ("w", "k")
+                   and level + self.level_offset <= CYCLE_LEVELS
+                   and level + 1 < len(self.levels))
+        if not wrapped:
+            return self.vcycle(level, rc)
+        if self.cycle == "w":
+            zc = self.vcycle(level, rc)
+            return zc + self.vcycle(level, rc - self.matvec(level, zc))
+        return self.solve(level, rc, CYCLE_M, partial(self.vcycle, level),
+                          flexible=True)
+
+    def apply(self, v):
+        """One cycle: the preconditioner's application."""
+        count("vcycles")
+        with span("gmg.cycle", "vcycle_s"):
+            if self.level_offset:
+                return self.coarse_correct(0, v)
+            return self.vcycle(0, v)
+
+
 def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
                 smoother: str = "jacobi", krylov_m: int = 4,
                 cycle: str = "v", level_offset: int = 0):
@@ -351,8 +444,9 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
     linearization at the restricted state with its hanging rows filled,
     the Dirichlet mask and the node-block inverses at the restricted
     state, as in the JAX package); pass it as ``pstate`` to reuse it.
+    ``apply`` is a ``Cycle``'s bound method: the state lives as long as
+    it does.
     """
-    n_levels = len(levels)
 
     def build_state(u, uprev, fq, alpha0, sdt, fine_mask):
         with span("gmg.build"):
@@ -374,83 +468,11 @@ def make_vcycle(levels: list[Level], *, coarse_iters: int = 25,
     def builder(u, uprev, fq, alpha0, sdt, fine_mask, pstate=None):
         if pstate is None:
             pstate = build_state(u, uprev, fq, alpha0, sdt, fine_mask)
-        mats = []
-        for lvl, (lin, mask, bst) in zip(levels, pstate):
-            def matvec(v, lvl=lvl, lin=lin, mask=mask):
-                zero = torch.zeros_like(v)
-                dv = lvl.hc_distribute(torch.where(mask, zero, v))
-                dr = lvl.hc_transpose(lvl.op.jvp(lin, dv))
-                return (torch.where(mask, zero, dr)
-                        + torch.where(mask, v, zero))
-
-            mats.append((matvec, lambda v, bst=bst:
-                         apply_node_block_state(bst, v), mask))
-
-        def solve(level, r, m, precond, x0=None, flexible=False):
-            """``m`` (F)GMRES steps on level ``level`` from ``x0``."""
-            mv = mats[level][0]
-            shape = r.shape
-            x = gmres_fixed(
-                lambda x: mv(x.reshape(shape)).reshape(-1), r.reshape(-1),
-                x0=None if x0 is None else x0.reshape(-1),
-                precond=lambda x: precond(x.reshape(shape)).reshape(-1),
-                m=m, flexible=flexible)
-            return x.reshape(shape)
-
-        def smooth(level, r, z=None):
-            """One pre/post smoothing application: z ~ A_level^{-1} r."""
-            matvec, sm, _ = mats[level]
-            with span(SPANS[level + level_offset]["smooth"]):
-                if smoother == "krylov":
-                    return solve(level, r, krylov_m, sm, x0=z)
-                z0 = OMEGA * sm(r) if z is None else z + OMEGA * sm(
-                    r - matvec(z))
-                for _ in range(N_SMOOTH - 1):
-                    z0 = z0 + OMEGA * sm(r - matvec(z0))
-                return z0
-
-        def vcycle(level, r):
-            matvec, sm, mask = mats[level]
-            names = SPANS[level + level_offset]
-            if level + 1 == n_levels:
-                with span(names["bottom"]):
-                    return solve(level, r, coarse_iters, sm)
-            z = smooth(level, r)
-            with span(names["residual"]):
-                res = r - matvec(z)
-            with span(names["restrict"]):
-                rc = restrict(levels[level + 1], res)
-                rc = torch.where(mats[level + 1][2], torch.zeros_like(rc),
-                                 rc)
-            zc = coarse_correct(level + 1, rc)
-            with span(names["prolong"]):
-                zf = prolong(levels[level + 1], zc)
-                z = z + torch.where(mask, torch.zeros_like(zf), zf)
-            return smooth(level, r, z=z)
-
-        def coarse_correct(level, rc):
-            """The level-``level`` correction inside the parent cycle:
-            plain recursion (v), doubled (w), or FGMRES-wrapped (k)."""
-            wrapped = (cycle in ("w", "k")
-                       and level + level_offset <= CYCLE_LEVELS
-                       and level + 1 < n_levels)
-            if not wrapped:
-                return vcycle(level, rc)
-            if cycle == "w":
-                zc = vcycle(level, rc)
-                return zc + vcycle(level, rc - mats[level][0](zc))
-            return solve(level, rc, CYCLE_M, lambda x: vcycle(level, x),
-                         flexible=True)
-
-        def apply(v):
-            """One cycle: the preconditioner's application."""
-            count("vcycles")
-            with span("gmg.cycle", "vcycle_s"):
-                if level_offset:
-                    return coarse_correct(0, v)
-                return vcycle(0, v)
-
-        return apply
+        mg = Cycle(levels, pstate, coarse_iters=coarse_iters,
+                   smoother=smoother, krylov_m=krylov_m, cycle=cycle,
+                   level_offset=level_offset)
+        track_state(mg)
+        return mg.apply
 
     builder.state = build_state
     return builder

@@ -157,6 +157,10 @@ def newton_solve(residual_fn: Callable, jacobian_fn: Callable, u0, *,
 
     while rnorm > config.tolerance and it < maxit and not stalled():
         with span("newton.iteration"):
+            # the last iteration's Jacobian and preconditioner go before
+            # the next ones are built: two iterations' linearizations and
+            # multigrid states are never alive at once
+            jv = precond = None
             with span("newton.linearize"):
                 jv = jacobian_fn(u)
             with span("newton.precond_build"):
