@@ -23,16 +23,20 @@ outside both.  ``--cell NAME`` profiles a cell of the benchmark
 set-up for ``--seed``, ``--steps`` steps (the cell's ``trace_steps``
 by default) timed, then as many under the profiler; it also prints
 the set-up's timer sections (``setup_mesh``, ``setup_space``,
-``setup_operator``, ``setup_levels``).  Prints the wall
+``setup_operator``, ``setup_levels``) and, beside the lattice kernel's
+degree-2 launches in the traced steps, the kernels whose names
+``b2_q2_roofline`` reads as that kernel's degree-2 instances (the two
+counts are equal where the metric's name patterns catch every launch
+and no other kernel).  Prints the wall
 of the timed run or window, the kernel time the profiler saw and its
 share of that wall (the device's busy share; the profiler itself slows
 the host, not the kernels), the launches per CUDA kernel wrapper, the
 top kernels by device time and the top host operations (not for
 ``--cell``), then the program's spans (``core/spans.py``): device
 seconds and kernels under each innermost span, by multigrid level, by
-gather site and for the CGS2 orthogonalisation, the device's longest
-idle time by the span the host was in, and the spans per step.  The
-spans are read from the profiler's raw events, as
+level and gather site and for the CGS2 orthogonalisation, the device's
+longest idle time by the span the host was in, and the spans per step.
+The spans are read from the profiler's raw events, as
 ``benchmark/trace.py`` reads them.  Needs CUDA.
 """
 
@@ -270,8 +274,8 @@ def span_report(prof, n_gaps: int = 12) -> None:
         if any(p in name for p in PATTERNS):
             site = next((c for c in chain if c.startswith("gather.")),
                         "(an index kernel outside gather spans)")
-            by_site[site][0] += 1
-            by_site[site][1] += sec
+            by_site[f"{level or '-'}: {site}"][0] += 1
+            by_site[f"{level or '-'}: {site}"][1] += sec
         if "krylov.orthogonalize" in chain:
             i = chain.index("krylov.orthogonalize")
             caller = chain[i + 1] if i + 1 < len(chain) else ""
@@ -291,7 +295,7 @@ def span_report(prof, n_gaps: int = 12) -> None:
         _table("  launched under", dict(sorted(
             rows.items(), key=lambda kv: -kv[1][1])[:3]), 3)
     _table("multigrid level", by_level)
-    _table("gather site (index-gather kernels)", by_site)
+    _table("level: gather site (index-gather kernels)", by_site)
     _table("CGS2 (krylov.orthogonalize) by caller", cgs2)
     # idle gaps of the device by the span the host was in
     dev = sorted((s0, s1) for _, s0, s1, _ in kernels)
@@ -327,15 +331,25 @@ def profile_cell(name: str, seed: int, steps: int | None) -> None:
     from torch.profiler import ProfilerActivity
 
     from benchmark import harness, traffic
+    from benchmark.metrics.b2_q2_roofline import PATTERNS as Q2_PATTERNS
+    from softx_2020_200_tpu_torch.ops.lattice_kernel import LatticeGLSKernel
     cell = traffic.load_cell(name, os.path.join(ROOT, "benchmark"))
     steps = steps or int(cell["trace_steps"])
     run = harness.Run(cell, seed)
     with contextlib.redirect_stdout(io.StringIO()):
         run.setup()
         plain = run.window(1e9, steps)
+        before = dict(LatticeGLSKernel.launches_by_shape)
         with torch.profiler.profile(activities=[
                 ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             traced = run.window(1e9, steps)
+    q2_launches = sum(n - before.get(key, 0) for key, n in
+                      LatticeGLSKernel.launches_by_shape.items()
+                      if key[1] == 2)
+    q2_kernels = sum(
+        1 for ev in prof.profiler.kineto_results.events()
+        if ev.device_type() == torch.autograd.DeviceType.CUDA
+        and any(p in ev.name() for p in Q2_PATTERNS))
     st = traced["stats"]
     sections = run.solver.timer.sections
     print(f"== {name} set-up sections (host s): " + ", ".join(
@@ -348,6 +362,8 @@ def profile_cell(name: str, seed: int, steps: int | None) -> None:
     print("  counters: " + ", ".join(
         f"{k} {st[k]}" for k in st if k.startswith("gather_")
         or k in ("vcycle_s", "sync_wait_s", "newton_seconds")))
+    print(f"  lattice kernel, degree 2: {q2_launches} launches, "
+          f"{q2_kernels} kernels under b2_q2_roofline's name patterns")
     span_report(prof)
     run.release()
 

@@ -22,7 +22,8 @@ on the device and keeps no tensor.
 The counters (``COUNTERS``) are the V-cycles and their host seconds,
 the host's seconds in device-to-host reads, the calls and bytes of
 the index gathers and indexed writes by call site (``SITES``), which
-``take`` and ``put`` make, each inside a span ``gather.<site>``, and
+``take`` and ``put`` make, each inside a span ``gather.<site>``, those
+of a part of a site again on their own (``PARTS``), and
 the multigrid preconditioner's builds with the states alive at each
 (``track_state``).  The
 counters are updated from the free functions of the Newton, Krylov and
@@ -52,15 +53,19 @@ from .timer import SectionTimer
 # assembly, the hanging-node constraints, the node-block and Schwarz
 # preconditioners
 SITES = ("transfer", "operator", "constraints", "smoother")
+# parts of a site, counted besides it (their gathers stay in the site's
+# count and span): the transfers between a lattice's finest level and
+# its Q1 p-level (``ops/multigrid.py::build_hierarchy``)
+PARTS = ("transfer_p",)
 
 COUNTERS = {"vcycles": 0, "vcycle_s": 0.0, "sync_wait_s": 0.0,
-            **{f"gather_{what}_{site}": 0 for site in SITES
+            **{f"gather_{what}_{site}": 0 for site in SITES + PARTS
                for what in ("bytes", "calls")},
             "gmg_builds": 0, "gmg_states_live": 0}
 
 _counts = dict(COUNTERS)
 _GATHER_KEYS = {site: (f"gather_bytes_{site}", f"gather_calls_{site}")
-                for site in SITES}
+                for site in SITES + PARTS}
 _GATHER_SPANS = {site: f"gather.{site}" for site in SITES}
 _NULL = nullcontext()
 # the multigrid preconditioner states alive now (``track_state``)
@@ -110,16 +115,18 @@ def _tally(site: str, out, index) -> None:
     _counts[calls] += 1
 
 
-def take(site: str, x, index):
+def take(site: str, x, index, part: str | None = None):
     """``x[index]``, an index gather at ``site``; while a profiler
     records, inside the span ``gather.<site>``, and the call and its
     bytes counted: the gathered rows and the index, from their
-    shapes."""
+    shapes; under ``part`` too when one is given."""
     if not _profiler._is_profiler_enabled:
         return x[index]
     with _RecordFunctionFast(_GATHER_SPANS[site]):
         out = x[index]
     _tally(site, out, index)
+    if part is not None:
+        _tally(part, out, index)
     return out
 
 

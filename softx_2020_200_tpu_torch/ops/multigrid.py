@@ -100,7 +100,9 @@ class Level:
     ``inj_weights`` [N, nn_above] (on a forest).  ``restrict_idx`` [N, M]
     (made here) lists, for each node of this level, the slots of
     ``masters`` that name it: restriction is a gather and a sum over
-    them, in a fixed order on every device."""
+    them, in a fixed order on every device.  ``part`` names the counter
+    that counts this level's transfers besides ``transfer``
+    (``core/spans.py::PARTS``), or None."""
     op: object
     mask: torch.Tensor
     masters: torch.Tensor | None = None
@@ -110,6 +112,7 @@ class Level:
     inj_masters: torch.Tensor | None = None
     inj_weights: torch.Tensor | None = None
     hc: object = None
+    part: str | None = None
 
     def __post_init__(self):
         if self.masters is not None and self.restrict_idx is None:
@@ -121,9 +124,9 @@ class Level:
         """A nodal state of the level above -> this level (injection or
         interpolation)."""
         if self.inject is not None:
-            return take("transfer", x, self.inject)
+            return take("transfer", x, self.inject, self.part)
         return torch.einsum("nm,nmc->nc", self.inj_weights,
-                            take("transfer", x, self.inj_masters))
+                            take("transfer", x, self.inj_masters, self.part))
 
     def hc_distribute(self, u):
         return u if self.hc is None else self.hc.distribute(u)
@@ -138,7 +141,7 @@ def prolong(level: Level, vc):
     their masters first)."""
     vc = level.hc_distribute(vc)
     return torch.einsum("fm,fmc->fc", level.weights,
-                        take("transfer", vc, level.masters))
+                        take("transfer", vc, level.masters, level.part))
 
 
 def restrict(level: Level, rf):
@@ -147,7 +150,7 @@ def restrict(level: Level, rf):
     same order on every run."""
     return level.hc_transpose(assemble(
         level.weights[:, :, None] * rf[:, None, :], level.restrict_idx,
-        "transfer"))
+        "transfer", level.part))
 
 
 def _coarsen_forest(forest):
@@ -281,7 +284,7 @@ def build_hierarchy(solver, min_elems: int = 256) -> list[Level]:
     hi = mesh.vertices.max(axis=0)
     prev_space = space
 
-    def add_level(cspace, n_q1d):
+    def add_level(cspace, n_q1d, part=None):
         # the coarse levels store the Jacobian state as the fine one does
         cop = GLSOperator(cspace, solver.op.nu, n_q1d=n_q1d,
                           stab=solver.op.stab,
@@ -294,14 +297,14 @@ def build_hierarchy(solver, min_elems: int = 256) -> list[Level]:
                                     device=solver.device),
             weights=torch.as_tensor(weights, **kw),
             inject=torch.as_tensor(inject.astype(np.int64),
-                                   device=solver.device)))
+                                   device=solver.device), part=part))
 
     cur_degree = space.degree
     if space.degree > 1:
         # p-coarsening first: a Q1 level on the SAME lattice, then
         # h-halving at degree 1
         cspace = FESpace(mesh, 1)
-        add_level(cspace, 2)
+        add_level(cspace, 2, part="transfer_p")
         prev_space = cspace
         cur_degree = 1
     while (len(levels) < MAX_LEVELS

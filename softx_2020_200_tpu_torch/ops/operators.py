@@ -61,15 +61,18 @@ def build_assembly_map(elem_nodes: np.ndarray, n_nodes: int,
                        max_multiplicity=M)
 
 
-def assemble(r_el, amap_idx, site: str | None = None):
+def assemble(r_el, amap_idx, site: str | None = None,
+             part: str | None = None):
     """r_el[E, nn, c] (any strides) -> [N, c]: gather-sum through the
     assembly map ``amap_idx[N, M]``; its gather is counted under the
-    caller's ``site`` (``core/spans.py``) when one is given."""
+    caller's ``site`` (and ``part``, ``core/spans.py``) when one is
+    given."""
     E, nn, c = r_el.shape
     flat = r_el.new_empty((E * nn + 1, c))
     flat[:E * nn].view(E, nn, c).copy_(r_el)
     flat[E * nn].zero_()
-    rows = flat[amap_idx] if site is None else take(site, flat, amap_idx)
+    rows = (flat[amap_idx] if site is None
+            else take(site, flat, amap_idx, part))
     return rows.sum(dim=1)
 
 
